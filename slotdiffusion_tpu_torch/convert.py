@@ -1,0 +1,276 @@
+"""JAX-package parameters -> the port's `state_dict`.
+
+Takes the flax param tree of a JAX-package model as nested dicts
+of numpy arrays (e.g. `jax.tree_util.tree_map(np.asarray, params)`) and
+returns `{name: torch.Tensor}` for `load_state_dict`. The walks are copies
+of the ones the JAX package's `models/torch_export.py` uses for
+`export_torch_savi_diffusion` (:287-318); the port's modules carry the
+upstream names those walks emit, so only the prefixes differ.
+
+Layout rules: conv [kh, kw, C, F] -> [F, C, kh, kw]; dense [in, out] ->
+[out, in]; norm scale/bias -> weight/bias.
+"""
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+def _conv(out, prefix, sub, bias=True):
+    out[f"{prefix}.weight"] = np.transpose(_np(sub["kernel"]), (3, 2, 0, 1))
+    if bias:
+        out[f"{prefix}.bias"] = _np(sub["bias"])
+
+
+def _linear(out, prefix, sub):
+    out[f"{prefix}.weight"] = np.transpose(_np(sub["kernel"]))
+    if "bias" in sub:
+        out[f"{prefix}.bias"] = _np(sub["bias"])
+
+
+def _norm(out, prefix, sub):
+    g = sub["GroupNorm_0"]
+    out[f"{prefix}.weight"] = _np(g["scale"])
+    out[f"{prefix}.bias"] = _np(g["bias"])
+
+
+def _layernorm(out, prefix, sub):
+    out[f"{prefix}.weight"] = _np(sub["scale"])
+    out[f"{prefix}.bias"] = _np(sub["bias"])
+
+
+def _resblock(out, p, sub):
+    _norm(out, f"{p}.in_layers.0", sub["GroupNorm32_0"])
+    _conv(out, f"{p}.in_layers.2", sub["Conv_0"])
+    _linear(out, f"{p}.emb_layers.1", sub["Dense_0"])
+    _norm(out, f"{p}.out_layers.0", sub["GroupNorm32_1"])
+    _conv(out, f"{p}.out_layers.3", sub["Conv_1"])
+    if "Conv_2" in sub:
+        _conv(out, f"{p}.skip_connection", sub["Conv_2"])
+
+
+def _spatial_transformer(out, p, sub, depth):
+    _norm(out, f"{p}.norm", sub["GroupNorm32_0"])
+    _conv(out, f"{p}.proj_in", sub["Conv_0"])
+    _conv(out, f"{p}.proj_out", sub["Conv_1"])
+    for d in range(depth):
+        bp, blk = f"{p}.transformer_blocks.{d}", sub[f"block{d}"]
+        for i in range(3):
+            _layernorm(out, f"{bp}.norm{i + 1}", blk[f"LayerNorm_{i}"])
+        for a in ("attn1", "attn2"):
+            for name in ("to_q", "to_k", "to_v"):
+                _linear(out, f"{bp}.{a}.{name}", blk[a][name])
+            _linear(out, f"{bp}.{a}.to_out.0", blk[a]["to_out"])
+        _linear(out, f"{bp}.ff.net.0.proj", blk["GEGLU_0"]["Dense_0"])
+        _linear(out, f"{bp}.ff.net.2", blk["Dense_0"])
+
+
+def convert_unet(params, num_res_blocks: int, channel_mult: Sequence[int],
+                 attention_resolutions: Sequence[int],
+                 transformer_depth: int = 1) -> Dict[str, np.ndarray]:
+    """flax UNetModel params -> port UNetModel names (block indices
+    replayed as the UNet builds them)."""
+    out: Dict[str, np.ndarray] = {}
+    _linear(out, "time_embed.0", params["Dense_0"])
+    _linear(out, "time_embed.2", params["Dense_1"])
+    _conv(out, "input_blocks.0.0", params["conv_in"])
+    _norm(out, "out.0", params["GroupNorm32_0"])
+    _conv(out, "out.2", params["conv_out"])
+    idx, ds = 1, 1
+    for level in range(len(channel_mult)):
+        for i in range(num_res_blocks):
+            _resblock(out, f"input_blocks.{idx}.0",
+                      params[f"down{level}_res{i}"])
+            if ds in attention_resolutions:
+                _spatial_transformer(out, f"input_blocks.{idx}.1",
+                                     params[f"down{level}_attn{i}"],
+                                     transformer_depth)
+            idx += 1
+        if level != len(channel_mult) - 1:
+            _conv(out, f"input_blocks.{idx}.0.op",
+                  params[f"down{level}_ds"]["Conv_0"])
+            idx += 1
+            ds *= 2
+    _resblock(out, "middle_block.0", params["mid_res1"])
+    _spatial_transformer(out, "middle_block.1", params["mid_attn"],
+                         transformer_depth)
+    _resblock(out, "middle_block.2", params["mid_res2"])
+    j = 0
+    for level in reversed(range(len(channel_mult))):
+        for i in range(num_res_blocks + 1):
+            _resblock(out, f"output_blocks.{j}.0",
+                      params[f"up{level}_res{i}"])
+            pos = 1
+            if ds in attention_resolutions:
+                _spatial_transformer(out, f"output_blocks.{j}.{pos}",
+                                     params[f"up{level}_attn{i}"],
+                                     transformer_depth)
+                pos += 1
+            if level > 0 and i == num_res_blocks:
+                _conv(out, f"output_blocks.{j}.{pos}.conv",
+                      params[f"up{level}_us"]["Conv_0"])
+                ds //= 2
+            j += 1
+    return out
+
+
+def convert_slot_attention(params) -> Dict[str, np.ndarray]:
+    t = np.transpose
+    return {
+        "norm_inputs.weight": _np(params["ln_in_scale"]),
+        "norm_inputs.bias": _np(params["ln_in_bias"]),
+        "project_k.weight": t(_np(params["wk"])),
+        "project_v.weight": t(_np(params["wv"])),
+        "project_q.0.weight": _np(params["ln_q_scale"]),
+        "project_q.0.bias": _np(params["ln_q_bias"]),
+        "project_q.1.weight": t(_np(params["wq"])),
+        "gru.weight_ih": t(_np(params["gru_wi"])),
+        "gru.bias_ih": _np(params["gru_bi"]),
+        "gru.weight_hh": t(_np(params["gru_wh"])),
+        "gru.bias_hh": _np(params["gru_bh"]),
+        "mlp.0.weight": _np(params["ln_mlp_scale"]),
+        "mlp.0.bias": _np(params["ln_mlp_bias"]),
+        "mlp.1.weight": t(_np(params["w1"])),
+        "mlp.1.bias": _np(params["b1"]),
+        "mlp.3.weight": t(_np(params["w2"])),
+        "mlp.3.bias": _np(params["b2"]),
+    }
+
+
+def convert_resnet(params, stage_sizes, use_layer4=False):
+    """flax GN-ResNet params -> torchvision names."""
+    out: Dict[str, np.ndarray] = {}
+    _conv(out, "conv1", params["Conv_0"], bias=False)
+    _norm(out, "bn1", params["_GN_0"])
+    bidx = 0
+    for stage in range(4 if use_layer4 else 3):
+        for i in range(stage_sizes[stage]):
+            p, blk = f"layer{stage + 1}.{i}", params[f"BasicBlock_{bidx}"]
+            _conv(out, f"{p}.conv1", blk["Conv_0"], bias=False)
+            _norm(out, f"{p}.bn1", blk["_GN_0"])
+            _conv(out, f"{p}.conv2", blk["Conv_1"], bias=False)
+            _norm(out, f"{p}.bn2", blk["_GN_1"])
+            if "Conv_2" in blk:
+                _conv(out, f"{p}.downsample.0", blk["Conv_2"], bias=False)
+                _norm(out, f"{p}.downsample.1", blk["_GN_2"])
+            bidx += 1
+    return out
+
+
+def convert_sa_encoder(params, stage_sizes, use_layer4=False):
+    """flax SAEncoder (GN-ResNet branch) -> port SAEncoder names."""
+    out = {f"encoder.{k}": v for k, v in convert_resnet(
+        params["ResNet_0"], stage_sizes, use_layer4).items()}
+    _linear(out, "encoder_pos_embedding.dense",
+            params["SoftPositionEmbed_0"]["Dense_0"])
+    _layernorm(out, "encoder_out_layer.0", params["LayerNorm_0"])
+    _linear(out, "encoder_out_layer.1", params["Dense_0"])
+    _linear(out, "encoder_out_layer.3", params["Dense_1"])
+    return out
+
+
+def convert_transformer_predictor(params, num_layers):
+    """flax TransformerPredictor -> torch TransformerEncoderLayer names
+    (packed in_proj)."""
+    out: Dict[str, np.ndarray] = {}
+    for i in range(num_layers):
+        p, sub = f"transformer_encoder.layers.{i}", params[f"attn{i}"]
+        D = _np(sub["out"]["bias"]).shape[0]
+        out[f"{p}.self_attn.in_proj_weight"] = np.concatenate(
+            [np.transpose(_np(sub[n]["kernel"]).reshape(D, D))
+             for n in ("query", "key", "value")], axis=0)
+        out[f"{p}.self_attn.in_proj_bias"] = np.concatenate(
+            [_np(sub[n]["bias"]).reshape(D)
+             for n in ("query", "key", "value")], axis=0)
+        out[f"{p}.self_attn.out_proj.weight"] = np.transpose(
+            _np(sub["out"]["kernel"]).reshape(D, D))
+        out[f"{p}.self_attn.out_proj.bias"] = _np(sub["out"]["bias"])
+        _layernorm(out, f"{p}.norm1", params[f"LayerNorm_{2 * i}"])
+        _layernorm(out, f"{p}.norm2", params[f"LayerNorm_{2 * i + 1}"])
+        _linear(out, f"{p}.linear1", params[f"Dense_{2 * i}"])
+        _linear(out, f"{p}.linear2", params[f"Dense_{2 * i + 1}"])
+    return out
+
+
+def _vq_resblock(out, p, sub):
+    _norm(out, f"{p}.norm1", sub["GroupNorm32_0"])
+    _conv(out, f"{p}.conv1", sub["Conv_0"])
+    _norm(out, f"{p}.norm2", sub["GroupNorm32_1"])
+    _conv(out, f"{p}.conv2", sub["Conv_1"])
+    if "Conv_2" in sub:
+        _conv(out, f"{p}.nin_shortcut", sub["Conv_2"])
+
+
+def _vq_attnblock(out, p, sub):
+    _norm(out, f"{p}.norm", sub["GroupNorm32_0"])
+    for i, name in enumerate(("q", "k", "v", "proj_out")):
+        _conv(out, f"{p}.{name}", sub[f"Conv_{i}"])
+
+
+def convert_vqvae(params, enc_dec_dict):
+    """flax VQVAE params -> port VQVAE names (upstream layout)."""
+    ch_mult = list(enc_dec_dict["ch_mult"])
+    nrb = enc_dec_dict["num_res_blocks"]
+    out: Dict[str, np.ndarray] = {}
+    for side, enc in (("encoder", params["encoder"]),
+                      ("decoder", params["decoder"])):
+        _conv(out, f"{side}.conv_in", enc["conv_in"])
+        _vq_resblock(out, f"{side}.mid.block_1", enc["mid_res1"])
+        _vq_attnblock(out, f"{side}.mid.attn_1", enc["mid_attn"])
+        _vq_resblock(out, f"{side}.mid.block_2", enc["mid_res2"])
+        _norm(out, f"{side}.norm_out", enc["norm_out"])
+        _conv(out, f"{side}.conv_out", enc["conv_out"])
+    enc, dec = params["encoder"], params["decoder"]
+    for level in range(len(ch_mult)):
+        for i in range(nrb):
+            _vq_resblock(out, f"encoder.down.{level}.block.{i}",
+                         enc[f"down{level}_res{i}"])
+        if level != len(ch_mult) - 1:
+            _conv(out, f"encoder.down.{level}.downsample.conv",
+                  enc[f"down{level}_ds"])
+        for i in range(nrb + 1):
+            _vq_resblock(out, f"decoder.up.{level}.block.{i}",
+                         dec[f"up{level}_res{i}"])
+        if level != 0:
+            _conv(out, f"decoder.up.{level}.upsample.conv",
+                  dec[f"up{level}_us"])
+    out["quantize.embedding.weight"] = _np(params["quantize"]["embedding"])
+    _conv(out, "quant_conv", params["quant_conv"])
+    _conv(out, "post_quant_conv", params["post_quant_conv"])
+    return out
+
+
+def convert_savi_diffusion(params, cfg) -> Dict[str, torch.Tensor]:
+    """flax SAViDiffusion params -> port SAViDiffusion state_dict, for the
+    config `cfg` (the same nested dicts both packages read)."""
+    from .models.resnet import STAGES
+    out: Dict[str, np.ndarray] = {}
+
+    def put(prefix, d):
+        out.update({f"{prefix}.{k}": v for k, v in d.items()})
+
+    savi = params["savi"]
+    out["savi.init_latents"] = _np(savi["init_latents"])
+    enc = cfg.enc_dict
+    put("savi.encoder", convert_sa_encoder(
+        savi["encoder"], STAGES[enc["resnet"]], enc.get("use_layer4", False)))
+    put("savi.slot_attention", convert_slot_attention(
+        savi["slot_attention"]))
+    put("savi.predictor", convert_transformer_predictor(
+        savi["predictor"], cfg.pred_dict.get("pred_num_layers", 2)))
+    ud = cfg.dec_dict["unet_dict"]
+    put("dm_decoder.unet", convert_unet(
+        params["dm_decoder"]["unet"], ud["num_res_blocks"],
+        ud["channel_mult"], ud["attention_resolutions"],
+        ud.get("transformer_depth", 1)))
+    if cfg.dec_dict.get("vae_dict"):
+        put("dm_decoder.vae.vqvae", convert_vqvae(
+            params["dm_decoder"]["vae"]["vqvae"],
+            cfg.dec_dict["vae_dict"]["enc_dec_dict"]))
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in out.items()}

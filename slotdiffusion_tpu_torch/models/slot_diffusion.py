@@ -1,0 +1,70 @@
+"""SAViDiffusion: SAVi with masked slot attention + a slot-conditioned
+LDM over the B*T frames (mirrors the JAX package's models/
+slot_diffusion.py:30-64, 160-245). Inference only."""
+
+import torch.nn.functional as F
+from torch import nn
+
+from .diffusion import LDM
+from .savi import SAVi
+
+
+def _upsample_masks(masks, vis_res, out_res):
+    """[B, N, h*w] -> [B, N, H, W], bilinear (half-pixel centers)."""
+    B, N = masks.shape[:2]
+    m = masks.reshape(B * N, 1, *vis_res)
+    m = F.interpolate(m, size=tuple(out_res), mode="bilinear",
+                      align_corners=False)
+    return m.reshape(B, N, *out_res)
+
+
+def _build_dm_decoder(dec_dict):
+    """The latent-diffusion decoder; pixel-space decoders are not ported."""
+    dd = dict(dec_dict)
+    if not dd.get("vae_dict"):
+        raise ValueError("only the latent (VQ-VAE) decoder is ported")
+    return LDM(resolution=tuple(dd["resolution"]),
+               unet_dict=dd["unet_dict"],
+               diffusion_dict=dd.get("diffusion_dict", {}),
+               vae_dict=dd["vae_dict"],
+               conditioning_key=dd.get("conditioning_key", "crossattn"))
+
+
+class SAViDiffusion(nn.Module):
+    def __init__(self, resolution, slot_dict, enc_dict, dec_dict, pred_dict,
+                 eps=1e-6):
+        super().__init__()
+        self.resolution = tuple(resolution)
+        self.num_slots = slot_dict["num_slots"]
+        self.slot_size = slot_dict["slot_size"]
+        self.savi = SAVi(slot_dict, enc_dict, pred_dict, eps=eps)
+        self.dm_decoder = _build_dm_decoder(dec_dict)
+
+    def encode(self, img, prev_slots=None, train=False):
+        """img [B, T, H, W, 3] -> slots [B, T, S, D], masks
+        [B, T, S, H, W] (at the visual resolution when `train`)."""
+        slots, masks, vis_res = self.savi.encode(img, prev_slots)
+        B, T, N = masks.shape[:3]
+        if not train and vis_res != self.resolution:
+            m = _upsample_masks(masks.reshape(B * T, N, -1), vis_res,
+                                self.resolution)
+            return slots, m.reshape(B, T, N, *self.resolution)
+        return slots, masks.reshape(B, T, N, *vis_res)
+
+    def forward(self, data_dict, prev_slots=None, train=False):
+        slots, masks = self.encode(data_dict["img"], prev_slots, train)
+        return {"slots": slots, "masks": masks}
+
+    def log_images(self, data_dict, generator=None, use_dpm=True,
+                   same_noise=True, x_T=None):
+        """Slot-conditioned video reconstruction: encode, DPM-Solver++ over
+        the B*T frames (one noise sample shared by default), VQ decode."""
+        out = self(data_dict)
+        B, T = data_dict["img"].shape[:2]
+        cond = out["slots"].reshape(B * T, self.num_slots, self.slot_size)
+        samples = self.dm_decoder.generate_imgs(
+            generator, cond=cond, use_dpm=use_dpm, same_noise=same_noise,
+            x_T=x_T)
+        samples = self.dm_decoder.decode_latent(samples)
+        return {"samples": samples.reshape(B, T, *samples.shape[1:]),
+                "masks": out["masks"], "slots": out["slots"]}

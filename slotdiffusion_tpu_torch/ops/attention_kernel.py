@@ -1,0 +1,79 @@
+"""Multi-head attention with the clamped-exp softmax: a CUDA kernel
+(`csrc/attention.cu`) and its plain version.
+
+Replaces the Pallas kernel `_mha_kernel` driven by `fused_mha`
+(the JAX package's ops/attention_kernel.py:61-90, 119-156). Heads are
+packed: q [B, Nq, H*D], k/v [B, Nk, H*D] -> [B, Nq, H*D]. The softmax is
+`exp(min(logits, 80)) / (sum + 1e-30)` without max subtraction, so the
+kernel is one pass over the keys with no rescaling (see the source for
+the design and its bound on the H100). The UNet reaches it through
+`attn_backend="fused"`, which ignores `attn_softmax` as the JAX package
+does.
+"""
+
+import torch
+
+from . import _cuda
+
+KERNEL_NAME = "attention"
+ROUTE = "cuda"
+SOURCE = "slotdiffusion_tpu_torch/csrc/attention.cu"
+REPLACES = "ops/attention_kernel.py:61"  # in the JAX package
+HEAD_DIM = 32  # the only head width the kernel takes (the UNet's)
+
+launches = 0  # kernel launches since ops.reset_launch_counts()
+
+
+def mha_reference(q, k, v, num_heads, scale=None):
+    """Plain version: clamped-exp multi-head attention in f32; the CPU path
+    of `fused_mha`."""
+    B, Nq, HD = q.shape
+    Nk = k.shape[1]
+    D = HD // num_heads
+    scale = D ** -0.5 if scale is None else scale
+    qh = q.float().reshape(B, Nq, num_heads, D).transpose(1, 2)
+    kh = k.float().reshape(B, Nk, num_heads, D).transpose(1, 2)
+    vh = v.float().reshape(B, Nk, num_heads, D).transpose(1, 2)
+    logits = (qh @ kh.transpose(-1, -2)) * scale
+    e = torch.exp(torch.clamp(logits, max=80.0))
+    w = e / (e.sum(-1, keepdim=True) + 1e-30)
+    out = (w @ vh).transpose(1, 2).reshape(B, Nq, HD)
+    return out.to(q.dtype)
+
+
+def check_inputs(q, k, v, num_heads):
+    """Raise ValueError unless the kernel takes these arguments: contiguous
+    f32 q [B, Nq, H*32] and k = v [B, Nk, H*32] on one device."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape[0] != q.shape[0] or \
+            k.shape[2] != q.shape[2] or v.shape != k.shape:
+        raise ValueError(f"fused_mha: q {tuple(q.shape)} k {tuple(k.shape)}"
+                         f" v {tuple(v.shape)} do not match")
+    if q.shape[2] != num_heads * HEAD_DIM:
+        raise ValueError(f"fused_mha takes head_dim {HEAD_DIM}, got "
+                         f"{q.shape[2]} / {num_heads}")
+    for t in (q, k, v):
+        if t.dtype != torch.float32 or not t.is_contiguous() or \
+                t.device != q.device:
+            raise ValueError("fused_mha takes contiguous f32 tensors on "
+                             "one device")
+
+
+def fused_mha(q, k, v, num_heads, scale=None):
+    """Clamped-exp attention: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    global launches
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, num_heads, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_mha: unsupported device {q.device}")
+    check_inputs(q, k, v, num_heads)
+    B, Nq, _ = q.shape
+    scale = HEAD_DIM ** -0.5 if scale is None else scale
+    out = torch.empty_like(q)
+    err = _cuda.lib().sdt_mha_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Nq,
+        k.shape[1], num_heads, HEAD_DIM, float(scale),
+        _cuda.stream_ptr(q.device))
+    _cuda.check(err, "sdt_mha_f32")
+    launches += 1
+    return out
