@@ -12,7 +12,8 @@ Phases (one flushed line each, with elapsed seconds):
   3. every kernel against its plain PyTorch version on the card at the
      shapes the serving path gives it (collected from one denoise call and
      one encode), with its error beside the stated tolerance, its device
-     time (torch.profiler) and its CUDA-event time per call, the plain
+     time per call (CUDA events around a CUDA graph of back-to-back calls)
+     and its CUDA-event time over eager calls, the plain
      version's, one PyTorch call's where one computes the same function,
      and the least time the card could take (`bound_ms`);
   4. the flagship SAViDiffusion (MOVi-E 128x128, random weights from a
@@ -62,17 +63,21 @@ def log(msg):
     print(f"[{time.time() - T0:8.2f}s] {msg}", flush=True)
 
 
-def timed(fn, iters=20, warmup=3):
-    """(device ms, event ms) per call. Device ms: the summed duration of the
-    device activities (kernels, copies, memsets) that `iters` calls run,
-    from torch.profiler (CUPTI), over `iters`. Event ms: CUDA events around
-    `iters` back-to-back calls, which include the host's launch cost
-    whenever the host is slower than the device (small shapes)."""
+def timed(fn, iters=20, warmup=3, reps=5):
+    """(device ms, event ms) per call. Device ms: CUDA events around the
+    replay of a CUDA graph that holds `iters` calls, over `iters`; the
+    median of `reps` replays. The graph launches the calls with no host
+    work between them, so this is the card's time for the work. Event ms:
+    CUDA events around `iters` back-to-back eager calls, which include the
+    host's launch cost whenever the host is slower than the device (small
+    shapes)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # compile and allocate before capture
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     start.record()
@@ -81,16 +86,21 @@ def timed(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise SystemExit("the profiler recorded no device activity")
-    return us / 1e3 / iters, event_ms
+        per_call.append(start.elapsed_time(end) / iters)
+    del graph
+    return sorted(per_call)[reps // 2], event_ms
 
 
 def bound_terms(nbytes, f32_ops=0.0, bf16_ops=0.0):

@@ -48,6 +48,10 @@ def profile(fn, torch):
         busy += us
         n, tot = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, tot + us)
+    if busy <= 0:
+        # CUPTI tracing is not open to this process: an idle share of 1
+        # would be a false reading
+        raise SystemExit("torch.profiler recorded no device activity")
     return prof, wall * 1e3, busy / 1e3, by_name
 
 
