@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the card's time goes in one `encode` and one `sample` request of
 the PyTorch port (flagship SAViDiffusion, MOVi-E 128x128, random weights
-from a seed, 2 videos x 6 frames, f32 with TF32 off).
+from a seed, 2 videos x 6 frames, f32 with TF32 off), and in one training
+step (`Trainer.train_step` on the config's 32 synthetic 6-frame clips:
+forward, backward, clip, Adam).
 
     python3 scripts/profile_torch_serving.py [--out chiprun_out/profile]
 
-Each request runs once to warm up, then once under `torch.profiler`
+Each request or step runs once to warm up, then once under
+`torch.profiler`
 (CPU + CUDA activities). Printed per request: the host wall time, the
 device busy time (the sum of the device activities: kernels, copies,
 memsets, which run on one stream and so do not overlap), the idle share
@@ -66,6 +69,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     from slotdiffusion_tpu_torch import configs
+    from slotdiffusion_tpu_torch.data.synthetic import SyntheticVideoData
+    from slotdiffusion_tpu_torch.methods.build import build_method
     from slotdiffusion_tpu_torch.models import build_model, init_random_
     from slotdiffusion_tpu_torch.serving import build_serving_fn
 
@@ -81,9 +86,20 @@ def main():
     encode = build_serving_fn(model, "encode")
     sample = build_serving_fn(model, "sample")
     slots, _ = encode(video)
-    summary = {"device": torch.cuda.get_device_name(0)}
+    data = SyntheticVideoData(cfg, cfg.train_batch_size,
+                              num_samples=cfg.train_batch_size)
+    trainer = build_method(model, data, cfg)
+    batch = next(iter(data.train_loader(0)))
+
+    def train_step():
+        model.train()
+        trainer.train_step(batch)
+
+    summary = {"device": torch.cuda.get_device_name(0),
+               "train_batch": cfg.train_batch_size}
     for name, fn in (("encode", lambda: encode(video)),
-                     ("sample", lambda: sample(0, slots))):
+                     ("sample", lambda: sample(0, slots)),
+                     ("train_step", train_step)):
         prof, wall_ms, busy_ms, by_name = profile(fn, torch)
         with open(os.path.join(args.out, f"{name}_key_averages.txt"),
                   "w") as f:

@@ -3,7 +3,12 @@
 An own copy of the settings of the JAX package's `configs_base.py:17-140,
 274-330` and `configs/video_based/savi_ldm/savi_ldm_movie_params-res128.py`
 (the port imports nothing of the JAX package), with `BaseParams` copied
-from the JAX package's `utils/config.py`.
+from the JAX package's `utils/config.py`. The training settings are
+`SAViLDMBase`'s (`configs_base.py:308-330`). The JAX config names an orbax
+stage-1 VQ-VAE (`vqvae_ckp_path`), which the port cannot read; the port's
+config leaves it unset (a random VQ-VAE), and a user points
+`dec_dict["vae_dict"]["vqvae_ckp_path"]` at a port-format file
+(`training/checkpoint.py:graft_pretrained`).
 
 Three knobs differ from the JAX flagship, and they are why the port's
 main path runs its kernels:
@@ -72,6 +77,22 @@ def ldm_dec_dict(resolution, slot_size, latent_ch=3, timesteps=1000):
 
 class SAViLDMMoviE128(BaseParams):
     """SAViDiffusion on MOVi-E at 128x128 (savi_ldm_movie_params-res128)."""
+    # training (SAViLDMBase, and the JAX trainer's defaults)
+    seed = 0
+    max_epochs = 30
+    save_interval = 0.1   # of an epoch
+    print_iter = 50
+    lr = 1e-4
+    dec_lr = 2e-4         # the dm_decoder group's max LR
+    min_lr = 0.0
+    clip_grad = 0.05      # <= 0: no clipping
+    warmup_steps_pct = 0.05
+    grad_accum_steps = 1
+    use_ema = False       # an EMA of the dm_decoder, swapped in at eval
+    ema_decay = 0.9999
+    train_batch_size = 32
+    denoise_loss_w = 1.0
+    # model
     model = "SAViDiffusion"
     resolution = (128, 128)
     n_sample_frames = 6
@@ -84,3 +105,30 @@ class SAViLDMMoviE128(BaseParams):
     pred_dict = dict(pred_type="transformer", pred_rnn=False,
                      pred_norm_first=True, pred_num_layers=2,
                      pred_num_heads=4, pred_ffn_dim=192 * 4)
+
+
+def tiny_config(resolution=(16, 16), num_slots=3, slot_size=32,
+                timesteps=50, use_pallas=True):
+    """The flagship's structure at narrow widths, for CPU runs and tests:
+    GN-ResNet18 encoder, 2-iteration SA, 1-layer predictor, a 2-level UNet
+    with attention at both levels, a 3-level VQ-VAE with 64 codes, no
+    dropout, 2 clips a step; the three kernel knobs as in the flagship."""
+    unet = dict(ldm_unet_dict(slot_size), model_channels=32,
+                num_res_blocks=1, attention_resolutions=(1, 2),
+                channel_mult=(1, 2), num_head_channels=32, dropout=0.0)
+    vae = vae_dict_for(resolution)
+    vae["enc_dec_dict"] = dict(vae["enc_dec_dict"], ch=8)
+    vae["vq_dict"] = dict(n_embed=64, embed_dim=3)
+    dec = ldm_dec_dict(resolution, slot_size, timesteps=timesteps)
+    dec.update(unet_dict=unet, vae_dict=vae)
+    return SAViLDMMoviE128().copy(
+        train_batch_size=2,
+        resolution=tuple(resolution),
+        slot_dict=dict(num_slots=num_slots, slot_size=slot_size,
+                       slot_mlp_size=2 * slot_size, num_iterations=2,
+                       use_pallas=use_pallas),
+        enc_dict=dict(SAViLDMMoviE128.enc_dict,
+                      enc_out_channels=slot_size),
+        dec_dict=dec,
+        pred_dict=dict(SAViLDMMoviE128.pred_dict, pred_num_layers=1,
+                       pred_num_heads=2, pred_ffn_dim=2 * slot_size))

@@ -1,13 +1,15 @@
-"""Slot-conditioned diffusion decoders for sampling (mirrors
-the JAX package's models/diffusion.py:40-160, 304-361, 372-413):
-`CondDDPM.denoise`, `sample_dpm` / `generate_imgs(use_dpm=True)` and the
-LDM's VQ-VAE encode / quantize / decode with quantize-as-denoise. Only
-the "crossattn" conditioning of the flagship is ported; training losses
-and the ancestral / DDIM samplers are later work.
+"""Slot-conditioned diffusion decoders (mirrors the JAX package's
+models/diffusion.py:40-160, 191-211, 304-361, 372-425): `CondDDPM.denoise`,
+`q_sample` and the training `loss_function`, `sample_dpm` /
+`generate_imgs(use_dpm=True)`, and the LDM's VQ-VAE encode / quantize /
+decode with quantize-as-denoise and its latent loss. Only the
+"crossattn" conditioning of the flagship is ported; the ancestral / DDIM
+samplers are later work.
 
 Latents and images are NHWC at every public method, as in the JAX package.
 """
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -38,6 +40,14 @@ class CondDDPM(nn.Module):
             d.get("beta_schedule", "linear"), d.get("timesteps", 1000),
             d.get("linear_start", 1e-4), d.get("linear_end", 2e-2))
         self.num_timesteps = len(self.betas)
+        # q(x_t | x_0) coefficients, float64 math stored as f32 (the JAX
+        # package's schedules.py:make_gaussian_schedule)
+        alphas_bar = np.cumprod(1.0 - self.betas)
+        for name, table in (("sqrt_alphas_bar", np.sqrt(alphas_bar)),
+                            ("sqrt_one_minus_alphas_bar",
+                             np.sqrt(1.0 - alphas_bar))):
+            self.register_buffer(name, torch.from_numpy(
+                table.astype(np.float32)), persistent=False)
         self.resolution = tuple(resolution)
         ud = dict(unet_dict)
         self.channels = ud.get("in_channels", 3)
@@ -56,12 +66,48 @@ class CondDDPM(nn.Module):
             attn_softmax=ud.get("attn_softmax", "fast"),
             fused_gn=ud.get("fused_gn", False))
 
-    def denoise(self, x, t, context):
-        """x [B, H, W, C] NHWC, t [B], context [B, S, D] -> NHWC output."""
-        out = self.unet(x.permute(0, 3, 1, 2).contiguous(), t, context)
+    def denoise(self, x, t, context, generator=None):
+        """x [B, H, W, C] NHWC, t [B], context [B, S, D] -> NHWC output.
+        `generator` draws the UNet's dropout masks in train mode."""
+        out = self.unet(x.permute(0, 3, 1, 2).contiguous(), t, context,
+                        generator)
         return out.permute(0, 2, 3, 1)
 
     forward = denoise
+
+    def q_sample(self, x0, t, noise):
+        """x_t ~ q(x_t | x_0) for integer timesteps t [B]."""
+        shape = (-1,) + (1,) * (x0.dim() - 1)
+        return (self.sqrt_alphas_bar[t].reshape(shape) * x0 +
+                self.sqrt_one_minus_alphas_bar[t].reshape(shape) * noise)
+
+    def loss_function(self, x0, context, generator=None, t=None,
+                      noise=None):
+        """The denoising loss on NHWC x0: t ~ U{0..T-1}, Gaussian noise
+        (both from `generator` unless given), MSE in f32 against the eps /
+        v / x0 target. Tests pass `t` and `noise` to feed both packages
+        the same draws."""
+        if generator is None and (t is None or noise is None):
+            raise ValueError("loss_function draws t and noise from a "
+                             "torch.Generator")
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (x0.shape[0],),
+                              generator=generator, device=x0.device)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator,
+                                device=x0.device, dtype=x0.dtype)
+        pred = self.denoise(self.q_sample(x0, t, noise), t, context,
+                            generator)
+        if self.pred_target == "eps":
+            gt = noise
+        elif self.pred_target == "v":
+            shape = (-1,) + (1,) * (x0.dim() - 1)
+            gt = (self.sqrt_alphas_bar[t].reshape(shape) * noise -
+                  self.sqrt_one_minus_alphas_bar[t].reshape(shape) * x0)
+        else:
+            gt = x0
+        return {"denoise_loss": ((pred.float() - gt.detach().float()) ** 2
+                                 ).mean()}
 
     def correct_x0(self, x0):
         """The DPM path's x0 correction. Pixel space takes dynamic
@@ -113,6 +159,14 @@ class LDM(CondDDPM):
 
     def encode_latent(self, img):
         return self.vae.encode(img)
+
+    def loss_function(self, img, context, generator=None, t=None,
+                      noise=None):
+        """The latent loss of NHWC images: the frozen VQ-VAE encodes them
+        without gradient, then `CondDDPM.loss_function`."""
+        with torch.no_grad():
+            x0 = self.encode_latent(img)
+        return super().loss_function(x0, context, generator, t, noise)
 
     def decode_latent(self, z):
         return self.vae.decode(z)

@@ -1,6 +1,8 @@
 """SAViDiffusion: SAVi with masked slot attention + a slot-conditioned
 LDM over the B*T frames (mirrors the JAX package's models/
-slot_diffusion.py:30-64, 160-245). Inference only."""
+slot_diffusion.py:30-64, 160-245): the encoder, the training loss
+(`compute_losses`) and the slot-conditioned reconstruction
+(`log_images`)."""
 
 import torch.nn.functional as F
 from torch import nn
@@ -54,6 +56,20 @@ class SAViDiffusion(nn.Module):
     def forward(self, data_dict, prev_slots=None, train=False):
         slots, masks = self.encode(data_dict["img"], prev_slots, train)
         return {"slots": slots, "masks": masks}
+
+    def compute_losses(self, data_dict, generator=None, t=None, noise=None):
+        """Encode the clips, fold T into the batch and take the LDM's
+        denoising loss of every frame conditioned on its slots. -> (out,
+        {"denoise_loss": scalar}). `generator` draws t, the noise and the
+        dropout masks; tests pass `t` and `noise` instead."""
+        out = self(data_dict, train=True)
+        img = data_dict["img"]
+        B, T = img.shape[:2]
+        losses = self.dm_decoder.loss_function(
+            img.reshape(B * T, *img.shape[2:]),
+            out["slots"].reshape(B * T, self.num_slots, self.slot_size),
+            generator, t=t, noise=noise)
+        return out, losses
 
     def log_images(self, data_dict, generator=None, use_dpm=True,
                    same_noise=True, x_T=None):

@@ -126,10 +126,30 @@ class SpatialTransformer(nn.Module):
         return x + self.proj_out(h)
 
 
+class Dropout(nn.Module):
+    """Dropout whose mask comes from the caller's `torch.Generator`, so a
+    seeded run repeats; off in eval mode. In train mode with p > 0 it
+    needs the generator (the JAX package draws it from the `dropout`
+    rng stream)."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, generator=None):
+        if not self.training or self.p == 0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in train mode needs a torch.Generator")
+        keep = torch.rand(x.shape, generator=generator, device=x.device) \
+            >= self.p
+        return x * keep / (1.0 - self.p)
+
+
 class ResBlock(nn.Module):
-    """GN+SiLU -> conv3x3, + time-embedding, GN+SiLU -> conv3x3, residual
-    with a 1x1 skip on a channel change. A decoder block takes the
-    channel-concat of h and its skip."""
+    """GN+SiLU -> conv3x3, + time-embedding, GN+SiLU -> dropout ->
+    conv3x3, residual with a 1x1 skip on a channel change. A decoder
+    block takes the channel-concat of h and its skip."""
 
     def __init__(self, channels, out_channels, emb_channels, dropout=0.0,
                  fused_gn=False):
@@ -141,15 +161,16 @@ class ResBlock(nn.Module):
                                         nn.Linear(emb_channels, out_channels))
         self.out_layers = nn.Sequential(
             GroupNorm32(out_channels, act="silu", fused=fused_gn),
-            nn.Identity(), nn.Dropout(dropout),
+            nn.Identity(), Dropout(dropout),
             nn.Conv2d(out_channels, out_channels, 3, padding=1))
         self.skip_connection = nn.Identity() if channels == out_channels \
             else nn.Conv2d(channels, out_channels, 1)
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, generator=None):
         h = self.in_layers(x)
         h = h + self.emb_layers(emb)[:, :, None, None]
-        return self.skip_connection(x) + self.out_layers(h)
+        norm, _, drop, conv = self.out_layers
+        return self.skip_connection(x) + conv(drop(norm(h), generator))
 
 
 class Downsample(nn.Module):
@@ -255,26 +276,27 @@ class UNetModel(nn.Module):
             nn.Conv2d(mc, out_channels, 3, padding=1))
 
     @staticmethod
-    def _run(block, h, emb, context):
+    def _run(block, h, emb, context, generator):
         for layer in block:
             if isinstance(layer, ResBlock):
-                h = layer(h, emb)
+                h = layer(h, emb, generator)
             elif isinstance(layer, SpatialTransformer):
                 h = layer(h, context)
             else:
                 h = layer(h)
         return h
 
-    def forward(self, x, timesteps, context=None):
+    def forward(self, x, timesteps, context=None, generator=None):
+        """`generator` draws the dropout masks in train mode."""
         emb = self.time_embed(timestep_embedding(timesteps,
                                                  self.model_channels))
         hs = []
         h = x.float()
         for block in self.input_blocks:
-            h = self._run(block, h, emb, context)
+            h = self._run(block, h, emb, context, generator)
             hs.append(h)
-        h = self._run(self.middle_block, h, emb, context)
+        h = self._run(self.middle_block, h, emb, context, generator)
         for block in self.output_blocks:
             h = self._run(block, torch.cat([h, hs.pop()], dim=1), emb,
-                          context)
+                          context, generator)
         return self.out(h)

@@ -37,6 +37,8 @@ _SIGNATURES = {
     # gru_bh, ln_mlp_scale, ln_mlp_bias, w1, b1, w2, b2, slots_out, mask,
     # B, N, S, D, M, num_iterations, eps, scale, with_mask, stream
     "sdt_sa_iterations_bf16": [_P] * 18 + [_I] * 6 + [_F, _F, _I, _P],
+    # x, w, U^T scratch [16, Fp, Cp], y, B, H, W, C, F, Fp, Cp, stream
+    "sdt_winograd_f2x2_3x3_bf16": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

@@ -58,9 +58,7 @@ def check_inputs(q, k, v, num_heads):
                              "one device")
 
 
-def fused_mha(q, k, v, num_heads, scale=None):
-    """Clamped-exp attention: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+def _forward(q, k, v, num_heads, scale):
     global launches
     if q.device.type == "cpu":
         return mha_reference(q, k, v, num_heads, scale)
@@ -77,3 +75,30 @@ def fused_mha(q, k, v, num_heads, scale=None):
     _cuda.check(err, "sdt_mha_f32")
     launches += 1
     return out
+
+
+class FusedMHA(torch.autograd.Function):
+    """Forward: the CUDA kernel (CUDA) or the plain version (CPU).
+    Backward: autograd of the clamped-exp `mha_reference` recomputed at the
+    saved (q, k, v), as the JAX custom_vjp's `_fused_mha_bwd`
+    (ops/attention_kernel.py:118-174 of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (num_heads, scale)
+        return _forward(q, k, v, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = mha_reference(*inputs, *ctx.args)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None, None)
+
+
+def fused_mha(q, k, v, num_heads, scale=None):
+    """Clamped-exp attention: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors; differentiable through `FusedMHA`."""
+    return FusedMHA.apply(q, k, v, num_heads, scale)

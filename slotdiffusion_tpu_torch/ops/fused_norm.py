@@ -107,9 +107,7 @@ def check_inputs(x, weight, bias, num_groups, act):
                          f"exceeds the kernel's {MAX_GROUP}")
 
 
-def fused_group_norm(x, weight, bias, num_groups, eps=1e-5, act=None):
-    """GroupNorm(+SiLU) over NCHW `x`: the Triton kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
+def _forward(x, weight, bias, num_groups, eps, act):
     global _kernel, launches
     if x.device.type == "cpu":
         return group_norm_reference(x, weight, bias, num_groups, eps, act)
@@ -129,3 +127,31 @@ def fused_group_norm(x, weight, bias, num_groups, eps=1e-5, act=None):
                               num_warps=warps)
     launches += 1
     return y
+
+
+class FusedGroupNorm(torch.autograd.Function):
+    """Forward: the Triton kernel (CUDA) or the plain version (CPU).
+    Backward: autograd of `group_norm_reference` recomputed at the saved
+    (x, weight, bias), as the JAX custom_vjp's `_fgn_bwd`
+    (ops/fused_norm.py:126-155 of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, act):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.args = (num_groups, eps, act)
+        return _forward(x, weight, bias, num_groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, gy):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = group_norm_reference(*inputs, *ctx.args)
+            grads = torch.autograd.grad(y, inputs, gy)
+        return (*grads, None, None, None)
+
+
+def fused_group_norm(x, weight, bias, num_groups, eps=1e-5, act=None):
+    """GroupNorm(+SiLU) over NCHW `x`: the Triton kernel for a CUDA tensor,
+    the plain version for a CPU tensor; differentiable through
+    `FusedGroupNorm`."""
+    return FusedGroupNorm.apply(x, weight, bias, num_groups, eps, act)

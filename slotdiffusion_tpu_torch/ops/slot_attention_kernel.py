@@ -114,17 +114,13 @@ def check_inputs(k, v, slots, p, num_iterations, kv_dtype):
                              f"{expect[key]} on {k.device}")
 
 
-def sa_iterations(k, v, slots, p, *, num_iterations, eps,
-                  return_last_attn=False, kv_dtype=torch.bfloat16):
-    """Slot-attention refinement: the CUDA kernel for CUDA tensors (bf16
-    k/v only), the plain version for CPU tensors."""
+def _forward(k, v, slots, p, num_iterations, eps, return_last_attn,
+             kv_dtype):
     global launches
     if k.device.type == "cpu":
         return sa_iterations_ref(
             k, v, slots, p, num_iterations=num_iterations, eps=eps,
             return_last_attn=return_last_attn, kv_dtype=kv_dtype)
-    if k.device.type != "cuda":
-        raise ValueError(f"sa_iterations: unsupported device {k.device}")
     check_inputs(k, v, slots, p, num_iterations, kv_dtype)
     B, N, D = k.shape
     S = slots.shape[1]
@@ -146,3 +142,48 @@ def sa_iterations(k, v, slots, p, *, num_iterations, eps,
     if return_last_attn:
         return out, mask
     return out
+
+
+class SlotAttentionIterations(torch.autograd.Function):
+    """Forward: the CUDA kernel with bf16 k/v (CUDA) or the plain version
+    in `kv_dtype` (CPU). Backward: autograd of `sa_iterations_ref` in f32
+    (`kv_dtype=torch.float32`) at the saved f32 (k, v, slots, weights), as
+    the JAX custom_vjp's `_sa_bwd` differentiates its f32 jnp twin
+    (ops/slot_attention_kernel.py:419-450 of the JAX package). The mask
+    carries no gradient (the JAX kernel's `stop_gradient`). The weights
+    come after the other arguments, in SA_WEIGHT_KEYS order."""
+
+    @staticmethod
+    def forward(ctx, k, v, slots, num_iterations, eps, return_last_attn,
+                kv_dtype, *weights):
+        ctx.save_for_backward(k, v, slots, *weights)
+        ctx.args = (num_iterations, eps)
+        out = _forward(k, v, slots, dict(zip(SA_WEIGHT_KEYS, weights)),
+                       num_iterations, eps, return_last_attn, kv_dtype)
+        if return_last_attn:
+            ctx.mark_non_differentiable(out[1])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_slots, *g_mask):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        num_iterations, eps = ctx.args
+        with torch.enable_grad():
+            out = sa_iterations_ref(
+                *inputs[:3], dict(zip(SA_WEIGHT_KEYS, inputs[3:])),
+                num_iterations=num_iterations, eps=eps,
+                kv_dtype=torch.float32)
+            grads = torch.autograd.grad(out, inputs, g_slots)
+        return (*grads[:3], None, None, None, None, *grads[3:])
+
+
+def sa_iterations(k, v, slots, p, *, num_iterations, eps,
+                  return_last_attn=False, kv_dtype=torch.bfloat16):
+    """Slot-attention refinement: the CUDA kernel for CUDA tensors (bf16
+    k/v only), the plain version for CPU tensors; differentiable through
+    `SlotAttentionIterations`."""
+    if k.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sa_iterations: unsupported device {k.device}")
+    return SlotAttentionIterations.apply(
+        k, v, slots, num_iterations, eps, return_last_attn, kv_dtype,
+        *[p[key] for key in SA_WEIGHT_KEYS])

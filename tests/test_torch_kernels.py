@@ -6,6 +6,7 @@ mode, as the JAX package's own kernel tests do. Inputs come from numpy
 with a fixed seed and go to both sides.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,12 +15,21 @@ import torch
 from slotdiffusion_tpu.ops.attention_kernel import fused_mha as jax_mha
 from slotdiffusion_tpu.ops.fused_norm import fused_group_norm as jax_gn
 from slotdiffusion_tpu.ops.slot_attention_kernel import sa_iterations_pallas
+from slotdiffusion_tpu.ops.slot_attention_kernel import \
+    sa_iterations_ref as jax_sa_ref
+from slotdiffusion_tpu.ops.winograd_conv import \
+    winograd_conv3x3 as jax_winograd
 from slotdiffusion_tpu_torch import ops
+from slotdiffusion_tpu_torch.ops import (attention_kernel, fused_norm,
+                                         slot_attention_kernel,
+                                         winograd_conv)
 from slotdiffusion_tpu_torch.models.blocks import GroupNorm32
 from slotdiffusion_tpu_torch.ops.attention_kernel import fused_mha
 from slotdiffusion_tpu_torch.ops.fused_norm import fused_group_norm
 from slotdiffusion_tpu_torch.ops.slot_attention_kernel import (
     SA_WEIGHT_KEYS, sa_iterations)
+from slotdiffusion_tpu_torch.ops.winograd_conv import (
+    direct_conv, winograd_conv3x3, winograd_reference)
 
 # f32 on both sides, the same formula with sums taken in another order:
 # differences are a few f32 ulps of O(1) values
@@ -122,8 +132,221 @@ def test_wrappers_launch_or_raise_off_the_cpu():
     k = torch.empty(1, 16, 32, device="meta")
     with pytest.raises(ValueError):
         sa_iterations(k, k, k[:, :4], {}, num_iterations=1, eps=1e-6)
+    x = torch.empty(1, 4, 4, 16, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        winograd_conv3x3(x, torch.empty(3, 3, 16, 16, device="meta"))
     # the CPU path is the plain version and launches nothing
     fused_group_norm(torch.ones(1, 32, 4, 4), torch.ones(32),
                      torch.zeros(32), 32)
+    winograd_conv3x3(torch.ones(1, 4, 4, 16), torch.ones(3, 3, 16, 16))
     assert ops.launch_counts() == {
-        "gn_silu": 0, "attention": 0, "slot_attention": 0}
+        "gn_silu": 0, "attention": 0, "slot_attention": 0,
+        "winograd_conv3x3": 0}
+
+
+# ---- the fourth kernel: Winograd F(2x2, 3x3) ----------------------------
+
+# one bf16 ulp at the output's largest magnitude: U and V are rounded to
+# bf16 at the same points on both sides, so only an f32 sum taken in
+# another order, or a U entry whose f32 einsum lands on the other side of
+# a bf16 rounding boundary, differs
+def _bf16_ulp_tol(ref):
+    return 2.0 ** -7 * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,f", [((2, 8, 8, 128), 128),
+                                     ((1, 4, 6, 128), 128)])
+def test_winograd_matches_pallas(dtype, shape, f):
+    """The plain version and the CPU path of `winograd_conv3x3` against the
+    JAX Pallas kernel in interpret mode, the same input dtype on both
+    sides (the shapes of the JAX package's tests/test_winograd.py)."""
+    r = np.random.RandomState(3)
+    x = r.randn(*shape).astype(np.float32)
+    w = (r.randn(3, 3, shape[-1], f) * 0.05).astype(np.float32)
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    ref = np.asarray(jax_winograd(jx, jnp.asarray(w), True)).astype(
+        np.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    for out in (winograd_reference(tx, torch.from_numpy(w)),
+                winograd_conv3x3(tx, torch.from_numpy(w))):
+        assert out.dtype == tx.dtype and out.shape == (*shape[:3], f)
+        err = np.abs(out.float().numpy() - ref).max()
+        assert err <= _bf16_ulp_tol(ref), (err, _bf16_ulp_tol(ref))
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 10, 16), (1, 5, 7, 8)])
+def test_winograd_reference_matches_direct_conv(shape):
+    """Any H and W (odd edges included) against the f32 direct conv, to
+    the JAX tests' bf16-class bound."""
+    r = np.random.RandomState(4)
+    x = torch.from_numpy(r.randn(*shape).astype(np.float32))
+    w = torch.from_numpy((r.randn(3, 3, shape[-1], 12) * 0.2).astype(
+        np.float32))
+    y = winograd_reference(x, w)
+    ref = direct_conv(x, w)
+    assert (y - ref).abs().max() <= 3e-2 * ref.abs().max()
+
+
+# ---- each autograd.Function's CPU path against jax.grad ------------------
+
+def _proj(shape, seed):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def _torch_grads(fn, arrays, proj):
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    out = fn(*ts)
+    out = out[0] if isinstance(out, tuple) else out
+    (out * torch.from_numpy(proj)).sum().backward()
+    return [t.grad.numpy() for t in ts]
+
+
+def _assert_grads_close(got, want, rtol, atol_of_scale):
+    """atol is `atol_of_scale` of each leaf's largest magnitude, or of a
+    hundredth of the largest leaf's where that is larger: a leaf whose
+    gradient is zero in exact arithmetic holds f32 noise (the q-LN bias of
+    slot attention: it shifts every slot's logit at a position alike, and
+    the softmax over the slots ignores that)."""
+    want = [np.asarray(w) for w in want]
+    floor = 1e-2 * max(np.abs(w).max() for w in want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(
+            g, w, rtol=rtol, atol=atol_of_scale * max(np.abs(w).max(),
+                                                      floor))
+
+
+@pytest.mark.parametrize("act,eps", [(None, 1e-6), ("silu", 1e-5)])
+def test_group_norm_grad_matches_jax(act, eps):
+    r = np.random.RandomState(5)
+    x = (r.randn(2, 4, 4, 128) * 2 + 0.5).astype(np.float32)
+    w = (1 + 0.1 * r.randn(128)).astype(np.float32)
+    b = (0.1 * r.randn(128)).astype(np.float32)
+    proj = _proj(x.shape, 6)
+    want = jax.grad(lambda *a: jnp.sum(jax_gn(*a, 32, eps, act, True) *
+                                       proj), argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    got = _torch_grads(
+        lambda x, w, b: fused_group_norm(
+            x.permute(0, 3, 1, 2), w, b, 32, eps, act).permute(0, 2, 3, 1),
+        [x, w, b], proj)
+    _assert_grads_close(got, want, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("nq,nk,hd,heads", [(64, 64, 256, 8),
+                                            (16, 15, 256, 8)])
+def test_attention_grad_matches_jax(nq, nk, hd, heads):
+    r = np.random.RandomState(7)
+    q, k, v = (r.randn(2, n, hd).astype(np.float32) for n in (nq, nk, nk))
+    proj = _proj(q.shape, 8)
+    want = jax.grad(lambda *a: jnp.sum(jax_mha(*a, heads, None, True) *
+                                       proj), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = _torch_grads(lambda q, k, v: fused_mha(q, k, v, heads),
+                       [q, k, v], proj)
+    _assert_grads_close(got, want, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16"])
+def test_slot_attention_grad_matches_jax(kv):
+    """The JAX custom_vjp differentiates the f32 jnp twin at the f32 k/v
+    (`_sa_bwd`), whatever type the forward streams k/v in; so must the
+    port, also with the flagship's bf16 k/v."""
+    B, N, S, D, iters = 2, 64, 5, 32, 2
+    p = _sa_weights(D, 2 * D, seed=1)
+    r = np.random.RandomState(9)
+    k, v = (r.randn(B, N, D).astype(np.float32) for _ in range(2))
+    slots = r.randn(B, S, D).astype(np.float32)
+    proj = _proj(slots.shape, 10)
+    arrays = [k, v, slots] + [p[key] for key in SA_WEIGHT_KEYS]
+
+    def jloss(k, v, slots, *w):
+        out = jax_sa_ref(k, v, slots, dict(zip(SA_WEIGHT_KEYS, w)),
+                         num_iterations=iters, eps=1e-6,
+                         return_last_attn=True)[0]
+        return jnp.sum(out * proj)
+
+    want = jax.grad(jloss, argnums=tuple(range(len(arrays))))(
+        *[jnp.asarray(a) for a in arrays])
+    got = _torch_grads(
+        lambda k, v, slots, *w: sa_iterations(
+            k, v, slots, dict(zip(SA_WEIGHT_KEYS, w)),
+            num_iterations=iters, eps=1e-6, return_last_attn=True,
+            kv_dtype=getattr(torch, kv)), arrays, proj)
+    _assert_grads_close(got, want, 1e-4, 1e-5)
+
+
+def test_winograd_grad_matches_jax():
+    r = np.random.RandomState(11)
+    x = r.randn(1, 4, 6, 128).astype(np.float32)
+    w = (r.randn(3, 3, 128, 128) * 0.05).astype(np.float32)
+    proj = _proj((1, 4, 6, 128), 12)
+    want = jax.grad(lambda x, w: jnp.sum(jax_winograd(x, w, True) * proj),
+                    argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    got = _torch_grads(winograd_conv3x3, [x, w], proj)
+    _assert_grads_close(got, want, 1e-4, 1e-5)
+
+
+def _gn_case(r):
+    x = torch.from_numpy(r.randn(2, 64, 4, 4).astype(np.float32))
+    w, b = (torch.from_numpy(r.randn(64).astype(np.float32))
+            for _ in range(2))
+    return fused_norm, [x, w, b], (8, 1e-5, "silu"), \
+        lambda *a: fused_norm.group_norm_reference(*a, 8, 1e-5, "silu")
+
+
+def _mha_case(r):
+    q, k, v = (torch.from_numpy(r.randn(2, n, 64).astype(np.float32))
+               for n in (16, 15, 15))
+    return attention_kernel, [q, k, v], (2, None), \
+        lambda *a: attention_kernel.mha_reference(*a, 2)
+
+
+def _sa_case(r):
+    p = _sa_weights(16, 32, seed=2)
+    t = [torch.from_numpy(r.randn(*s).astype(np.float32))
+         for s in ((2, 24, 16), (2, 24, 16), (2, 4, 16))]
+    t += [torch.from_numpy(p[key]) for key in SA_WEIGHT_KEYS]
+
+    def plain(k, v, s, *w):
+        return slot_attention_kernel.sa_iterations_ref(
+            k, v, s, dict(zip(SA_WEIGHT_KEYS, w)), num_iterations=2,
+            eps=1e-6, kv_dtype=torch.float32)
+    return slot_attention_kernel, t, (2, 1e-6, False, torch.float32), plain
+
+
+def _wino_case(r):
+    x = torch.from_numpy(r.randn(1, 4, 4, 16).astype(np.float32))
+    w = torch.from_numpy(r.randn(3, 3, 16, 8).astype(np.float32) * 0.1)
+    return winograd_conv, [x, w], (), winograd_conv.direct_conv
+
+
+@pytest.mark.parametrize("case", [_gn_case, _mha_case, _sa_case,
+                                  _wino_case])
+def test_backward_does_not_need_the_forward_graph(case, monkeypatch):
+    """On the card a kernel writes its output through a raw pointer, so
+    the output has no autograd graph of its own. Each Function's backward
+    must give the plain version's gradients all the same: here the forward
+    is replaced by its plain version with the graph cut off."""
+    mod, inputs, args, plain = case(np.random.RandomState(13))
+    fn = {fused_norm: fused_group_norm, attention_kernel: fused_mha,
+          winograd_conv: winograd_conv3x3}.get(mod)
+    if mod is slot_attention_kernel:
+        def fn(k, v, s, *w):
+            return sa_iterations(k, v, s, dict(zip(SA_WEIGHT_KEYS, w)),
+                                 num_iterations=2, eps=1e-6,
+                                 kv_dtype=torch.float32)
+        args = ()
+    real = mod._forward
+    monkeypatch.setattr(mod, "_forward",
+                        lambda *a: real(*a).detach())
+    got = [t.clone().requires_grad_() for t in inputs]
+    want = [t.clone().requires_grad_() for t in inputs]
+    out = fn(*got, *args)
+    assert out.grad_fn is not None
+    proj = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    (out * proj).sum().backward()
+    (plain(*want) * proj).sum().backward()
+    for g, w in zip(got, want):
+        assert g.grad is not None and g.grad.abs().max() > 0
+        torch.testing.assert_close(g.grad, w.grad, rtol=1e-5, atol=1e-6)

@@ -112,15 +112,27 @@ def test_serving_surfaces(pair):
     assert logged["samples"].shape == (1, T_FRAMES, *RES, 3)
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
-    code = ("import sys, slotdiffusion_tpu_torch.serving, "
-            "slotdiffusion_tpu_torch.convert, "
-            "slotdiffusion_tpu_torch.configs\n"
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """Every module of the port, and the training script run for one tiny
+    step on the CPU, import neither jax, flax nor the JAX package."""
+    code = ("import pkgutil, runpy, sys, slotdiffusion_tpu_torch as pkg\n"
+            "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "
+            "'.'):\n"
+            "    __import__(m.name)\n"
+            "sys.argv = ['train_torch.py', '--cpu', '--tiny', "
+            f"'--max_steps', '1', '--ckp_path', {str(tmp_path)!r}]\n"
+            "try:\n"
+            "    runpy.run_path('scripts/train_torch.py', "
+            "run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert not e.code, e.code\n"
+            "runpy.run_path('scripts/bench_torch_winograd.py')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'slotdiffusion_tpu')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                   timeout=120)
+                   timeout=300)
+    assert (tmp_path / "ckpt_last.pt").exists()
 
 
 def test_chip_smoke_refuses_without_a_card():

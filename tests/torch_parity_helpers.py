@@ -20,29 +20,9 @@ TIMESTEPS = 50
 
 
 def tiny_config(use_pallas=True):
-    """The flagship's structure at narrow widths: GN-ResNet18 encoder,
-    2-iteration SA, 1-layer predictor, a 2-level UNet with attention at
-    both levels, a 3-level VQ-VAE with 64 codes. The three kernel knobs are
-    set as in the flagship."""
-    unet = dict(configs.ldm_unet_dict(SLOT_SIZE), model_channels=32,
-                num_res_blocks=1, attention_resolutions=(1, 2),
-                channel_mult=(1, 2), num_head_channels=32, dropout=0.0)
-    vae = configs.vae_dict_for(RES)
-    vae["enc_dec_dict"] = dict(vae["enc_dec_dict"], ch=8)
-    vae["vq_dict"] = dict(n_embed=64, embed_dim=3)
-    dec = configs.ldm_dec_dict(RES, SLOT_SIZE, timesteps=TIMESTEPS)
-    dec.update(unet_dict=unet, vae_dict=vae)
-    return configs.SAViLDMMoviE128().copy(
-        resolution=RES,
-        slot_dict=dict(num_slots=SLOTS, slot_size=SLOT_SIZE,
-                       slot_mlp_size=2 * SLOT_SIZE, num_iterations=2,
-                       use_pallas=use_pallas),
-        enc_dict=dict(configs.SAViLDMMoviE128.enc_dict,
-                      enc_out_channels=SLOT_SIZE),
-        dec_dict=dec,
-        pred_dict=dict(configs.SAViLDMMoviE128.pred_dict,
-                       pred_num_layers=1, pred_num_heads=2,
-                       pred_ffn_dim=2 * SLOT_SIZE))
+    """The flagship's structure at narrow widths
+    (`slotdiffusion_tpu_torch.configs.tiny_config`)."""
+    return configs.tiny_config(RES, SLOTS, SLOT_SIZE, TIMESTEPS, use_pallas)
 
 
 def jax_params_of(cfg):
