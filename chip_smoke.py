@@ -17,8 +17,12 @@ Phases (one flushed line each, with elapsed seconds):
      version's, one PyTorch call's where one computes the same function,
      and the least time the card could take (`bound_ms`); the Winograd
      kernel, which no model calls, at the flagship UNet's four ResBlock
-     conv shapes (scripts/bench_winograd.py) and through its own entry
-     point with the launch counts set to 0 before and read after;
+     conv shapes (scripts/bench_winograd.py), each on its own line: the
+     weight transform (`kernel_weights`, which must equal its plain
+     version bit for bit), the convolution on U (`winograd_conv3x3_u`,
+     the kernel's row, against `F.conv2d` with its weights already in
+     bf16) and the whole call (`winograd_conv3x3`); then through its own
+     entry point with the launch counts set to 0 before and read after;
   3b. each kernel's autograd.Function on the card, at the largest of its
      serving shapes (Winograd: the second bench shape): the gradients of
      a random projection of its output through the kernel path against
@@ -67,6 +71,7 @@ T0 = time.time()
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12     # f32 outside the tensor cores
 BF16_FLOPS = 989e12   # dense bf16 tensor-core rate
+TF32_FLOPS = 495e12   # dense TF32 tensor-core rate
 
 # tolerances of kernel vs plain version on the card, and why
 TOL = {
@@ -147,11 +152,14 @@ def timed(fn, iters=20, warmup=3, reps=5):
     return sorted(per_call)[reps // 2], event_ms
 
 
-def bound_terms(nbytes, f32_ops=0.0, bf16_ops=0.0):
+def bound_terms(nbytes, f32_ops=0.0, bf16_ops=0.0, tf32_ops=0.0):
     """(ms to move the bytes, ms to do the operations) at the peaks: each
-    input read once, each output written once."""
+    input read once, each output written once; operations at the rate of
+    the unit that does them (`tf32_ops`: TF32 tensor-core products, three
+    for each f32-accurate one in the 3xTF32 split)."""
     return (1e3 * nbytes / HBM_BYTES_PER_S,
-            1e3 * (f32_ops / F32_FLOPS + bf16_ops / BF16_FLOPS))
+            1e3 * (f32_ops / F32_FLOPS + bf16_ops / BF16_FLOPS +
+                   tf32_ops / TF32_FLOPS))
 
 
 def record_shapes(model):
@@ -224,8 +232,10 @@ def kernel_cases(shapes, sa_mod, gen, dev):
                lambda: attention_kernel.mha_reference(q, k, v, heads),
                lambda: F.scaled_dot_product_attention(split(q), split(k),
                                                       split(v)),
+               # q k^T and e v on the tensor cores, each f32 product as
+               # three TF32 ones (3xTF32)
                bound_terms(4 * (2 * q.numel() + 2 * k.numel()),
-                           f32_ops=4.0 * Bq * nq * nk * hd))
+                           tf32_ops=3 * 4.0 * Bq * nq * nk * hd))
     p = {key: val.detach().contiguous()
          for key, val in sa_mod.kernel_weights().items()}
     for (Bs, N, S, D, M, iters), calls in sorted(
@@ -268,7 +278,8 @@ def record(results, failed, phase, name, calls, label, err, tol, k_t, p_t,
     ok = err <= tol
     if not ok:
         failed.append(f"{name} {label}")
-    lib = "n/a" if l_ms is None else f"{l_ms:.4f} ({l_ev:.4f}) ms"
+    lib = "n/a" if l_ms is None else \
+        f"{l_ms:.4f} ({l_ev:.4f}), kernel/library {k_ms / l_ms:.3f}"
     log(f"{phase}: {name} {label} x{calls}: max_abs_err {err:.3e} "
         f"(tol {tol:.1e}) {'ok' if ok else 'FAIL'} | device "
         f"(event) ms: kernel {k_ms:.4f} ({k_ev:.4f}), plain "
@@ -299,6 +310,11 @@ def check_kernels(shapes, sa_mod, gen, dev, phase):
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failed}")
+    for name, r in results.items():
+        if r["has_lib"]:
+            log(f"{phase}: {name} summed over the calls: kernel "
+                f"{r['ms']:.4f} ms, library {r['lib']:.4f} ms (device), "
+                f"kernel/library {r['ms'] / r['lib']:.3f}")
     return results
 
 
@@ -669,15 +685,34 @@ def main():
     # (scripts/bench_winograd.py), bf16 as the JAX kernel takes them
     wino_shapes = [(32, 32, 32, 128, 128), (32, 16, 16, 256, 256),
                    (32, 8, 8, 384, 384), (32, 4, 4, 512, 512)]
-    wino_inputs = []
+    wino_inputs, wino_extra = [], dict(transform=0.0, call=0.0,
+                                       transform_plain=0.0, call_plain=0.0)
     for (Bw, Hw, Ww, C, Fo) in wino_shapes:
         xw = torch.randn(Bw, Hw, Ww, C, generator=gen, device=dev).to(
             torch.bfloat16)
         ww = torch.randn(3, 3, C, Fo, generator=gen, device=dev) * \
             (9 * C) ** -0.5
         wino_inputs.append((xw, ww))
-        kern = lambda: winograd_conv.winograd_conv3x3(xw, ww)
-        plain = lambda: winograd_conv.winograd_reference(xw, ww)
+        label = f"B={Bw} {Hw}x{Ww} C={C} F={Fo}"
+        # the weight transform: U^T must equal the plain version's bit for
+        # bit (the same f32 operations, then bf16)
+        ut = winograd_conv.kernel_weights(ww)
+        ut_plain = winograd_conv.kernel_weights_reference(ww)
+        same_u = torch.equal(ut, ut_plain)
+        if not same_u:
+            failed.append(f"winograd_conv3x3 {Hw}x{Ww} U")
+        (t_ms, t_ev), (tp_ms, _) = (
+            timed(lambda: winograd_conv.kernel_weights(ww)),
+            timed(lambda: winograd_conv.kernel_weights_reference(ww)))
+        t_bound = max(bound_terms(9 * C * Fo * 4 + ut.numel() * 2))
+        log(f"phase 3: winograd transform {label}: U equals the plain "
+            f"version's {'ok' if same_u else 'FAIL'} | device (event) ms: "
+            f"kernel {t_ms:.4f} ({t_ev:.4f}), plain {tp_ms:.4f}, bound "
+            f"{t_bound:.4f} (bytes)")
+        # the convolution on U, against F.conv2d with its weights already
+        # in bf16 (channels-last): like for like
+        kern = lambda: winograd_conv.winograd_conv3x3_u(xw, ut, Fo)
+        plain = lambda: winograd_conv.winograd_reference_u(xw, ut, Fo)
         xc = xw.permute(0, 3, 1, 2)  # NCHW view of channels-last memory
         wc = ww.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
@@ -686,25 +721,42 @@ def main():
         err = (y - ref).abs().max().item()
         f32 = winograd_conv.direct_conv(xw.float(), ww)
         rel32 = ((y - f32).abs().max() / f32.abs().max()).item()
-        log(f"phase 3: winograd_conv3x3 B={Bw} {Hw}x{Ww} C={C} F={Fo}: "
-            f"vs the f32 direct conv {rel32:.2e} of its scale (tol "
-            f"{WINO_F32_TOL:.0e})")
+        log(f"phase 3: winograd_conv3x3 {label}: vs the f32 direct conv "
+            f"{rel32:.2e} of its scale (tol {WINO_F32_TOL:.0e})")
         if not rel32 <= WINO_F32_TOL:
             failed.append(f"winograd_conv3x3 {Hw}x{Ww} vs f32 conv")
         terms = bound_terms(
             2 * (Bw * Hw * Ww * C + 16 * C * Fo + Bw * Hw * Ww * Fo),
             bf16_ops=8.0 * Bw * Hw * Ww * C * Fo)
         record(results, failed, "phase 3", "winograd_conv3x3", 1,
-               f"B={Bw} {Hw}x{Ww} C={C} F={Fo}", err,
-               WINO_TOL * ref.abs().max().item(), timed(kern), timed(plain),
-               timed(lib), terms)
+               f"conv on U {label}", err, WINO_TOL * ref.abs().max().item(),
+               timed(kern), timed(plain), timed(lib), terms)
+        # the whole call (transform + convolution), as a caller without U
+        call = lambda: winograd_conv.winograd_conv3x3(xw, ww)
+        call_plain = lambda: winograd_conv.winograd_reference(xw, ww)
+        c_err = (call().float() - call_plain().float()).abs().max().item()
+        (c_ms, c_ev), (cp_ms, _) = timed(call), timed(call_plain)
+        c_tol = WINO_TOL * ref.abs().max().item()
+        if not c_err <= c_tol:
+            failed.append(f"winograd_conv3x3 {Hw}x{Ww} whole call")
+        log(f"phase 3: winograd whole call {label}: max_abs_err "
+            f"{c_err:.3e} (tol {c_tol:.1e}) "
+            f"{'ok' if c_err <= c_tol else 'FAIL'} | device (event) ms: "
+            f"kernel {c_ms:.4f} ({c_ev:.4f}), plain {cp_ms:.4f}")
+        for key, val in (("transform", t_ms), ("call", c_ms),
+                         ("transform_plain", tp_ms), ("call_plain", cp_ms)):
+            wino_extra[key] += val
     # ragged edges the serving shapes do not reach: a partial query tile
-    # and key tile, a partial k/v tile, few slots, other widths
-    q = torch.randn(3, 100, 96, generator=gen, device=dev)
-    k = torch.randn(3, 70, 96, generator=gen, device=dev)
-    err = (attention_kernel.fused_mha(q, k, k, 3) -
-           attention_kernel.mha_reference(q, k, k, 3)).abs().max().item()
-    edge = {"attention": err}
+    # and key tile, a partial k/v tile, more keys than one pass stages,
+    # few slots, other widths; (name, shape label, error, tolerance)
+    edge = []
+    for (Bq, nq, nk, heads) in ((3, 100, 70, 3), (2, 40, 300, 2)):
+        q = torch.randn(Bq, nq, 32 * heads, generator=gen, device=dev)
+        k = torch.randn(Bq, nk, 32 * heads, generator=gen, device=dev)
+        err = (attention_kernel.fused_mha(q, k, k, heads) -
+               attention_kernel.mha_reference(q, k, k, heads)
+               ).abs().max().item()
+        edge.append(("attention", f"Nq={nq} Nk={nk}", err, TOL["attention"]))
     D, M = 64, 128
     pe = {"wq": (D, D), "ln_q_scale": (D,), "ln_q_bias": (D,),
           "gru_wi": (D, 3 * D), "gru_bi": (3 * D,), "gru_wh": (D, 3 * D),
@@ -717,30 +769,33 @@ def main():
     kw = dict(num_iterations=3, eps=1e-6, return_last_attn=True)
     (ko, km) = slot_attention_kernel.sa_iterations(ks, ks, s0, pe, **kw)
     (po, pm) = slot_attention_kernel.sa_iterations_ref(ks, ks, s0, pe, **kw)
-    edge["slot_attention"] = max((ko - po).abs().max().item(),
-                                 (km - pm).abs().max().item())
+    edge.append(("slot_attention", "N=1000 S=7 D=64",
+                 max((ko - po).abs().max().item(),
+                     (km - pm).abs().max().item()), TOL["slot_attention"]))
     xg = torch.randn(5, 96, 7, 9, generator=gen, device=dev)
     wg = torch.ones(96, device=dev)
-    edge["gn_silu"] = (fused_norm.fused_group_norm(xg, wg, wg, 24, 1e-5,
-                                                   "silu") -
-                       fused_norm.group_norm_reference(
-                           xg, wg, wg, 24, 1e-5, "silu")).abs().max().item()
-    # Winograd: partial tile and channel blocks, odd H, C not a multiple
-    # of the kernel's 16-channel chunk
-    xw = torch.randn(3, 9, 14, 72, generator=gen, device=dev).to(
-        torch.bfloat16)
-    ww = torch.randn(3, 3, 72, 40, generator=gen, device=dev) * 0.04
-    ref = winograd_conv.winograd_reference(xw, ww).float()
-    edge["winograd_conv3x3"] = (
-        winograd_conv.winograd_conv3x3(xw, ww).float() - ref
-    ).abs().max().item()
-    edge_tol = dict(TOL, winograd_conv3x3=WINO_TOL * ref.abs().max().item())
-    for name, err in edge.items():
-        ok = err <= edge_tol[name]
-        log(f"phase 3: {name} ragged-edge shape: max_abs_err {err:.3e} "
-            f"(tol {edge_tol[name]:.1e}) {'ok' if ok else 'FAIL'}")
+    edge.append(("gn_silu", "(5, 96, 7, 9)", (
+        fused_norm.fused_group_norm(xg, wg, wg, 24, 1e-5, "silu") -
+        fused_norm.group_norm_reference(xg, wg, wg, 24, 1e-5, "silu")
+    ).abs().max().item(), TOL["gn_silu"]))
+    # Winograd: partial tile and channel blocks, odd H or W, C not a
+    # multiple of the kernel's 64-channel chunk; C = 70 takes the V pass's
+    # two-channel path (C not a multiple of 4)
+    for (Bw, Hw, Ww, C, Fo) in ((3, 9, 14, 72, 40), (2, 7, 5, 70, 24)):
+        xw = torch.randn(Bw, Hw, Ww, C, generator=gen, device=dev).to(
+            torch.bfloat16)
+        ww = torch.randn(3, 3, C, Fo, generator=gen, device=dev) * 0.04
+        ref = winograd_conv.winograd_reference(xw, ww).float()
+        edge.append(("winograd_conv3x3", f"({Bw}, {Hw}, {Ww}, {C}) F={Fo}",
+                     (winograd_conv.winograd_conv3x3(xw, ww).float() - ref
+                      ).abs().max().item(),
+                     WINO_TOL * ref.abs().max().item()))
+    for name, label, err, tol in edge:
+        ok = err <= tol
+        log(f"phase 3: {name} ragged-edge shape {label}: max_abs_err "
+            f"{err:.3e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            failed.append(f"{name} edge")
+            failed.append(f"{name} edge {label}")
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failed}")
@@ -837,6 +892,13 @@ def main():
     kernels = []
     for name, r in results.items():
         m = mods[name]
+        extra = {} if name != "winograd_conv3x3" else {
+            # `ms` is the convolution on U; these the transform and the
+            # whole call, summed over the same four shapes
+            "transform_ms": wino_extra["transform"],
+            "transform_plain_ms": wino_extra["transform_plain"],
+            "call_ms": wino_extra["call"],
+            "call_plain_ms": wino_extra["call_plain"]}
         kernels.append({
             "name": name, "route": m.ROUTE, "source": m.SOURCE,
             "replaces": f"{ops.REFERENCE_PACKAGE}/{m.REPLACES}",
@@ -856,6 +918,7 @@ def main():
             "per_path_launches": {s: c[name] for s, c in per_path.items()},
             "per_surface_launches": {s: c[name]
                                      for s, c in per_surface.items()},
+            **extra,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

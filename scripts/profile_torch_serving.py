@@ -28,7 +28,7 @@ import os
 import sys
 import time
 
-KERNELS = {"gn_silu": "gn_kernel", "attention": "mha_clamped_kernel",
+KERNELS = {"gn_silu": "gn_kernel", "attention": "mha_clamped",
            "slot_attention": "sa_iterations_kernel"}
 
 

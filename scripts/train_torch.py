@@ -5,7 +5,8 @@ scripts/train.py for `slotdiffusion_tpu_torch`).
     python scripts/train_torch.py --cpu --tiny --max_steps 3 # CPU check
 
 The flagship config (SAViDiffusion, MOVi-E 128x128, 32 clips a step)
-trains on synthetic 6-frame clips from random weights (seeded) against
+trains on synthetic 6-frame clips from the JAX model's own init
+(`init_reference_`, seeded; said on stdout) against
 the frozen stage-1 VQ-VAE that `--vqvae_ckp_path` names (a port-format
 checkpoint; required); `--tiny` takes the flagship's structure at narrow
 widths (2 clips of 16x16 a step) and, without that path, a random
@@ -46,7 +47,7 @@ def main(argv=None):
     from slotdiffusion_tpu_torch import configs
     from slotdiffusion_tpu_torch.data.synthetic import SyntheticVideoData
     from slotdiffusion_tpu_torch.methods.build import build_method
-    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    from slotdiffusion_tpu_torch.models import build_model, init_reference_
 
     if not args.cpu and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --cpu to train on the CPU")
@@ -65,7 +66,9 @@ def main(argv=None):
         print("the VQ-VAE is random (no --vqvae_ckp_path)", flush=True)
     batch = cfg.train_batch_size
     model = build_model(cfg, device=device)
-    init_random_(model, torch.Generator().manual_seed(args.seed))
+    init_reference_(model, torch.Generator().manual_seed(args.seed))
+    print(f"initialized from the JAX model's reference init "
+          f"(init_reference_, seed {args.seed})", flush=True)
     data = SyntheticVideoData(cfg, batch, seed=args.seed)
     ckp_path = args.ckp_path or os.path.join("checkpoint", f"torch_{name}")
     trainer = build_method(model, data, cfg, ckp_path=ckp_path)

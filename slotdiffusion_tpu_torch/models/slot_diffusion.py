@@ -41,6 +41,9 @@ class SAViDiffusion(nn.Module):
         self.slot_size = slot_dict["slot_size"]
         self.savi = SAVi(slot_dict, enc_dict, pred_dict, eps=eps)
         self.dm_decoder = _build_dm_decoder(dec_dict)
+        # the JAX model's `use_ema` (models/slot_diffusion.py:176-178): the
+        # decoder's config may ask for an EMA of `dm_decoder`
+        self.use_ema = bool(dec_dict.get("use_ema", False))
 
     def encode(self, img, prev_slots=None, train=False):
         """img [B, T, H, W, 3] -> slots [B, T, S, D], masks

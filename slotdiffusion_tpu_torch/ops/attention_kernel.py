@@ -43,7 +43,8 @@ def mha_reference(q, k, v, num_heads, scale=None):
 
 def check_inputs(q, k, v, num_heads):
     """Raise ValueError unless the kernel takes these arguments: contiguous
-    f32 q [B, Nq, H*32] and k = v [B, Nk, H*32] on one device."""
+    f32 q [B, Nq, H*32] and k = v [B, Nk, H*32] on one device, each
+    16-byte aligned (the kernel stages K and V with 16-byte loads)."""
     if q.dim() != 3 or k.dim() != 3 or k.shape[0] != q.shape[0] or \
             k.shape[2] != q.shape[2] or v.shape != k.shape:
         raise ValueError(f"fused_mha: q {tuple(q.shape)} k {tuple(k.shape)}"
@@ -53,9 +54,9 @@ def check_inputs(q, k, v, num_heads):
                          f"{q.shape[2]} / {num_heads}")
     for t in (q, k, v):
         if t.dtype != torch.float32 or not t.is_contiguous() or \
-                t.device != q.device:
-            raise ValueError("fused_mha takes contiguous f32 tensors on "
-                             "one device")
+                t.device != q.device or t.data_ptr() % 16:
+            raise ValueError("fused_mha takes contiguous, 16-byte-aligned "
+                             "f32 tensors on one device")
 
 
 def _forward(q, k, v, num_heads, scale):

@@ -66,8 +66,12 @@ class Trainer:
             warmup_steps=int(params.warmup_steps_pct * total),
             min_lr=params.min_lr, clip_grad=params.clip_grad,
             grad_accum_steps=k, lr_groups=lr_groups)
+        # either switch turns the EMA on, as in the JAX trainer
+        # (training/trainer.py:181-182): the model's (dec_dict["use_ema"])
+        # or the run's (params.use_ema)
+        use_ema = model.use_ema or params.use_ema
         self.ema = ExponentialMovingAverage(model, params.ema_decay) \
-            if params.use_ema else None
+            if use_ema else None
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(seed))
         self.loss_weights = {name: float(getattr(params, name))

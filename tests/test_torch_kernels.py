@@ -17,8 +17,11 @@ from slotdiffusion_tpu.ops.fused_norm import fused_group_norm as jax_gn
 from slotdiffusion_tpu.ops.slot_attention_kernel import sa_iterations_pallas
 from slotdiffusion_tpu.ops.slot_attention_kernel import \
     sa_iterations_ref as jax_sa_ref
+from slotdiffusion_tpu.ops.winograd_conv import _wino_call as jax_wino_call
 from slotdiffusion_tpu.ops.winograd_conv import \
     winograd_conv3x3 as jax_winograd
+from slotdiffusion_tpu.ops.winograd_conv import \
+    winograd_weights as jax_winograd_weights
 from slotdiffusion_tpu_torch import ops
 from slotdiffusion_tpu_torch.ops import (attention_kernel, fused_norm,
                                          slot_attention_kernel,
@@ -172,6 +175,38 @@ def test_winograd_matches_pallas(dtype, shape, f):
                 winograd_conv3x3(tx, torch.from_numpy(w))):
         assert out.dtype == tx.dtype and out.shape == (*shape[:3], f)
         err = np.abs(out.float().numpy() - ref).max()
+        assert err <= _bf16_ulp_tol(ref), (err, _bf16_ulp_tol(ref))
+
+
+@pytest.mark.parametrize("shape,f", [((2, 8, 8, 128), 128),
+                                     ((1, 6, 10, 72), 40)])
+def test_winograd_split_matches_jax_weights_and_conv(shape, f):
+    """The two halves of the entry point, as the JAX package splits them:
+    `kernel_weights` (U^T, zero-padded to the kernel's blocks) holds the
+    JAX `winograd_weights(w)` in bf16 bit for bit, and the convolution on
+    U (`winograd_conv3x3_u`, the plain version on the CPU) the JAX Pallas
+    kernel on the same U in interpret mode, to one bf16 ulp; on U it is
+    `winograd_conv3x3` exactly."""
+    r = np.random.RandomState(5)
+    x = r.randn(*shape).astype(np.float32)
+    w = (r.randn(3, 3, shape[-1], f) * 0.05).astype(np.float32)
+    ju = jax_winograd_weights(jnp.asarray(w)).astype(jnp.bfloat16)
+    ut = winograd_conv.kernel_weights(torch.from_numpy(w))
+    Fp, Cp = ut.shape[1:]
+    assert ut.dtype == torch.bfloat16 and Fp % winograd_conv.TILE_N == 0 \
+        and Cp % winograd_conv.TILE_K == 0
+    assert not ut[:, f:].any() and not ut[:, :, shape[-1]:].any()
+    np.testing.assert_array_equal(
+        ut[:, :f, :shape[-1]].transpose(1, 2).float().numpy(),
+        np.asarray(ju.astype(jnp.float32)))
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    y = winograd_conv.winograd_conv3x3_u(tx, ut, f)
+    assert torch.equal(y, winograd_conv3x3(tx, torch.from_numpy(w)))
+    if shape[-1] % 128 == 0:  # the shapes the JAX kernel takes
+        ref = np.asarray(jax_wino_call(jnp.asarray(x).astype(jnp.bfloat16),
+                                       ju, f, interpret=True)).astype(
+            np.float32)
+        err = np.abs(y.float().numpy() - ref).max()
         assert err <= _bf16_ulp_tol(ref), (err, _bf16_ulp_tol(ref))
 
 
