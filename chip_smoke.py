@@ -7,11 +7,13 @@ train the flagship SAViDiffusion at full width, and report.
 
 Phases (one flushed line each, with elapsed seconds):
   1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
-  2. build: nvcc compiles csrc/*.cu into one library, Triton compiles the
-     GN kernel;
+  2. build: nvcc compiles csrc/*.cu (all four kernels) into one library;
   3. every kernel against its plain PyTorch version on the card at the
      shapes the serving path gives it (collected from one denoise call and
-     one encode), with its error beside the stated tolerance, its device
+     one encode), with its error beside the stated tolerance, a second call
+     of slot attention and of GN on the same inputs that must give the
+     same bits, slot attention's launch plan (cluster size, positions a
+     block, resident or streamed k/v, shared memory), its device
      time per call (CUDA events around a CUDA graph of back-to-back calls)
      and its CUDA-event time over eager calls, the plain
      version's, one PyTorch call's where one computes the same function,
@@ -23,6 +25,10 @@ Phases (one flushed line each, with elapsed seconds):
      the kernel's row, against `F.conv2d` with its weights already in
      bf16) and the whole call (`winograd_conv3x3`); then through its own
      entry point with the launch counts set to 0 before and read after;
+     ragged edges of each kernel (slot attention: B = 1, S = 16, N that does
+     not split evenly over the cluster, D not a multiple of 8 or 16, the
+     largest S, D and M it takes); the GN wrapper's host cost a call, split
+     into its checks, `empty_like`, the ctypes call and `Function.apply`;
   3b. each kernel's autograd.Function on the card, at the largest of its
      serving shapes (Winograd: the second bench shape): the gradients of
      a random projection of its output through the kernel path against
@@ -36,7 +42,8 @@ Phases (one flushed line each, with elapsed seconds):
      over the slots, and one denoise and one encode against the same
      model run on the CPU (the plain versions);
   5. training the same model: the three model kernels against their
-     plain versions, timed, at every shape one training step gives them
+     plain versions, timed and repeated for bit-identity (slot attention,
+     GN), at every shape one training step gives them
      (collected from the forward + backward that sizes the batch), and
      their gradients as in 3b at the largest of those shapes; then
      `build_method` -> `Trainer.fit(max_steps=3)` on synthetic 128x128
@@ -104,6 +111,7 @@ GRAD_TOL = {"gn_silu": 1e-5, "attention": 1e-5, "slot_attention": 1e-5,
 # on them; measured 1.3e-3 on an H100 (largest at the predictor)
 TRAIN_GRAD_TOL = 1e-2
 MODEL_KERNELS = ("gn_silu", "attention", "slot_attention")
+DETERMINISTIC = ("gn_silu", "slot_attention")  # checked bit for bit
 TRAIN_BATCHES = (32, 16, 8, 4)  # clips a step: the config's, then cuts
 TRAIN_STEPS = 3
 
@@ -248,15 +256,72 @@ def kernel_cases(shapes, sa_mod, gen, dev):
         nbytes = (2 * Bs * N * D * 2 + 2 * Bs * S * D * 4 + Bs * S * N * 4 +
                   4 * (D * D + 6 * D * D + 2 * D * M))
         mm = 2.0 * Bs * iters * S
+        plan = slot_attention_kernel.launch_plan(Bs, N, S, D, M)
         yield ("slot_attention", calls,
-               f"B={Bs} N={N} S={S} D={D} iters={iters}",
+               f"B={Bs} N={N} S={S} D={D} iters={iters} plan {plan} "
+               f"({slot_attention_kernel.active_clusters(plan)} such "
+               "clusters at once on this card)",
                lambda: slot_attention_kernel.sa_iterations(ks, vs, s0, p,
                                                            **kw),
                lambda: slot_attention_kernel.sa_iterations_ref(ks, vs, s0,
                                                                p, **kw),
                None,
+               # q k and a v on the bf16 tensor cores; the Wq, GRU and MLP
+               # products as three TF32 products each (3xTF32)
                bound_terms(nbytes, bf16_ops=mm * 2 * N * D,
-                           f32_ops=mm * D * (D + 6 * D + 2 * M)))
+                           tf32_ops=3 * mm * D * (D + 6 * D + 2 * M)))
+
+
+def sa_weight_shapes(D, M):
+    """Slot attention's weight shapes (SA_WEIGHT_KEYS) at widths D, M."""
+    return {"wq": (D, D), "ln_q_scale": (D,), "ln_q_bias": (D,),
+            "gru_wi": (D, 3 * D), "gru_bi": (3 * D,), "gru_wh": (D, 3 * D),
+            "gru_bh": (3 * D,), "ln_mlp_scale": (D,), "ln_mlp_bias": (D,),
+            "w1": (D, M), "b1": (M,), "w2": (M, D), "b2": (D,)}
+
+
+def gn_host_split(dev, calls=2000):
+    """Host microseconds a GN call at a small UNet shape (12 x 512 x 4 x 4,
+    where the device needs ~3 us): the wrapper's checks, `empty_like`, the
+    stream pointer, the ctypes call alone (launch included), the whole
+    wrapper under inference mode (serving) and with a gradient to track
+    (`Function.apply`, training); each the host clock over `calls` calls
+    ending in a synchronize, so each includes what the card's queue adds
+    when the host outruns it."""
+    import torch
+    from slotdiffusion_tpu_torch.ops import _cuda, fused_norm
+    x = torch.randn(12, 512, 4, 4, device=dev)
+    w, b = torch.ones(512, device=dev), torch.zeros(512, device=dev)
+    y = torch.empty_like(x)
+    lib = _cuda.lib()
+
+    def per_call(fn):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / calls * 1e6
+
+    stream = _cuda.stream_ptr(dev)
+    wg = w.clone().requires_grad_()
+    with torch.inference_mode():
+        split = {
+            "checks": per_call(lambda: fused_norm.check_inputs(
+                x, w, b, 32, "silu")),
+            "empty_like": per_call(lambda: torch.empty_like(x)),
+            "stream_ptr": per_call(lambda: _cuda.stream_ptr(dev)),
+            "ctypes_call": per_call(lambda: lib.sdt_group_norm_f32(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), 12,
+                512, 16, 32, 1e-5, 1, stream)),
+            "wrapper_inference": per_call(lambda: fused_norm.fused_group_norm(
+                x, w, b, 32, 1e-5, "silu")),
+        }
+    split["wrapper_function_apply"] = per_call(
+        lambda: fused_norm.fused_group_norm(x, wg, b, 32, 1e-5, "silu"))
+    return split
 
 
 def max_err(a, b):
@@ -297,15 +362,31 @@ def record(results, failed, phase, name, calls, label, err, tol, k_t, p_t,
     r["t_ops"] += calls * terms[1]
 
 
+def same_bits(a, b):
+    """Whether two outputs (or tuples of them) are equal bit for bit."""
+    import torch
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def check_kernels(shapes, sa_mod, gen, dev, phase):
     """Every model kernel against its plain version at every shape in
-    `shapes`, timed; -> {kernel: totals over those calls}. Raises
-    SystemExit if any disagrees."""
+    `shapes`, timed; slot attention and GN also called twice on the same
+    inputs, which must give the same bits (neither sums with atomics).
+    -> {kernel: totals over those calls}. Raises SystemExit if any
+    disagrees."""
     results, failed = {}, []
     for name, calls, label, kern, plain, lib, terms in kernel_cases(
             shapes, sa_mod, gen, dev):
+        out = kern()
+        if name in DETERMINISTIC:
+            same = same_bits(out, kern())
+            log(f"{phase}: {name} {label}: two calls on the same inputs "
+                f"{'are bit-identical' if same else 'DIFFER'}")
+            if not same:
+                failed.append(f"{name} {label} not deterministic")
         record(results, failed, phase, name, calls, label,
-               max_err(kern(), plain()), TOL[name], timed(kern),
+               max_err(out, plain()), TOL[name], timed(kern),
                timed(plain), None if lib is None else timed(lib), terms)
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: "
@@ -644,12 +725,6 @@ def main():
     _cuda.lib()
     log(f"phase 2: nvcc built {os.path.relpath(lib_path)} in "
         f"{time.time() - t:.1f}s")
-    t = time.time()
-    x = torch.randn(1, 32, 4, 4, device=dev)
-    fused_norm.fused_group_norm(x, torch.ones(32, device=dev),
-                                torch.zeros(32, device=dev), 32)
-    torch.cuda.synchronize()
-    log(f"phase 2: triton compiled the GN kernel in {time.time() - t:.1f}s")
 
     # ---- the flagship model, and the kernel shapes its serving path uses --
     cfg = configs.SAViLDMMoviE128()
@@ -758,12 +833,8 @@ def main():
                ).abs().max().item()
         edge.append(("attention", f"Nq={nq} Nk={nk}", err, TOL["attention"]))
     D, M = 64, 128
-    pe = {"wq": (D, D), "ln_q_scale": (D,), "ln_q_bias": (D,),
-          "gru_wi": (D, 3 * D), "gru_bi": (3 * D,), "gru_wh": (D, 3 * D),
-          "gru_bh": (3 * D,), "ln_mlp_scale": (D,), "ln_mlp_bias": (D,),
-          "w1": (D, M), "b1": (M,), "w2": (M, D), "b2": (D,)}
     pe = {key: torch.randn(shp, generator=gen, device=dev) * 0.1
-          for key, shp in pe.items()}
+          for key, shp in sa_weight_shapes(D, M).items()}
     ks = torch.randn(3, 1000, D, generator=gen, device=dev)
     s0 = torch.randn(3, 7, D, generator=gen, device=dev)
     kw = dict(num_iterations=3, eps=1e-6, return_last_attn=True)
@@ -772,11 +843,39 @@ def main():
     edge.append(("slot_attention", "N=1000 S=7 D=64",
                  max((ko - po).abs().max().item(),
                      (km - pm).abs().max().item()), TOL["slot_attention"]))
+    # one item on a cluster of 16 with all 16 slots; N = 1001 (not a
+    # multiple of 16 blocks); D = 66 (not a multiple of 8 or 16: 4-byte
+    # k/v copies, zero-padded MMA depth); the largest S, D and M
+    for (Bs, N, S, D, M) in ((1, 1024, 16, 192, 384), (2, 1001, 15, 192, 384),
+                             (2, 77, 5, 66, 100), (3, 300, 16, 256, 1024)):
+        pe = {key: torch.randn(shp, generator=gen, device=dev) * (
+            shp[0] ** -0.5 if len(shp) == 2 else 0.1)
+            for key, shp in sa_weight_shapes(D, M).items()}
+        ks, vs = (torch.randn(Bs, N, D, generator=gen, device=dev)
+                  for _ in range(2))
+        s0 = torch.randn(Bs, S, D, generator=gen, device=dev)
+        kw = dict(num_iterations=2, eps=1e-8, return_last_attn=True)
+        out = slot_attention_kernel.sa_iterations(ks, vs, s0, pe, **kw)
+        ref = slot_attention_kernel.sa_iterations_ref(ks, vs, s0, pe, **kw)
+        label = (f"B={Bs} N={N} S={S} D={D} M={M} plan "
+                 f"{slot_attention_kernel.launch_plan(Bs, N, S, D, M)}")
+        if not same_bits(out, slot_attention_kernel.sa_iterations(
+                ks, vs, s0, pe, **kw)):
+            failed.append(f"slot_attention edge {label} not deterministic")
+        edge.append(("slot_attention", label, max_err(out, ref),
+                     TOL["slot_attention"]))
     xg = torch.randn(5, 96, 7, 9, generator=gen, device=dev)
     wg = torch.ones(96, device=dev)
     edge.append(("gn_silu", "(5, 96, 7, 9)", (
         fused_norm.fused_group_norm(xg, wg, wg, 24, 1e-5, "silu") -
         fused_norm.group_norm_reference(xg, wg, wg, 24, 1e-5, "silu")
+    ).abs().max().item(), TOL["gn_silu"]))
+    # runs of 50 values (not a multiple of 4): the 4-byte path
+    xg = torch.randn(2, 6, 5, 5, generator=gen, device=dev)
+    wg = 1 + 0.1 * torch.randn(6, generator=gen, device=dev)
+    edge.append(("gn_silu", "(2, 6, 5, 5) G=3", (
+        fused_norm.fused_group_norm(xg, wg, wg, 3, 1e-5, None) -
+        fused_norm.group_norm_reference(xg, wg, wg, 3, 1e-5, None)
     ).abs().max().item(), TOL["gn_silu"]))
     # Winograd: partial tile and channel blocks, odd H or W, C not a
     # multiple of the kernel's 64-channel chunk; C = 70 takes the V pass's
@@ -790,6 +889,9 @@ def main():
                      (winograd_conv.winograd_conv3x3(xw, ww).float() - ref
                       ).abs().max().item(),
                      WINO_TOL * ref.abs().max().item()))
+    host = gn_host_split(dev)
+    log("phase 3: GN wrapper host us a call (12x512x4x4): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in host.items()))
     for name, label, err, tol in edge:
         ok = err <= tol
         log(f"phase 3: {name} ragged-edge shape {label}: max_abs_err "

@@ -17,7 +17,8 @@ three kernels (mean device time per launch, free of the host launch cost
 that CUDA-event timing of back-to-back launches includes at small
 shapes), and the kernels with the most device time. The last line is one
 JSON object with those numbers. The full `key_averages` tables go under
-`--out`.
+`--out`. It exits non-zero when a kernel the work runs (REQUIRED) does
+not appear in the trace under its name.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -28,8 +29,12 @@ import os
 import sys
 import time
 
-KERNELS = {"gn_silu": "gn_kernel", "attention": "mha_clamped",
-           "slot_attention": "sa_iterations_kernel"}
+KERNELS = {"gn_silu": "gn_silu_kernel", "attention": "mha_clamped",
+           "slot_attention": "sa_cluster_kernel"}
+# the port's kernels each profiled piece of work must show by name
+REQUIRED = {"encode": ("slot_attention",),
+            "sample": ("gn_silu", "attention"),
+            "train_step": tuple(KERNELS)}
 
 
 def profile(fn, torch):
@@ -127,6 +132,11 @@ def main():
             "top": [{"name": k[:120], "launches": n, "device_ms": t / 1e3}
                     for k, (n, t) in top]}
     print(json.dumps(summary), flush=True)
+    missing = [(name, k) for name, ks in REQUIRED.items() for k in ks
+               if not summary[name]["kernels"][k]["launches"]]
+    if missing:
+        print(f"kernels not found in the trace: {missing}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch
-versions. Import a module here costs nothing: Triton and the CUDA library
-are loaded inside the functions that launch the kernels."""
+versions. Importing a module here costs nothing: the CUDA library is
+built and loaded inside the functions that launch the kernels."""
 
 from . import (attention_kernel, fused_norm, slot_attention_kernel,
                winograd_conv)

@@ -31,12 +31,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes. Each returns cudaGetLastError().
 _SIGNATURES = {
+    # x, w, b, y, B, C, H*W, groups, eps, silu, stream
+    "sdt_group_norm_f32": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
     # q, k, v, out, B, Nq, Nk, H, D, scale, stream
     "sdt_mha_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # k, v, slots0, wq, ln_q_scale, ln_q_bias, gru_wi, gru_bi, gru_wh,
     # gru_bh, ln_mlp_scale, ln_mlp_bias, w1, b1, w2, b2, slots_out, mask,
-    # B, N, S, D, M, num_iterations, eps, scale, with_mask, stream
-    "sdt_sa_iterations_bf16": [_P] * 18 + [_I] * 6 + [_F, _F, _I, _P],
+    # B, N, S, D, M, num_iterations, eps, scale, with_mask, then the
+    # launch plan: cluster, positions, tile, resident, smem_bytes; stream
+    "sdt_sa_iterations_bf16": [_P] * 18 + [_I] * 6 + [_F, _F] + [_I] * 6 +
+    [_P],
+    # cluster, smem_bytes, int* out: clusters the card runs at once
+    "sdt_sa_active_clusters": [_I, _I, _P],
     # w, U^T [16, Fp, Cp], C, F, Fp, Cp, stream
     "sdt_winograd_weights_bf16": [_P, _P] + [_I] * 4 + [_P],
     # x, U^T, V scratch, f32 scratch or NULL, y, B, H, W, C, F, Fp, Cp, Tp,
@@ -134,5 +140,10 @@ def check(err, name):
 
 
 def stream_ptr(device):
+    """The current CUDA stream of `device`, as the C entry points take it
+    (the raw handle PyTorch keeps: a fraction of a microsecond, where
+    building a `torch.cuda.Stream` object takes several)."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -1,37 +1,32 @@
-"""GroupNorm(+SiLU) in one pass: a Triton kernel and its plain version.
+"""GroupNorm(+SiLU) in one pass: a CUDA kernel (`csrc/group_norm.cu`)
+and its plain version.
 
 Replaces the Pallas kernel `_gn_kernel` driven by `_gn_pallas` /
-`fused_group_norm` (the JAX package's ops/fused_norm.py:53, 83-103, 126):
+`fused_group_norm` (the JAX package's ops/fused_norm.py:53, 83-103, 127):
 per-group mean and biased variance in f32, the affine folded into
 `y = x * a + b`, an optional SiLU, one read and one write of x.
 
 Layout: the port's modules are NCHW, where the channels of one group are
 contiguous, so one (sample, group) is one contiguous run of
-`C/G * H * W` values. The kernel runs one program per (sample, group) and
-holds the whole run in registers (at most 12,288 values on the flagship
-UNet: the 32x32 skip-concat ResBlock with 384 channels), so x is read once
-and y written once.
+`C/G * H * W` values; the kernel holds a run in registers (up to
+MAX_GROUP values), so x is read once and y written once.
 
-Bound on the H100: ~10 flops per 8 bytes moved, far below the card's
-~20 flops/byte f32 balance, so the kernel is bound by bytes: its floor is
-2 * B * C * H * W * 4 bytes over 3.35 TB/s. The design moves exactly those
-bytes; what it does not do is keep the tensor out of memory between the
-GN and the conv that consumes it (a later fusion).
+The wrapper's host work a call is the checks, one `torch.empty_like` and
+one ctypes call; the autograd.Function is entered only when a gradient
+can flow (serving runs under `torch.inference_mode`).
 """
-
-import os
 
 import torch
 
+from . import _cuda
+
 KERNEL_NAME = "gn_silu"
-ROUTE = "triton"
-SOURCE = "slotdiffusion_tpu_torch/ops/fused_norm.py"
+ROUTE = "cuda"
+SOURCE = "slotdiffusion_tpu_torch/csrc/group_norm.cu"
 REPLACES = "ops/fused_norm.py:53"  # in the JAX package
 MAX_GROUP = 32768  # values of one (sample, group) the kernel holds
 
 launches = 0  # kernel launches since ops.reset_launch_counts()
-
-_kernel = None
 
 
 def group_norm_reference(x, weight, bias, num_groups, eps=1e-5, act=None):
@@ -47,41 +42,6 @@ def group_norm_reference(x, weight, bias, num_groups, eps=1e-5, act=None):
     if act == "silu":
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
-
-
-def _build_kernel():
-    # Triton's compile cache stays inside the checkout (.gitignore'd)
-    # unless the caller chose another directory
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "_build", "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def gn_kernel(x_ptr, w_ptr, b_ptr, y_ptr, G, CG, HW, eps,
-                  ACT: tl.constexpr, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)  # sample * G + group
-        g = pid % G
-        n = CG * HW
-        base = pid.to(tl.int64) * n
-        offs = tl.arange(0, BLOCK)
-        m = offs < n
-        x = tl.load(x_ptr + base + offs, mask=m, other=0.0).to(tl.float32)
-        mean = tl.sum(x, axis=0) / n
-        xc = tl.where(m, x - mean, 0.0)
-        var = tl.sum(xc * xc, axis=0) / n
-        rstd = 1.0 / tl.sqrt(var + eps)
-        c = g * CG + offs // HW
-        w = tl.load(w_ptr + c, mask=m, other=0.0).to(tl.float32)
-        b = tl.load(b_ptr + c, mask=m, other=0.0).to(tl.float32)
-        a = rstd * w
-        y = x * a + (b - mean * a)
-        if ACT:
-            y = y * tl.sigmoid(y)
-        tl.store(y_ptr + base + offs, y, mask=m)
-
-    return triton, gn_kernel
 
 
 def check_inputs(x, weight, bias, num_groups, act):
@@ -108,29 +68,24 @@ def check_inputs(x, weight, bias, num_groups, act):
 
 
 def _forward(x, weight, bias, num_groups, eps, act):
-    global _kernel, launches
+    global launches
     if x.device.type == "cpu":
         return group_norm_reference(x, weight, bias, num_groups, eps, act)
     if x.device.type != "cuda":
         raise ValueError(f"fused_group_norm: unsupported device {x.device}")
     check_inputs(x, weight, bias, num_groups, act)
     B, C, H, W = x.shape
-    CG, HW = C // num_groups, H * W
-    if _kernel is None:
-        _kernel = _build_kernel()
-    triton, kernel = _kernel
-    block = max(triton.next_power_of_2(CG * HW), 128)
-    warps = 4 if block <= 2048 else (8 if block <= 8192 else 16)
     y = torch.empty_like(x)
-    kernel[(B * num_groups,)](x, weight, bias, y, num_groups, CG, HW,
-                              float(eps), ACT=act == "silu", BLOCK=block,
-                              num_warps=warps)
+    err = _cuda.lib().sdt_group_norm_f32(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), B,
+        C, H * W, num_groups, eps, act == "silu", _cuda.stream_ptr(x.device))
+    _cuda.check(err, "sdt_group_norm_f32")
     launches += 1
     return y
 
 
 class FusedGroupNorm(torch.autograd.Function):
-    """Forward: the Triton kernel (CUDA) or the plain version (CPU).
+    """Forward: the CUDA kernel (CUDA) or the plain version (CPU).
     Backward: autograd of `group_norm_reference` recomputed at the saved
     (x, weight, bias), as the JAX custom_vjp's `_fgn_bwd`
     (ops/fused_norm.py:126-155 of the JAX package)."""
@@ -151,7 +106,10 @@ class FusedGroupNorm(torch.autograd.Function):
 
 
 def fused_group_norm(x, weight, bias, num_groups, eps=1e-5, act=None):
-    """GroupNorm(+SiLU) over NCHW `x`: the Triton kernel for a CUDA tensor,
+    """GroupNorm(+SiLU) over NCHW `x`: the CUDA kernel for a CUDA tensor,
     the plain version for a CPU tensor; differentiable through
-    `FusedGroupNorm`."""
-    return FusedGroupNorm.apply(x, weight, bias, num_groups, eps, act)
+    `FusedGroupNorm` (entered only when a gradient can flow)."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return FusedGroupNorm.apply(x, weight, bias, num_groups, eps, act)
+    return _forward(x, weight, bias, num_groups, eps, act)

@@ -1,5 +1,6 @@
 """All slot-attention iterations in one CUDA kernel
-(`csrc/slot_attention.cu`) and its plain version.
+(`csrc/slot_attention.cu`, one thread-block cluster per item) and its
+plain version.
 
 Replaces the Pallas kernels `_sa_kernel_resident` / `_sa_kernel` driven by
 `sa_iterations_pallas` (the JAX package's ops/slot_attention_kernel.py:
@@ -12,8 +13,12 @@ JAX kernel streams them); q and the attention weights are rounded to that
 type before their products, and every product accumulates in f32.
 
 The weight dict has the JAX kernel's keys and layout (`SA_WEIGHT_KEYS`,
-`x @ W` orientation, GRU gates packed r | z | n).
+`x @ W` orientation, GRU gates packed r | z | n). `launch_plan` decides
+how the kernel splits an item over a cluster; the wrapper passes the plan
+to the C entry point, which refuses a plan it cannot run.
 """
+
+import ctypes
 
 import torch
 
@@ -23,7 +28,16 @@ KERNEL_NAME = "slot_attention"
 ROUTE = "cuda"
 SOURCE = "slotdiffusion_tpu_torch/csrc/slot_attention.cu"
 REPLACES = "ops/slot_attention_kernel.py:134"  # in the JAX package
-MAX_SLOTS, MAX_D, MAX_M = 16, 256, 1024  # what one block holds
+MAX_SLOTS, MAX_D, MAX_M = 16, 256, 1024  # what one cluster holds
+# the H100 (SXM): shared memory a block may use, and how many clusters of
+# each size (one block an SM) it runs at once: cudaOccupancyMaxActiveClusters
+# on an NVIDIA H100 80GB HBM3 (700 W), the same from 100 KB to 218 KB a
+# block (chip_smoke.py prints it beside each plan). 16 is a non-portable
+# cluster size.
+SMEM_LIMIT = 232448
+ACTIVE_CLUSTERS = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+STREAM_TILES = (64, 32, 16)  # positions a streamed tile (two buffers)
 
 SA_WEIGHT_KEYS = ("wq", "ln_q_scale", "ln_q_bias", "gru_wi", "gru_bi",
                   "gru_wh", "gru_bh", "ln_mlp_scale", "ln_mlp_bias",
@@ -84,6 +98,67 @@ def sa_iterations_ref(k, v, slots, p, *, num_iterations, eps,
     return slots
 
 
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def smem_bytes(D, M, cluster, tile, resident):
+    """Shared memory of one block of the kernel: `make_layout` in
+    csrc/slot_attention.cu, region by region (each rounded to 16 bytes)."""
+    Dp = _round_up(D, 16)
+    LD, KLD = Dp + 4, Dp + 8
+    MLD = _round_up(M, 8) + 4
+    CW = _round_up(-(-D // cluster), 4)
+    HW = _round_up(-(-M // cluster), 4)
+    buffers = 1 if resident else 2
+    warps, slots, mats = 8, MAX_SLOTS, 6
+    f32 = [slots * LD] * 3 + [
+        slots * MLD, cluster * slots * CW, cluster * slots, cluster * CW,
+        warps * mats * 128, warps * slots, slots, CW, 4 * D + 8 * CW + HW]
+    bf16 = [slots * KLD, buffers * 2 * tile * KLD, slots * (tile + 8)]
+    return sum(_round_up(4 * n, 16) for n in f32) + \
+        sum(_round_up(2 * n, 16) for n in bf16)
+
+
+def launch_plan(B, N, S, D, M):
+    """How the kernel runs B items of N positions: one cluster of
+    `cluster` blocks per item, block r owning positions
+    [r * positions, (r + 1) * positions). The size is the largest of
+    CLUSTER_SIZES whose B clusters the card runs at once (ACTIVE_CLUSTERS:
+    16 at B <= 7, 8 at B <= 15, 4 at B <= 30, 2 at B <= 66, then 1): a
+    second wave of clusters costs more than halving the blocks, which
+    doubles each block's share of the slot update. The block's k/v rows
+    stay in shared memory across the iterations (`resident`, one tile)
+    where they fit, else they are streamed in double-buffered tiles of the
+    first of STREAM_TILES positions that fits. -> dict(cluster, positions,
+    tile, resident, smem_bytes)."""
+    if not (B >= 1 and N >= 1 and 1 <= S <= MAX_SLOTS and 2 <= D <= MAX_D
+            and D % 2 == 0 and 1 <= M <= MAX_M):
+        raise ValueError(f"launch_plan: B={B} N={N} S={S} D={D} M={M} "
+                         "outside the kernel's range")
+    cluster = next(c for c in CLUSTER_SIZES
+                   if B <= ACTIVE_CLUSTERS[c] or c == 1)
+    positions = -(-N // cluster)
+    tile = _round_up(positions, 16)
+    resident = smem_bytes(D, M, cluster, tile, True) <= SMEM_LIMIT
+    if not resident:
+        tile = next(t for t in STREAM_TILES
+                    if smem_bytes(D, M, cluster, t, False) <= SMEM_LIMIT)
+    return dict(cluster=cluster, positions=positions, tile=tile,
+                resident=resident,
+                smem_bytes=smem_bytes(D, M, cluster, tile, resident))
+
+
+def active_clusters(plan):
+    """How many clusters of `plan` the card runs at once (the CUDA
+    occupancy API, on the current card)."""
+    out = ctypes.c_int(0)
+    _cuda.check(_cuda.lib().sdt_sa_active_clusters(
+        plan["cluster"], plan["smem_bytes"], ctypes.byref(out)),
+        "sdt_sa_active_clusters")
+    return out.value
+
+
 def check_inputs(k, v, slots, p, num_iterations, kv_dtype):
     """Raise ValueError unless the kernel takes these arguments: bf16 k/v
     streaming, k = v [B, N, D], slots [B, S <= 16, D], D <= 256 and even,
@@ -132,11 +207,14 @@ def _forward(k, v, slots, p, num_iterations, eps, return_last_attn,
     out = torch.empty_like(s0)
     mask = torch.empty((B, S, N), dtype=torch.float32, device=k.device) \
         if return_last_attn else out  # unused when with_mask = 0
+    plan = launch_plan(B, N, S, D, M)
     err = _cuda.lib().sdt_sa_iterations_bf16(
         kb.data_ptr(), vb.data_ptr(), s0.data_ptr(),
         *[t.data_ptr() for t in w], out.data_ptr(), mask.data_ptr(),
         B, N, S, D, M, num_iterations, float(eps), float(D ** -0.5),
-        int(return_last_attn), _cuda.stream_ptr(k.device))
+        int(return_last_attn), plan["cluster"], plan["positions"],
+        plan["tile"], int(plan["resident"]), plan["smem_bytes"],
+        _cuda.stream_ptr(k.device))
     _cuda.check(err, "sdt_sa_iterations_bf16")
     launches += 1
     if return_last_attn:

@@ -13,7 +13,10 @@ against each other. The rest of optax's chain is written out here:
 - `clip_by_global_norm`: optax's rule, scale by `clip / max(norm, clip)`
   (no `+1e-6` as in `clip_grad_norm_`), on the device without a branch;
 - gradient accumulation (optax.MultiSteps): the mean of k micro-batch
-  gradients, one Adam update, LR tick and EMA tick per k micro-steps.
+  gradients, one Adam update, LR tick and EMA tick per k micro-steps;
+- the norm the trainer logs: the global norm of each micro-batch's own,
+  unscaled gradient, as the JAX trainer logs `optax.global_norm(grads)`
+  on every micro-step (training/trainer.py:289-290, 310).
 """
 
 import math
@@ -56,9 +59,9 @@ class Optimizer:
     """Adam over `named_params` with per-group cosine-warmup LRs, optional
     global-norm clipping and k-step gradient accumulation.
 
-    Call `backward_scale()` for the factor of each micro-batch's loss (the
-    mean of k gradients), then `step()` after every micro-batch's
-    backward: it updates the parameters on every k-th call and returns
+    Call `backward(loss)` for each micro-batch (or backward its loss
+    times `backward_scale()`, the factor of the mean of k gradients), then
+    `step()`: it updates the parameters on every k-th call and returns
     whether it did, with the pre-clip gradient norm of that update."""
 
     def __init__(self, named_params, lr, total_steps, warmup_steps,
@@ -91,6 +94,30 @@ class Optimizer:
 
     def backward_scale(self):
         return 1.0 / self.k
+
+    def backward(self, loss):
+        """Backward of one micro-batch's `loss` into the accumulated
+        gradients; -> the global norm of this micro-batch's own unscaled
+        gradient (a 0-dim tensor) when k > 1, else None (at k = 1 that norm
+        is the one `step()` takes). For k > 1 the accumulated gradients are
+        held aside during the backward and added back after it: the sums
+        are the ones autograd would form, and the norm is taken from the
+        micro-batch's gradient alone."""
+        if self.k == 1:
+            loss.backward()
+            return None
+        held = [p.grad for p in self.params]
+        for p in self.params:
+            p.grad = None
+        (loss * self.backward_scale()).backward()
+        grads = [p.grad for p in self.params if p.grad is not None]
+        norm = self.k * global_norm(grads) if grads else \
+            torch.zeros((), device=loss.device)
+        with torch.no_grad():
+            for p, g in zip(self.params, held):
+                if g is not None:
+                    p.grad = g if p.grad is None else g.add_(p.grad)
+        return norm
 
     @torch.no_grad()
     def step(self):

@@ -93,15 +93,18 @@ class Trainer:
         img = batch["img"].to(self.device, non_blocking=True)
         _, losses = self.model.compute_losses({"img": img}, self.generator)
         total = self.weighted_total(losses)
-        (total * self.optimizer.backward_scale()).backward()
+        micro_norm = self.optimizer.backward(total)
         updated, norm = self.optimizer.step()
         if updated and self.ema is not None:
             self.ema.update(self.model)
         self.step += 1
         metrics = {f"train/{k}": v.item() for k, v in losses.items()}
         metrics["train/total_loss"] = total.item()
+        # the norm of this micro-step's own gradient, as the JAX trainer
+        # logs it on every micro-step
+        metrics["train/grad_norm"] = float(
+            norm if micro_norm is None else micro_norm)
         if updated:
-            metrics["train/grad_norm"] = float(norm)
             metrics["lr"] = self.optimizer.adam.param_groups[0]["lr"]
         metrics["step_seconds"] = time.time() - t0
         return metrics

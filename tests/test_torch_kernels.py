@@ -79,9 +79,9 @@ def test_attention_matches_pallas(nq, nk, hd, heads):
     np.testing.assert_allclose(out.numpy(), ref, **F32_TOL)
 
 
-def _sa_weights(D, M, seed=0):
+def _sa_weights(D, M, seed=0, std=0.2):
     r = np.random.RandomState(seed)
-    g = lambda *s: (r.randn(*s) * 0.2).astype(np.float32)
+    g = lambda *s: (r.randn(*s) * std).astype(np.float32)
     p = {"wq": g(D, D), "gru_wi": g(D, 3 * D), "gru_wh": g(D, 3 * D),
          "w1": g(D, M), "w2": g(M, D)}
     for key, n in (("ln_q_bias", D), ("gru_bi", 3 * D), ("gru_bh", 3 * D),
@@ -119,6 +119,131 @@ def test_slot_attention_matches_pallas(kv, B, N, S, D, iters):
     tol = F32_TOL if kv == "float32" else dict(rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **tol)
     np.testing.assert_allclose(mask.numpy(), np.asarray(ref_mask), **tol)
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16"])
+def test_plain_slot_attention_matches_jax_at_the_flagship_shape(kv):
+    """The port's plain version (the CPU path, and what the card's kernel
+    is held against) against the JAX package at the flagship's shape: B = 2
+    frames, N = 1024 positions, 15 slots of 192, MLP 384, 2 iterations,
+    weights of the model's scale (std 1/sqrt(fan-in)).
+
+    f32: against the jnp twin `sa_iterations_ref`, to F32_TOL. bf16: the
+    jnp twin never rounds q or the attention weights, so the JAX function
+    with the port's rounding points is the Pallas kernel with bf16 k/v, in
+    interpret mode. q (5,760 values an iteration) and the weights (30,720)
+    are rounded to bf16 after f32 sums taken in another order on each
+    side, so at this size a few land one bf16 ulp apart and move a logit
+    by ~1e-4 (measured 1.3e-4 on the slots, 2.4e-4 on the mask): the bound
+    is chip_smoke.py's slot-attention tolerance, 2e-3, stated there for
+    this same mechanism."""
+    B, N, S, D, M, iters = 2, 1024, 15, 192, 384, 2
+    p = _sa_weights(D, M, seed=3, std=D ** -0.5)
+    r = np.random.RandomState(4)
+    k, v = (r.randn(B, N, D).astype(np.float32) for _ in range(2))
+    slots = r.randn(B, S, D).astype(np.float32)
+    args = (jnp.asarray(k), jnp.asarray(v), jnp.asarray(slots),
+            {key: jnp.asarray(val) for key, val in p.items()})
+    kw = dict(num_iterations=iters, eps=1e-6, return_last_attn=True)
+    if kv == "float32":
+        ref, ref_mask = jax_sa_ref(*args, **kw)
+        tol = F32_TOL
+    else:
+        ref, ref_mask = sa_iterations_pallas(
+            *args, interpret=True, kv_dtype=jnp.bfloat16, **kw)
+        tol = dict(rtol=1e-4, atol=2e-3)
+    out, mask = slot_attention_kernel.sa_iterations_ref(
+        torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(slots),
+        {key: torch.from_numpy(p[key]) for key in SA_WEIGHT_KEYS},
+        kv_dtype=getattr(torch, kv), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **tol)
+    np.testing.assert_allclose(mask.numpy(), np.asarray(ref_mask), **tol)
+
+
+@pytest.mark.parametrize("N,S,D,M", [(1024, 15, 192, 384),  # flagship
+                                     (1000, 7, 64, 128),    # ragged edge
+                                     (1001, 16, 256, 1024)])  # the limits
+@pytest.mark.parametrize("B", [1, 2, 12, 32])
+def test_launch_plan_splits_every_item_over_one_cluster(B, N, S, D, M):
+    """The slot-attention kernel's plan, as the wrapper passes it to the C
+    entry point: a cluster size the card takes (1-16, a power of two);
+    every position owned by exactly one block of the cluster; resident
+    k/v only when one tile holds the block's positions; shared memory
+    within the H100's 232,448 bytes a block; all B clusters at once on the
+    card, with the flagship's sizes at serving (B = 2) and training
+    (B = 32) as the kernel's note states them."""
+    plan = slot_attention_kernel.launch_plan(B, N, S, D, M)
+    C, P, tile = plan["cluster"], plan["positions"], plan["tile"]
+    assert C in (1, 2, 4, 8, 16)
+    assert B <= slot_attention_kernel.ACTIVE_CLUSTERS[C] or C == 1
+    owners = np.zeros(N, dtype=int)
+    for rank in range(C):
+        owners[min(N, rank * P):min(N, (rank + 1) * P)] += 1
+    assert (owners == 1).all()
+    assert tile % 16 == 0 and tile >= 16
+    assert not plan["resident"] or tile >= P
+    assert plan["smem_bytes"] == slot_attention_kernel.smem_bytes(
+        D, M, C, tile, plan["resident"]) <= 232448
+    if (N, D) == (1024, 192):
+        assert C == {1: 16, 2: 16, 12: 8, 32: 2}[B]
+        assert plan["resident"] == (B != 32)
+
+
+def test_launch_plan_refuses_what_the_kernel_does_not_take():
+    for args in ((0, 10, 4, 8, 8), (2, 0, 4, 8, 8), (2, 10, 17, 8, 8),
+                 (2, 10, 4, 7, 8), (2, 10, 4, 258, 8), (2, 10, 4, 8, 1025)):
+        with pytest.raises(ValueError):
+            slot_attention_kernel.launch_plan(*args)
+
+
+def test_c_entry_points_match_their_declared_signatures():
+    """Every `extern "C"` entry point of csrc/*.cu has a ctypes signature
+    in `_cuda._SIGNATURES` with one argtype per parameter, of the right
+    kind (pointer, int, float): ctypes would otherwise pass the kernels
+    misaligned arguments on the card, where nothing checks them."""
+    import glob
+    import os
+    import re
+    from slotdiffusion_tpu_torch.ops import _cuda
+    kinds = {_cuda._P: "pointer", _cuda._I: "int", _cuda._F: "float"}
+    found = {}
+    for path in glob.glob(os.path.join(_cuda.CSRC, "*.cu")):
+        text = open(path).read()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', text):
+            found[name] = [
+                "pointer" if "*" in p else p.split()[-2]
+                if len(p.split()) > 1 else p for p in params.split(",")]
+    assert set(found) == set(_cuda._SIGNATURES)
+    for name, params in found.items():
+        assert params == [kinds[t] for t in _cuda._SIGNATURES[name]], name
+
+
+def test_group_norm_is_cuda_and_the_port_never_imports_triton():
+    """GN is a CUDA C++ kernel built by `_cuda` like the others (its source
+    under csrc/, its entry point declared), and importing every module of
+    the port, then running a GN layer on the CPU, loads no `triton`."""
+    import os
+    import subprocess
+    import sys
+    from slotdiffusion_tpu_torch.ops import _cuda
+    assert fused_norm.ROUTE == "cuda"
+    assert fused_norm.SOURCE.startswith("slotdiffusion_tpu_torch/csrc/")
+    assert os.path.exists(os.path.join(_cuda.CSRC, os.path.basename(
+        fused_norm.SOURCE)))
+    assert "sdt_group_norm_f32" in _cuda._SIGNATURES
+    code = ("import pkgutil, sys, torch, slotdiffusion_tpu_torch as pkg\n"
+            "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "
+            "'.'):\n"
+            "    __import__(m.name)\n"
+            "from slotdiffusion_tpu_torch.models.blocks import GroupNorm32\n"
+            "GroupNorm32(64, act='silu', fused=True)(torch.ones(2, 64, 4, "
+            "4))\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] == "
+            "'triton'], 'triton imported'\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], cwd=repo, check=True,
+                   timeout=120)
 
 
 def test_wrappers_launch_or_raise_off_the_cpu():

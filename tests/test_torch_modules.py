@@ -22,7 +22,7 @@ from slotdiffusion_tpu.ops.dpm_solver import \
     dpm_solver_sample as jax_dpm_sample
 from slotdiffusion_tpu_torch.methods.inference import chunked_video_apply
 from slotdiffusion_tpu_torch.models.slot_diffusion import _upsample_masks
-from slotdiffusion_tpu_torch.models.unet import Upsample
+from slotdiffusion_tpu_torch.models.unet import Dropout, Upsample
 from slotdiffusion_tpu_torch.ops.dpm_solver import dpm_solver_sample
 from torch_parity_helpers import (RES, SLOT_SIZE, SLOTS, build_pair, t2n,
                                   video)
@@ -170,3 +170,30 @@ def test_chunked_video_apply_matches_jax():
     assert set(out) == set(ref)
     for k in ref:
         np.testing.assert_allclose(t2n(out[k]), ref[k], **TOL)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_dropout_rate_scale_and_eval_identity(p):
+    """The UNet's dropout (the flagship's rate is 0.1). Its masks come from
+    the run's torch.Generator, which can never equal JAX's `make_rng` bits,
+    so the parity tests run at rate 0; this holds the module alone. In
+    train mode the share of dropped values over 200,000 is within 5
+    binomial standard deviations of p; every kept value is x / (1 - p),
+    flax's nn.Dropout scaling; the same seed gives the same mask and
+    another seed another. In eval mode, and at rate 0, it is the identity,
+    and in train mode it needs a generator."""
+    n = 200_000
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        0.5, 2.0, n).astype(np.float32))
+    drop = Dropout(p).train()
+    y = drop(x, torch.Generator().manual_seed(0))
+    dropped = y == 0
+    assert abs(dropped.float().mean().item() - p) <= \
+        5 * (p * (1 - p) / n) ** 0.5
+    assert torch.equal(y[~dropped], x[~dropped] / (1 - p))
+    assert torch.equal(y, drop(x, torch.Generator().manual_seed(0)))
+    assert not torch.equal(y, drop(x, torch.Generator().manual_seed(1)))
+    with pytest.raises(ValueError):
+        drop(x)
+    assert drop.eval()(x) is x
+    assert Dropout(0.0).train()(x) is x

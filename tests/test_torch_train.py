@@ -61,9 +61,10 @@ def _draws(seed=0):
 
 
 @pytest.fixture(scope="module")
-def jax_loss_and_grads(pair):
+def jax_value_and_grad(pair):
+    """jit of (params, clips, t, noise) -> (denoise loss, gradients) of the
+    tiny JAX model, composed as below."""
     cfg, jmodel, jvars, _ = pair
-    img, t, noise = _draws()
 
     def f(m, img, t, noise):
         out = m({"img": img}, train=True)
@@ -75,12 +76,18 @@ def jax_loss_and_grads(pair):
                           train=False)
         return jnp.mean((pred - noise) ** 2)
 
-    def loss(params):
-        return jmodel.apply({"params": params}, jnp.asarray(img),
-                            jnp.asarray(t, jnp.int32), jnp.asarray(noise),
-                            method=f)
+    def loss(params, img, t, noise):
+        return jmodel.apply({"params": params}, img, t, noise, method=f)
 
-    value, grads = jax.jit(jax.value_and_grad(loss))(jvars["params"])
+    vg = jax.jit(jax.value_and_grad(loss))
+    return lambda params, img, t, noise: vg(
+        params, jnp.asarray(img), jnp.asarray(t, jnp.int32),
+        jnp.asarray(noise))
+
+
+@pytest.fixture(scope="module")
+def jax_loss_and_grads(pair, jax_value_and_grad):
+    value, grads = jax_value_and_grad(pair[2]["params"], *_draws())
     return float(value), jax.tree_util.tree_map(np.asarray, grads)
 
 
@@ -301,6 +308,39 @@ def _run(trainer, steps):
     return out
 
 
+@pytest.mark.parametrize("accum", [1, 2])
+def test_trainer_grad_norm_matches_jax_every_micro_step(pair,
+                                                        jax_value_and_grad,
+                                                        accum):
+    """`train/grad_norm` is logged on every micro-step and is the global
+    norm of that micro-step's own unscaled gradient, as the JAX trainer
+    logs `optax.global_norm(grads)` (training/trainer.py:289-290, 310):
+    the trainer's steps on two micro-batches (fixed timesteps and noise,
+    dropout 0) against `optax.global_norm` of `jax.grad` of the tiny JAX
+    model on the same micro-batches, rtol 1e-5. At accum = 2 both
+    micro-steps see the initial parameters (the update comes after the
+    second); at accum = 1 the first step is compared."""
+    cfg, _, jvars, tmodel = pair
+    cfg = cfg.copy(grad_accum_steps=accum, print_iter=1)
+    model = copy.deepcopy(tmodel)
+    trainer = build_method(model, SyntheticVideoData(cfg, batch_size=B,
+                                                     num_samples=2 * B),
+                           cfg)
+    compute = model.compute_losses
+    draws = [_draws(seed) for seed in (0, 1)]
+    got = []
+    for img, t, noise in draws[:accum if accum > 1 else 1]:
+        model.compute_losses = lambda batch, gen, t=t, noise=noise: compute(
+            batch, t=torch.from_numpy(t), noise=torch.from_numpy(noise))
+        got.append(trainer.train_step({"img": torch.from_numpy(img)}))
+    for m, (img, t, noise) in zip(got, draws):
+        _, grads = jax_value_and_grad(jvars["params"], img, t, noise)
+        np.testing.assert_allclose(m["train/grad_norm"],
+                                   float(optax.global_norm(grads)),
+                                   rtol=1e-5)
+    assert ("lr" in got[-1]) and ("lr" in got[0]) == (accum == 1)
+
+
 def test_trainer_steps_repeat_and_resume_bit_exactly(tmp_path):
     """3 steps (across an epoch boundary: 3 batches an epoch) with dropout,
     EMA and 2-step accumulation: finite losses, parameters that move, the
@@ -311,8 +351,11 @@ def test_trainer_steps_repeat_and_resume_bit_exactly(tmp_path):
     start = {n: p.detach().clone() for n, p in a.model.named_parameters()}
     ma = _run(a, 4)
     losses = [m["train/denoise_loss"] for m in ma]
-    assert all(np.isfinite(losses)) and "train/grad_norm" in ma[1]
-    assert "train/grad_norm" not in ma[0]  # mid-accumulation
+    # every micro-step logs its gradient's norm; the update (and its lr)
+    # comes on the second of each pair
+    assert all(np.isfinite(losses))
+    assert all(np.isfinite(m["train/grad_norm"]) for m in ma)
+    assert "lr" not in ma[0] and "lr" in ma[1]
     moved = [n for n, p in a.model.named_parameters()
              if not torch.equal(p, start[n])]
     frozen = [n for n, _ in a.model.named_parameters()
