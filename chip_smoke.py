@@ -6,7 +6,8 @@ train the flagship SAViDiffusion at full width, and report.
     python3 chip_smoke.py
 
 Phases (one flushed line each, with elapsed seconds):
-  1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
+  1. the device, torch's and scipy's versions, and `nvidia-smi
+     --query-gpu=name,power.limit`;
   2. build: nvcc compiles csrc/*.cu (all four kernels) into one library;
   3. every kernel against its plain PyTorch version on the card at the
      shapes the serving path gives it (collected from one denoise call and
@@ -55,9 +56,23 @@ Phases (one flushed line each, with elapsed seconds):
      then a resume from the run's ckpt_last and one more step; and one
      2-clip step's gradients through the kernels against the plain
      versions;
-  6. one JSON line listing every kernel (times per serving request;
-     `train_ms` / `train_plain_ms`: per training step's forward calls),
-     then the card's name and power limit, then the result line.
+  6. the evaluation path of the same model: `Trainer.validate` with the
+     EMA on over 2 batches of 8 synthetic 128x128 6-frame clips with
+     masks (losses, FG-ARI, ARI, mIoU, FG-mIoU, mBO; the launches of the
+     three model kernels; the live weights bit-identical afterwards);
+     the same batches and draws through the plain versions (argmax
+     agreement, over all pixels and away from ties, the largest mask
+     difference, each metric's and loss's difference); test_seg's
+     full-video path (12 frames in chunks of 6, slots carried over);
+     test_recon's batch (encode, 20 DPM-Solver++ steps, VQ decode, MSE,
+     PSNR, SSIM); slot attention against its plain version at the
+     trained 64x64 model's shape (B = 8, N = 4096, S = 6, D = 64,
+     M = 128) with its plan, bit-identity and times; wall seconds of
+     validate and of the test_recon batch beside the card's power limit;
+  7. one JSON line listing every kernel (times per serving request;
+     `train_ms` / `train_plain_ms`: per training step's forward calls;
+     `res64_*`: slot attention at the 64x64 model's shape), then the
+     card's name and power limit, then the result line.
 
 It exits non-zero, printing no result line, when there is no CUDA card,
 when the port is not beside it, or when any phase fails. Matmuls and
@@ -65,6 +80,7 @@ convolutions run in full f32 (TF32 off) so that the comparisons hold the
 kernels' f32 arithmetic.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -114,6 +130,27 @@ MODEL_KERNELS = ("gn_silu", "attention", "slot_attention")
 DETERMINISTIC = ("gn_silu", "slot_attention")  # checked bit for bit
 TRAIN_BATCHES = (32, 16, 8, 4)  # clips a step: the config's, then cuts
 TRAIN_STEPS = 3
+# 6: validation over EVAL_BATCHES batches of EVAL_BATCH clips, kernels vs
+# plain versions (slot attention's bf16 twin). The masks may differ by
+# slot attention's error (the largest mask difference is held to
+# TOL["slot_attention"]; measured 1.4e-4 to 2.1e-4 on an H100), so a
+# pixel's argmax can flip where the plain path's two largest masks are
+# within twice that of each other; with random weights most pixels'
+# masks sit near 1/15 each. Measured on an H100: the argmax agrees at
+# 0.997660 to 0.998336 of the pixels (four runs of this script), 92% of
+# the pixels have their two largest masks within ARGMAX_TIE of each other
+# (one run), a metric moves by at most 2.7e-4 (four runs). The gates: the
+# argmax agrees on every pixel whose two largest plain masks are more
+# than ARGMAX_TIE apart; the exact share over all pixels is at least
+# ARGMAX_EXACT (the near-ties make that share sensitive to the kernel's
+# error, which TOL bounds only loosely); each metric moves by at most
+# SEG_METRIC_TOL (about the share of pixels that flip, 7x the largest
+# measured move); the losses by 1e-3 relative (f32 sums in another order)
+EVAL_BATCH, EVAL_BATCHES = 8, 2
+ARGMAX_TIE = 2 * TOL["slot_attention"]
+ARGMAX_EXACT = 0.995
+LOSS_RTOL = 1e-3
+SEG_METRIC_TOL = 2e-3
 
 
 def log(msg):
@@ -474,6 +511,41 @@ def check_grads(cases, gen, dev, phase):
                          f"{failed}")
 
 
+@contextlib.contextmanager
+def plain_versions(f32_slot_attention):
+    """Within the block the model's three kernel call sites take their
+    plain versions: GN and attention their f32 formulas, slot attention
+    its plain twin with bf16 k/v (the function phase 3 holds the kernel
+    against) or, with `f32_slot_attention`, the f32 formula (the JAX
+    model's own off-TPU computation). Raises SystemExit if a kernel
+    launches in the block."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.models import blocks, slot_attention, unet
+    from slotdiffusion_tpu_torch.ops import (attention_kernel, fused_norm,
+                                             slot_attention_kernel)
+    sa_ref = slot_attention_kernel.sa_iterations_ref
+    plain = {
+        (blocks, "fused_group_norm"): fused_norm.group_norm_reference,
+        (unet, "fused_mha"): attention_kernel.mha_reference,
+        (slot_attention, "sa_iterations"):
+            (lambda *a, kv_dtype=None, **kw: sa_ref(
+                *a, kv_dtype=torch.float32, **kw))
+            if f32_slot_attention else sa_ref}
+    saved = {key: getattr(*key) for key in plain}
+    try:
+        for (mod, attr), fn in plain.items():
+            setattr(mod, attr, fn)
+        ops.reset_launch_counts()
+        yield
+        torch.cuda.synchronize()
+        if any(ops.launch_counts().values()):
+            raise SystemExit("the plain path launched a kernel")
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+
+
 def train(cfg, model, dev, gen):
     """Phase 5: hold the kernels against their plain versions at the
     shapes of a training step, then train the built flagship `model`
@@ -486,9 +558,6 @@ def train(cfg, model, dev, gen):
     from slotdiffusion_tpu_torch import ops
     from slotdiffusion_tpu_torch.data.synthetic import SyntheticVideoData
     from slotdiffusion_tpu_torch.methods.build import build_method
-    from slotdiffusion_tpu_torch.models import blocks, slot_attention, unet
-    from slotdiffusion_tpu_torch.ops import (attention_kernel, fused_norm,
-                                             slot_attention_kernel)
 
     T, (H, W) = cfg.n_sample_frames, cfg.resolution
     gib = 2.0 ** 30
@@ -657,24 +726,8 @@ def train(cfg, model, dev, gen):
             if p.requires_grad}
 
     loss_k, grads_k = step_grads()
-    plain = {
-        (blocks, "fused_group_norm"): fused_norm.group_norm_reference,
-        (unet, "fused_mha"): attention_kernel.mha_reference,
-        (slot_attention, "sa_iterations"):
-            lambda *a, kv_dtype=None, **kw:
-            slot_attention_kernel.sa_iterations_ref(
-                *a, kv_dtype=torch.float32, **kw)}
-    saved = {key: getattr(*key) for key in plain}
-    try:
-        for (mod, attr), fn in plain.items():
-            setattr(mod, attr, fn)
-        ops.reset_launch_counts()
+    with plain_versions(f32_slot_attention=True):
         loss_p, grads_p = step_grads()
-        if any(ops.launch_counts().values()):
-            raise SystemExit("the plain path launched a kernel")
-    finally:
-        for (mod, attr), fn in saved.items():
-            setattr(mod, attr, fn)
     model.zero_grad(set_to_none=True)
     floor = 1e-2 * max(g.abs().max().item() for g in grads_p.values())
     worst = max((((grads_k[n] - g).abs().max() /
@@ -687,6 +740,199 @@ def train(cfg, model, dev, gen):
         raise SystemExit("training gradients through the kernels disagree "
                          "with the plain versions'")
     return totals, train_results
+
+
+def evaluate(cfg, model, dev, gen, smi):
+    """Phase 6: the evaluation path of the built flagship `model`;
+    -> ({path: {kernel: launches}}, {kernel: totals} of slot attention at
+    the res64 model's shape)."""
+    import gc
+
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.data.synthetic import (SyntheticVideoData,
+                                                        SyntheticVideoDataset)
+    from slotdiffusion_tpu_torch.methods.build import (build_method,
+                                                       seg_metrics_fn)
+    from slotdiffusion_tpu_torch.methods.inference import chunked_video_apply
+    from slotdiffusion_tpu_torch.models import init_random_
+    from slotdiffusion_tpu_torch.models.slot_attention import SlotAttention
+    from slotdiffusion_tpu_torch.ops import metrics as M
+
+    per_path = {}
+    B, T = EVAL_BATCH, cfg.n_sample_frames
+    ecfg = cfg.copy(use_ema=True, val_batch_size=B)
+    data = SyntheticVideoData(ecfg, B, num_samples=B, seed=0,
+                              val_samples=EVAL_BATCHES * B)
+    trainer = build_method(model, data, ecfg)
+    # the shadow starts as a copy of the live weights: move it (seeded,
+    # 1e-3 relative) so that the EMA pass computes something else
+    with torch.no_grad():
+        for s in trainer.ema.shadow.values():
+            s.mul_(1 + 1e-3 * torch.randn(s.shape, generator=gen,
+                                          device=dev))
+    captured = []
+
+    def capture(batch, out):
+        captured.append(out["masks"].clone())
+        return seg_metrics_fn(batch, out)
+
+    trainer.host_metrics_fn = capture
+    live = {k: v.clone() for k, v in model.state_dict().items()}
+
+    # 1. Trainer.validate through the kernels
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    res_k = trainer.validate()
+    torch.cuda.synchronize()
+    val_s = time.time() - t0
+    per_path["validate"] = ops.launch_counts()
+    log(f"phase 6: Trainer.validate over {EVAL_BATCHES} batches of {B} "
+        f"synthetic {cfg.resolution[0]}x{cfg.resolution[1]} clips x {T} "
+        f"frames, EMA on: {val_s:.3f} s wall ({val_s / EVAL_BATCHES:.3f} s "
+        f"a batch, host metrics included) on {smi}; launches "
+        f"{per_path['validate']}")
+    log("phase 6: " + ", ".join(f"{k} {v:.6f}" for k, v in res_k.items()))
+    want = {f"val/{k}" for k in ("denoise_loss", "denoise_loss_ema", "ari",
+                                 "fari", "miou", "fmiou", "mbo")}
+    if set(res_k) != want or not all(map(math.isfinite, res_k.values())):
+        raise SystemExit(f"validate gave {res_k}")
+    if not all(-1.0 <= res_k[k] <= 1.0 for k in ("val/ari", "val/fari")):
+        raise SystemExit(f"ARI outside [-1, 1]: {res_k}")
+    idle = [k for k in MODEL_KERNELS if per_path["validate"][k] == 0]
+    if idle:
+        raise SystemExit(f"validate launched none of {idle}")
+    moved = [k for k, v in model.state_dict().items()
+             if not torch.equal(v, live[k])]
+    if moved:
+        raise SystemExit(f"validate left {len(moved)} tensors changed, "
+                         f"e.g. {moved[:3]}")
+    log("phase 6: the live state_dict is bit-identical after validate "
+        "(the EMA swap restored it)")
+
+    # 2. the same batches (and draws) through the plain versions
+    kernel_masks, captured[:] = list(captured), []
+    with plain_versions(f32_slot_attention=False):
+        res_p = trainer.validate()
+    plain_masks = list(captured)
+    # the argmax must agree wherever the plain path's two largest masks
+    # are more than ARGMAX_TIE apart
+    same_t = torch.zeros(T, device=dev)
+    n_px = n_tie = n_miss = 0
+    for km, pm in zip(kernel_masks, plain_masks):
+        same = km.argmax(2) == pm.argmax(2)
+        top2 = pm.topk(2, dim=2).values
+        clear = top2[:, :, 0] - top2[:, :, 1] > ARGMAX_TIE
+        same_t += same.float().sum((0, 2, 3))
+        n_px += same.numel()
+        n_tie += (~clear).sum().item()
+        n_miss += (clear & ~same).sum().item()
+    same_t /= n_px // T
+    exact = same_t.mean().item()
+    mdiff = max((a - b).abs().max().item()
+                for a, b in zip(kernel_masks, plain_masks))
+    ok = exact >= ARGMAX_EXACT and n_miss == 0 and \
+        mdiff <= TOL["slot_attention"]
+    log(f"phase 6: kernels vs plain versions: the argmax slot agrees at "
+        f"{exact:.6f} (>= {ARGMAX_EXACT}) of the {n_px} pixels (per frame " +
+        " ".join(f"{a:.6f}" for a in same_t.tolist()) + f"); {n_tie} "
+        f"pixels ({n_tie / n_px:.6f}) have their two largest plain masks "
+        f"within {ARGMAX_TIE:g} and are left out as ties; of the other "
+        f"{n_px - n_tie}, {n_miss} disagree (must be 0); largest mask "
+        f"difference {mdiff:.3e} (tol {TOL['slot_attention']:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    failed = [] if ok else ["argmax agreement"]
+    for k in sorted(res_k):
+        diff = abs(res_k[k] - res_p[k])
+        if "loss" in k:
+            tol, what = LOSS_RTOL * abs(res_p[k]), "relative 1e-3"
+        else:
+            tol, what = SEG_METRIC_TOL, f"{SEG_METRIC_TOL:g}"
+        good = diff <= tol
+        log(f"phase 6: {k} kernels {res_k[k]:.6f} plain {res_p[k]:.6f} "
+            f"diff {diff:.3e} (tol {what}) {'ok' if good else 'FAIL'}")
+        if not good:
+            failed.append(k)
+    if failed:
+        raise SystemExit(f"the eval path's kernels disagree with the plain "
+                         f"versions: {failed}")
+    del trainer, data, live, kernel_masks, plain_masks, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. test_seg's full-video path: 12 frames in chunks of the clip length
+    clip = cfg.n_sample_frames
+    vid = SyntheticVideoDataset(resolution=cfg.resolution, num_samples=1,
+                                n_sample_frames=2 * clip, seed=2)[0]
+    img = torch.from_numpy(vid["img"])[None].to(dev)
+    apply = lambda x, prev: model({"img": x}, prev_slots=prev)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        out = chunked_video_apply(apply, img, clip, keys=("slots", "masks"))
+        torch.cuda.synchronize()
+        per_path["test_seg"] = ops.launch_counts()
+        carried = apply(img[:, clip:], out["slots"][:, clip - 1])["slots"]
+        fresh = apply(img[:, clip:], None)["slots"]
+    seg = seg_metrics_fn({"masks": torch.from_numpy(vid["masks"])[None]},
+                         out)
+    S = cfg.slot_dict["num_slots"]
+    shapes_ok = out["slots"].shape[:3] == (1, 2 * clip, S) and \
+        out["masks"].shape == (1, 2 * clip, S, *cfg.resolution)
+    carry_ok = torch.allclose(out["slots"][:, clip:], carried, rtol=1e-5,
+                              atol=1e-5) and \
+        (out["slots"][:, clip:] - fresh).abs().max().item() > 1e-3
+    log(f"phase 6: test_seg full video of {2 * clip} frames in chunks of "
+        f"{clip}: slots {tuple(out['slots'].shape)}, masks "
+        f"{tuple(out['masks'].shape)}, the second chunk continues the "
+        f"first's slots {'ok' if carry_ok else 'FAIL'}; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in seg.items()) +
+        f"; launches {per_path['test_seg']}")
+    if not (shapes_ok and carry_ok and
+            all(map(math.isfinite, seg.values()))):
+        raise SystemExit("the chunked full-video path failed")
+
+    # 4. test_recon's batch: encode, 20 DPM-Solver++ steps, VQ decode
+    vbatch = SyntheticVideoDataset(resolution=cfg.resolution,
+                                   num_samples=B, n_sample_frames=T,
+                                   seed=1)
+    img = torch.stack([torch.from_numpy(vbatch[i]["img"])
+                       for i in range(B)]).to(dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        samples = model.log_images(
+            {"img": img}, torch.Generator(device=dev).manual_seed(0),
+            same_noise=True)["samples"]
+        torch.cuda.synchronize()
+        rec_s = time.time() - t0
+        per_path["test_recon"] = ops.launch_counts()
+    x = (samples * 0.5 + 0.5).clamp(0, 1).flatten(0, 1)
+    y = (img * 0.5 + 0.5).clamp(0, 1).flatten(0, 1)
+    rec = {"mse": M.mse_metric(x, y), "psnr": M.psnr_metric(x, y),
+           "ssim": M.ssim_metric(x, y)}
+    log(f"phase 6: test_recon batch of {B} clips x {T} frames (20 "
+        f"DPM-Solver++ steps, VQ decode): {rec_s:.3f} s wall on {smi}; " +
+        ", ".join(f"{k} {v:.4f}" for k, v in rec.items()) +
+        f"; launches {per_path['test_recon']}")
+    if samples.shape != img.shape or \
+            not all(map(math.isfinite, rec.values())):
+        raise SystemExit(f"test_recon: samples {tuple(samples.shape)}, "
+                         f"metrics {rec}")
+    del samples, x, y, img
+
+    # 5. slot attention at the res64 model's shape
+    sa64 = SlotAttention(in_features=64, num_iterations=2, slot_size=64,
+                         mlp_hidden_size=128, return_last_attn=True).to(dev)
+    init_random_(sa64, torch.Generator().manual_seed(3))
+    res64 = check_kernels(
+        {"gn_silu": {}, "attention": {},
+         "slot_attention": {(EVAL_BATCH, 4096, 6, 64, 128, 2): 1}},
+        sa64, gen, dev, "phase 6 (res64 shape)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_path, res64
 
 
 def main():
@@ -711,8 +957,10 @@ def main():
     # ---- 1. device --------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    import scipy
     log(f"phase 1: device {kind} x{count}, torch {torch.__version__}, "
-        f"cuda {torch.version.cuda}, tf32 off")
+        f"cuda {torch.version.cuda}, scipy {scipy.__version__} (the "
+        f"metrics' Hungarian matching and SSIM filter), tf32 off")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -989,7 +1237,11 @@ def main():
     # ---- 5. the training path --------------------------------------------
     per_path["training"], train_results = train(cfg, model, dev, gen)
 
-    # ---- 6. report ------------------------------------------------------
+    # ---- 6. the evaluation path ------------------------------------------
+    eval_paths, res64 = evaluate(cfg, model, dev, gen, smi)
+    per_path.update(eval_paths)
+
+    # ---- 7. report ------------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():
@@ -1020,6 +1272,13 @@ def main():
             "per_path_launches": {s: c[name] for s, c in per_path.items()},
             "per_surface_launches": {s: c[name]
                                      for s, c in per_surface.items()},
+            **({} if name not in res64 else {
+                # one call at the res64 model's shape (phase 6)
+                "res64_ms": res64[name]["ms"],
+                "res64_plain_ms": res64[name]["plain"],
+                "res64_bound_ms": max(res64[name]["t_bytes"],
+                                      res64[name]["t_ops"]),
+                "res64_max_abs_err": res64[name]["err"]}),
             **extra,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,6 @@
-"""Flagship configuration of the port: SAViDiffusion on MOVi-E, 128x128.
+"""Configurations of the port: the flagship SAViDiffusion on MOVi-E,
+128x128 (`SAViLDMMoviE128`), and the repo's trained 64x64 SAViDiffusion
+(`SAViLDMMoviFile64`).
 
 An own copy of the settings of the JAX package's `configs_base.py:17-140,
 274-330` and `configs/video_based/savi_ldm/savi_ldm_movie_params-res128.py`
@@ -91,7 +93,17 @@ class SAViLDMMoviE128(BaseParams):
     use_ema = False       # an EMA of the dm_decoder, swapped in at eval
     ema_decay = 0.9999
     train_batch_size = 32
+    val_batch_size = 32
+    eval_interval = 1     # epochs between validations
     denoise_loss_w = 1.0
+    # data (configs_base.py:_VideoCommon, _Common)
+    dataset = "movi"
+    movi_level = "e"
+    data_root = "./data/MOVi"
+    frame_offset = 1
+    video_len = 24
+    load_mask = True
+    num_workers = 8
     # model
     model = "SAViDiffusion"
     resolution = (128, 128)
@@ -132,3 +144,82 @@ def tiny_config(resolution=(16, 16), num_slots=3, slot_size=32,
         dec_dict=dec,
         pred_dict=dict(SAViLDMMoviE128.pred_dict, pred_num_layers=1,
                        pred_num_heads=2, pred_ffn_dim=2 * slot_size))
+
+
+class SAViLDMMoviFile64(SAViLDMMoviE128):
+    """The repo's trained SAViDiffusion: an own copy of the JAX package's
+    `configs/savi_ldm_movi_file-res64.py` over its base
+    `configs/savi_ldm_synthetic_params-res64.py`, whose checkpoint
+    `checkpoint/savi_ldm_movi_file-res64/ckpt_final` the export script
+    (`scripts/export_torch_checkpoint.py`) carries into the port.
+
+    64x64 clips of 2 frames from a MOVi-layout tree (JPEG frames,
+    grayscale PNG masks, `scripts/gen_movi_tree.py`); 6 slots of 64; the
+    plain CNN encoder (3 -> 32 -> 32 -> 32, 5x5, stride 1, no norm); a
+    1-layer transformer predictor; a UNet of 32 channels, mult (1, 2),
+    attention at (4, 2), heads 8 wide, 200 timesteps, with an EMA of the
+    decoder; the VQ-VAE of ch 32, mult (1, 2), 512 codes.
+
+    The JAX config runs no Pallas kernel, and this copy keeps its knobs:
+    `use_pallas="auto"`, `fused_gn=False`, `attn_backend="einsum"`. On the
+    CPU it computes what the JAX model computes (slot attention in f32).
+    On the card slot attention runs its kernel ("auto" takes the kernel
+    for CUDA inputs; bf16 k/v), while GroupNorm and attention run their
+    plain PyTorch versions: the UNet's heads are 8 wide, and the attention
+    kernel takes 32. `vqvae_ckp_path` is unset: a converted SAViDiffusion
+    checkpoint carries its VQ-VAE, and a training run names a port-format
+    VQ-VAE file (`scripts/train_torch.py --vqvae_ckp_path`).
+    """
+    max_epochs = 32
+    save_interval = 8.0
+    eval_interval = 2
+    print_iter = 64
+    use_ema = False
+    train_batch_size = 8
+    val_batch_size = 8
+    dataset = "movi"
+    movi_level = "e"
+    data_root = "data_local/movi_file"
+    video_len = 6
+    n_sample_frames = 2
+    frame_offset = 1
+    load_mask = True
+    num_workers = 4
+    resolution = (64, 64)
+    slot_dict = dict(num_slots=6, slot_size=64, slot_mlp_size=128,
+                     num_iterations=2, use_pallas="auto")
+    enc_dict = dict(enc_channels=(3, 32, 32, 32), enc_ks=5,
+                    enc_out_channels=64, enc_norm="")
+    pred_dict = dict(pred_type="transformer", pred_rnn=False,
+                     pred_norm_first=True, pred_num_layers=1,
+                     pred_num_heads=2, pred_ffn_dim=128)
+    dec_dict = dict(
+        resolution=(32, 32),
+        unet_dict=dict(
+            in_channels=3, model_channels=32, out_channels=3,
+            num_res_blocks=1, attention_resolutions=(4, 2), dropout=0.0,
+            channel_mult=(1, 2), num_head_channels=8, context_dim=64),
+        vae_dict=dict(
+            vae_type="VQVAE",
+            enc_dec_dict=dict(
+                resolution=64, in_channels=3, z_channels=3, ch=32,
+                ch_mult=[1, 2], num_res_blocks=1, attn_resolutions=[],
+                out_ch=3, dropout=0.0),
+            vq_dict=dict(n_embed=512, embed_dim=3)),
+        use_ema=True,
+        diffusion_dict=dict(
+            pred_target="eps", z_scale_factor=1.0, timesteps=200,
+            beta_schedule="linear", linear_start=0.0015,
+            linear_end=0.0195),
+        conditioning_key="crossattn")
+
+
+CONFIGS = {"SAViLDMMoviE128": SAViLDMMoviE128,
+           "SAViLDMMoviFile64": SAViLDMMoviFile64}
+
+
+def get_config(name):
+    """A config of the port by its class name."""
+    if name not in CONFIGS:
+        raise ValueError(f"unknown config {name!r}: one of {sorted(CONFIGS)}")
+    return CONFIGS[name]()

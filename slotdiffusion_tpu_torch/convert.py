@@ -162,10 +162,35 @@ def convert_resnet(params, stage_sizes, use_layer4=False):
     return out
 
 
-def convert_sa_encoder(params, stage_sizes, use_layer4=False):
-    """flax SAEncoder (GN-ResNet branch) -> port SAEncoder names."""
-    out = {f"encoder.{k}": v for k, v in convert_resnet(
-        params["ResNet_0"], stage_sizes, use_layer4).items()}
+def convert_plain_cnn(params, num_layers, norm=""):
+    """flax SAEncoder plain-CNN layers -> port `encoder.{i}` names (the
+    JAX package's torch_export.py:_inv_sa_encoder_side walk): each
+    ConvNormAct_{i} holds Conv_0 and, with a norm, GroupNorm32_0 or
+    LayerNorm_0."""
+    out: Dict[str, np.ndarray] = {}
+    for i in range(num_layers):
+        sub = params[f"ConvNormAct_{i}"]
+        _conv(out, f"{i}.0", sub["Conv_0"])
+        if norm in ("gn", "group_norm", "groupnorm"):
+            _norm(out, f"{i}.1", sub["GroupNorm32_0"])
+        elif norm:
+            _layernorm(out, f"{i}.1", sub["LayerNorm_0"])
+    return out
+
+
+def convert_sa_encoder(params, enc_dict):
+    """flax SAEncoder -> port SAEncoder names: the GN-ResNet walk or the
+    plain-CNN walk, as `enc_dict` picks the encoder."""
+    from .models.resnet import STAGES
+    if enc_dict.get("resnet"):
+        backbone = convert_resnet(params["ResNet_0"],
+                                  STAGES[enc_dict["resnet"]],
+                                  enc_dict.get("use_layer4", False))
+    else:
+        backbone = convert_plain_cnn(params,
+                                     len(enc_dict["enc_channels"]) - 1,
+                                     enc_dict.get("enc_norm", ""))
+    out = {f"encoder.{k}": v for k, v in backbone.items()}
     _linear(out, "encoder_pos_embedding.dense",
             params["SoftPositionEmbed_0"]["Dense_0"])
     _layernorm(out, "encoder_out_layer.0", params["LayerNorm_0"])
@@ -248,7 +273,6 @@ def convert_vqvae(params, enc_dec_dict):
 def convert_savi_diffusion(params, cfg) -> Dict[str, torch.Tensor]:
     """flax SAViDiffusion params -> port SAViDiffusion state_dict, for the
     config `cfg` (the same nested dicts both packages read)."""
-    from .models.resnet import STAGES
     out: Dict[str, np.ndarray] = {}
 
     def put(prefix, d):
@@ -256,9 +280,7 @@ def convert_savi_diffusion(params, cfg) -> Dict[str, torch.Tensor]:
 
     savi = params["savi"]
     out["savi.init_latents"] = _np(savi["init_latents"])
-    enc = cfg.enc_dict
-    put("savi.encoder", convert_sa_encoder(
-        savi["encoder"], STAGES[enc["resnet"]], enc.get("use_layer4", False)))
+    put("savi.encoder", convert_sa_encoder(savi["encoder"], cfg.enc_dict))
     put("savi.slot_attention", convert_slot_attention(
         savi["slot_attention"]))
     put("savi.predictor", convert_transformer_predictor(

@@ -5,14 +5,16 @@ velocity over a dark background, `img` in [-1, 1] as [T, H, W, 3] and
 the object ids as `masks` [T, H, W], every clip a function of
 (seed, index).
 
-`SyntheticVideoData` batches them with a `torch.utils.data.DataLoader`
-in the order of the JAX package's loader (data/loader.py:158-166): a
-permutation seeded by `seed + epoch`, whole batches only. A trainer that
-resumes mid-epoch asks for the batches from `start`.
+`SyntheticVideoData` batches them through `data.loader.DataModule`, in
+the order of the JAX package's loader: a permutation seeded by
+`seed + epoch`, whole batches only; with `val_samples`, a val set of
+seed `seed + 1`.
 """
 
 import numpy as np
-from torch.utils.data import DataLoader, Dataset
+from torch.utils.data import Dataset
+
+from .loader import DataModule
 
 
 class SyntheticVideoDataset(Dataset):
@@ -57,28 +59,26 @@ class SyntheticVideoDataset(Dataset):
         }
 
 
-class SyntheticVideoData:
-    """The train split of synthetic clips at a config's resolution and
-    clip length, in batches of `batch_size`."""
+def synthetic_video_splits(params, num_samples=256, val_samples=32,
+                           seed=0):
+    """The train split (seed `seed`) and, with `val_samples`, the val
+    split (seed `seed + 1`, else None) at a config's resolution and clip
+    length. The defaults are the JAX builder's for "synthetic_video"."""
+    kw = dict(resolution=tuple(params.resolution),
+              n_sample_frames=params.n_sample_frames)
+    train = SyntheticVideoDataset(num_samples=num_samples, seed=seed, **kw)
+    val = SyntheticVideoDataset(num_samples=val_samples, seed=seed + 1,
+                                **kw) if val_samples else None
+    return train, val
 
-    def __init__(self, params, batch_size, num_samples=256, seed=0):
-        self.dataset = SyntheticVideoDataset(
-            resolution=tuple(params.resolution), num_samples=num_samples,
-            n_sample_frames=params.n_sample_frames, seed=seed)
-        self.batch_size = batch_size
-        self.seed = seed
-        if len(self) == 0:
-            raise ValueError(f"{num_samples} clips make no batch of "
-                             f"{batch_size}")
 
-    def __len__(self):
-        """Batches per epoch."""
-        return len(self.dataset) // self.batch_size
+class SyntheticVideoData(DataModule):
+    """Synthetic clips at a config's resolution and clip length: the
+    train split (seed `seed`) in batches of `batch_size` and, with
+    `val_samples`, a val split (seed `seed + 1`)."""
 
-    def train_loader(self, epoch, start=0):
-        """Batches `start..` of `epoch`, as dicts of CPU tensors."""
-        order = np.random.RandomState(self.seed + epoch).permutation(
-            len(self.dataset))
-        batches = [order[b * self.batch_size:(b + 1) * self.batch_size]
-                   .tolist() for b in range(start, len(self))]
-        return DataLoader(self.dataset, batch_sampler=batches)
+    def __init__(self, params, batch_size, num_samples=256, seed=0,
+                 val_samples=0):
+        train, val = synthetic_video_splits(params, num_samples,
+                                            val_samples, seed)
+        super().__init__(train, val, batch_size, seed=seed)

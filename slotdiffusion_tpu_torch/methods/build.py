@@ -1,8 +1,39 @@
 """Trainer configuration per model (mirrors the JAX package's
-methods/build.py:85-131 for SAViDiffusion): the `dm_decoder` LR group at
-`dec_lr` and the run's seed."""
+methods/build.py:25-131 for SAViDiffusion): the `dm_decoder` LR group at
+`dec_lr`, the run's seed, and the segmentation metrics of each
+validation batch (`seg_metrics_fn`). The COCO/VOC `inst/` and `sem/` dual
+protocol is not ported yet."""
 
+import torch
+
+from ..ops import metrics as M
 from ..training.trainer import Trainer
+
+
+def seg_metrics_fn(batch, out):
+    """ARI, FG-ARI, mIoU, FG-mIoU and mBO of the predicted soft masks
+    `out["masks"]` ([B, N, H, W] or video [B, T, N, H, W], optionally with
+    a trailing 1) against the integer masks `batch["masks"]`; {} without
+    either. The argmax over the slots runs on the masks' device; a video
+    folds T into H, so a slot must keep its object over the clip."""
+    if "masks" not in batch or "masks" not in out:
+        return {}
+    pred = out["masks"]
+    if pred.shape[-1] == 1:
+        pred = pred[..., 0]
+    pred_id = pred.argmax(dim=-3)
+    gt = torch.as_tensor(batch["masks"]).to(pred_id.device).long()
+    if pred_id.dim() == 4:  # video [B, T, H, W] -> [B, T * H, W]
+        B, T, H, W = pred_id.shape
+        pred_id = pred_id.reshape(B, T * H, W)
+        gt = gt.reshape(B, T * H, W)
+    return {
+        "ari": M.ARI_metric(gt, pred_id),
+        "fari": M.fARI_metric(gt, pred_id),
+        "miou": M.miou_metric(gt, pred_id),
+        "fmiou": M.fmiou_metric(gt, pred_id),
+        "mbo": M.mbo_metric(gt, pred_id),
+    }
 
 
 def build_method(model, datamodule, params, ckp_path=None):
@@ -12,4 +43,31 @@ def build_method(model, datamodule, params, ckp_path=None):
     lr_groups = {"dm_decoder": params.dec_lr} \
         if params.dec_lr != params.lr else None
     return Trainer(model, datamodule, params, ckp_path=ckp_path,
-                   lr_groups=lr_groups, seed=params.seed)
+                   lr_groups=lr_groups, seed=params.seed,
+                   host_metrics_fn=seg_metrics_fn)
+
+
+def eval_setup(config, weight, cpu=False, data_root=""):
+    """The shared start of the evaluation scripts: the port config named
+    `config` (its `data_root` replaced when given), the model built on the
+    card (the CPU with `cpu`) with the port-format `weight` loaded
+    strictly, in eval mode. -> (params, model, device)."""
+    from .. import configs
+    from ..models import build_model
+    from ..training.checkpoint import load_model_weights
+    if not cpu and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --cpu to run on the CPU")
+    device = torch.device("cpu" if cpu else "cuda")
+    params = configs.get_config(config)
+    if data_root:
+        params.data_root = data_root
+    model = build_model(params, device=device)
+    load_model_weights(model, weight)
+    return params, model.eval(), device
+
+
+def workers(params, args):
+    """Loader worker processes: `--num_workers` when given, else the
+    config's."""
+    return args.num_workers if args.num_workers >= 0 else \
+        getattr(params, "num_workers", 0)

@@ -1,9 +1,10 @@
 """Shared building blocks, NCHW (mirrors the JAX package's models/blocks.py:
-31-135, 237-313)."""
+31-193, 237-313)."""
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_norm import fused_group_norm, group_norm_reference
@@ -79,3 +80,69 @@ class MLP(nn.Sequential):
             in_dim = d
         layers.append(nn.Linear(in_dim, out_dim))
         super().__init__(*layers)
+
+
+class ChannelLayerNorm(nn.LayerNorm):
+    """LayerNorm over the channels of an NCHW map (flax's LayerNorm on the
+    last axis of NHWC), eps 1e-5."""
+
+    def forward(self, x):
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def get_norm(norm, channels):
+    """A norm name -> its module over `channels` (None for ""), as the JAX
+    package's `get_norm`: GroupNorm32 with 32 groups or LayerNorm."""
+    if not norm:
+        return None
+    if norm in ("gn", "group_norm", "groupnorm"):
+        return GroupNorm32(channels)
+    if norm in ("ln", "layer_norm", "layernorm"):
+        return ChannelLayerNorm(channels, eps=1e-5)
+    raise ValueError(f"unsupported norm: {norm!r}")
+
+
+def get_act(act):
+    """An activation name -> its module (None for ""), as the JAX
+    package's `get_act` (flax's gelu is the tanh approximation)."""
+    if not act:
+        return None
+    return {
+        "relu": nn.ReLU,
+        "silu": nn.SiLU,
+        "swish": nn.SiLU,
+        "gelu": lambda: nn.GELU(approximate="tanh"),
+        "tanh": nn.Tanh,
+        "sigmoid": nn.Sigmoid,
+        "leakyrelu": lambda: nn.LeakyReLU(0.2),
+    }[act]()
+
+
+def same_padding(size, kernel, stride):
+    """flax `padding="SAME"` on one axis: (before, after) so that the
+    output has ceil(size / stride) positions. The two differ when
+    (kernel - stride) is odd or `size` does not divide by `stride`: k = 5
+    at stride 2 on an even input pads 1 before and 2 after."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class ConvNormAct(nn.Sequential):
+    """Conv2d -> norm -> activation with flax's "SAME" padding, NCHW (the
+    JAX package's ConvNormAct). Modules `0` (conv), `1` (norm or
+    Identity), `2` (activation or Identity), as upstream's
+    `conv_norm_act` names them."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
+                 norm="", act="relu"):
+        super().__init__(
+            nn.Conv2d(in_channels, out_channels, kernel_size, stride),
+            get_norm(norm, out_channels) or nn.Identity(),
+            get_act(act) or nn.Identity())
+
+    def forward(self, x):
+        conv = self[0]
+        (t, b), (l, r) = (same_padding(n, k, s) for n, k, s in zip(
+            x.shape[2:], conv.kernel_size, conv.stride))
+        return self[2](self[1](conv(F.pad(x, (l, r, t, b)))))

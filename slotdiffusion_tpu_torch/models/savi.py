@@ -16,20 +16,20 @@ from .slot_attention import SlotAttention
 
 
 class SAVi(nn.Module):
-    def __init__(self, slot_dict, enc_dict, pred_dict, eps=1e-6):
+    def __init__(self, resolution, slot_dict, enc_dict, pred_dict, eps=1e-6):
         super().__init__()
         self.num_slots = slot_dict["num_slots"]
         self.slot_size = slot_dict["slot_size"]
         self.init_latents = nn.Parameter(
             torch.zeros(1, self.num_slots, self.slot_size))
-        self.encoder = SAEncoder(enc_dict)
+        self.encoder = SAEncoder(enc_dict, resolution)
         self.slot_attention = SlotAttention(
             in_features=enc_dict["enc_out_channels"],
             num_iterations=slot_dict["num_iterations"],
             slot_size=self.slot_size,
             mlp_hidden_size=slot_dict["slot_mlp_size"], eps=eps,
             return_last_attn=True,
-            use_pallas=slot_dict.get("use_pallas", True))
+            use_pallas=slot_dict.get("use_pallas", "auto"))
         self.predictor = build_predictor(pred_dict, self.slot_size)
 
     def encode(self, img, prev_slots=None):

@@ -4,8 +4,10 @@ follow the upstream torch module (norm_inputs, project_k/v/q, gru, mlp).
 
 k and v are computed once from LN(inputs); the iterations run in
 `ops.slot_attention_kernel`: `use_pallas=True` (the flagship's setting)
-takes the fused kernel, which streams k/v in bf16; `use_pallas=False` the
-plain f32 formula, which is what the JAX module computes off the TPU.
+takes the fused kernel, which streams k/v in bf16 (on the CPU its plain
+twin, also in bf16); `use_pallas=False` the plain f32 formula, which is
+what the JAX module computes off the TPU; `"auto"` (the JAX default) the
+kernel for CUDA inputs and the f32 formula for CPU inputs.
 """
 
 import torch
@@ -58,7 +60,10 @@ class SlotAttention(nn.Module):
         k, v = self.project_k(x), self.project_v(x)
         kw = dict(num_iterations=self.num_iterations, eps=self.eps,
                   return_last_attn=self.return_last_attn)
-        if self.use_pallas:
+        use = self.use_pallas
+        if use == "auto":
+            use = x.device.type == "cuda"
+        if use:
             return sa_iterations(k, v, slots, self.kernel_weights(), **kw)
         return sa_iterations_ref(k, v, slots, self.kernel_weights(),
                                  kv_dtype=torch.float32, **kw)

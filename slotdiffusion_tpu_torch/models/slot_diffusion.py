@@ -39,7 +39,8 @@ class SAViDiffusion(nn.Module):
         self.resolution = tuple(resolution)
         self.num_slots = slot_dict["num_slots"]
         self.slot_size = slot_dict["slot_size"]
-        self.savi = SAVi(slot_dict, enc_dict, pred_dict, eps=eps)
+        self.savi = SAVi(self.resolution, slot_dict, enc_dict, pred_dict,
+                         eps=eps)
         self.dm_decoder = _build_dm_decoder(dec_dict)
         # the JAX model's `use_ema` (models/slot_diffusion.py:176-178): the
         # decoder's config may ask for an EMA of `dm_decoder`
@@ -60,12 +61,15 @@ class SAViDiffusion(nn.Module):
         slots, masks = self.encode(data_dict["img"], prev_slots, train)
         return {"slots": slots, "masks": masks}
 
-    def compute_losses(self, data_dict, generator=None, t=None, noise=None):
+    def compute_losses(self, data_dict, generator=None, t=None, noise=None,
+                       train=True):
         """Encode the clips, fold T into the batch and take the LDM's
         denoising loss of every frame conditioned on its slots. -> (out,
         {"denoise_loss": scalar}). `generator` draws t, the noise and the
-        dropout masks; tests pass `t` and `noise` instead."""
-        out = self(data_dict, train=True)
+        dropout masks; tests pass `t` and `noise` instead. `train=False`
+        (validation) returns the masks at the input's resolution; dropout
+        follows the module's mode."""
+        out = self(data_dict, train=train)
         img = data_dict["img"]
         B, T = img.shape[:2]
         losses = self.dm_decoder.loss_function(

@@ -40,6 +40,20 @@ def load_checkpoint(path, map_location="cpu"):
     return torch.load(path, map_location=map_location, weights_only=True)
 
 
+def load_model_weights(model, path):
+    """Load the model of a port-format file into `model`, strictly: a
+    trainer's `ckpt_last.pt` (its EMA shadow, if any, swapped into
+    `dm_decoder`, as the JAX package's `load_model_params` does) or a file
+    of `scripts/export_torch_checkpoint.py` (converted with or without the
+    EMA already). -> the file's dict."""
+    state = load_checkpoint(path)
+    sd = dict(state["model"])
+    if isinstance(state.get("ema"), dict):
+        sd.update(state["ema"]["shadow"])
+    model.load_state_dict(sd, strict=True)
+    return state
+
+
 def graft_pretrained(model, cfg):
     """Copy the frozen VQ-VAE named by `cfg.dec_dict["vae_dict"]
     ["vqvae_ckp_path"]` into `model.dm_decoder.vae.vqvae`. The file is a

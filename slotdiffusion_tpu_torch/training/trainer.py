@@ -1,5 +1,5 @@
 """The training loop of the port (mirrors the JAX package's
-training/trainer.py:118-317, one process, one card).
+training/trainer.py:118-338, 548-606, one process, one card).
 
 One step: the model's `compute_losses` on a batch, the weighted total of
 its `*_loss` entries (`{k}_w` weights from the config, 1.0 by default),
@@ -11,7 +11,14 @@ its state goes into each checkpoint with the model, the optimizer, the
 EMA and the step, so a resumed run continues the same sequence (bit for
 bit on the CPU). The frozen VQ-VAE (`dm_decoder.vae`) takes no gradient
 and no update. Metrics go to stdout and `<ckp_path>/train_log.jsonl`.
-Validation (FG-ARI, mIoU) comes with the data layer.
+
+`validate` runs every `eval_interval` epochs and at the end of `fit`:
+each val batch's `compute_losses` in eval mode with the live parameters
+and, with an EMA, again with the EMA swapped into `dm_decoder`
+(`denoise_loss_ema`), both from one generator seeded from (seed + 1,
+step, batch index); then the host metrics (FG-ARI, mIoU, ...) of its
+outputs. The means are weighted by batch size and logged with the `val/`
+prefix.
 """
 
 import json
@@ -20,6 +27,7 @@ import time
 
 import torch
 
+from ..utils import AverageMeter
 from .checkpoint import graft_pretrained, load_checkpoint, save_checkpoint
 from .ema import ExponentialMovingAverage
 from .optim import Optimizer
@@ -46,11 +54,13 @@ class JSONLLogger:
 
 class Trainer:
     """Trains `model` (a built SAViDiffusion on its device) on
-    `datamodule` (`data.synthetic.SyntheticVideoData`) with the settings
-    of `params`. `step` counts micro-batches, as the JAX TrainState's."""
+    `datamodule` (a `data.loader.DataModule`) with the settings of
+    `params`, and validates it on the datamodule's val loader (if any)
+    with `host_metrics_fn(batch, out) -> {name: float}`. `step` counts
+    micro-batches, as the JAX TrainState's."""
 
     def __init__(self, model, datamodule, params, ckp_path=None,
-                 lr_groups=None, seed=0):
+                 lr_groups=None, seed=0, host_metrics_fn=None):
         self.model = model
         self.data = datamodule
         self.ckp_path = ckp_path
@@ -72,8 +82,12 @@ class Trainer:
         use_ema = model.use_ema or params.use_ema
         self.ema = ExponentialMovingAverage(model, params.ema_decay) \
             if use_ema else None
+        self.seed = int(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            int(seed))
+            self.seed)
+        self.host_metrics_fn = host_metrics_fn
+        self.eval_interval = max(int(getattr(params, "eval_interval", 1)),
+                                 1)
         self.loss_weights = {name: float(getattr(params, name))
                              for name in dir(params)
                              if name.endswith("_loss_w")}
@@ -129,8 +143,62 @@ class Trainer:
                     break
                 if self.step % self.save_every == 0:
                     self.save_checkpoint()
+            epochs, rest = divmod(self.step, self.steps_per_epoch)
+            if self.step < end and rest == 0 and \
+                    epochs % self.eval_interval == 0:
+                self.validate()
+                self.model.train()
+        self.validate()
         self.save_checkpoint()
         return metrics
+
+    def _eval_generator(self, batch_idx):
+        """A generator for val batch `batch_idx` at this step, seeded from
+        (seed + 1, step, batch_idx), as the JAX trainer folds its key
+        (training/trainer.py:330-334)."""
+        seed = ((self.seed + 1) << 40) + self.step * 131071 + batch_idx
+        return torch.Generator(device=self.device).manual_seed(
+            seed % (1 << 63))
+
+    @torch.no_grad()
+    def eval_step(self, batch, batch_idx):
+        """`compute_losses` on one val batch with the live parameters and,
+        with an EMA, with the EMA in `dm_decoder` (`*_ema`), both from the
+        same draws; the live parameters are restored exactly. Call it in
+        eval mode. -> (outputs of the live pass, {loss: float})."""
+        data = {"img": batch["img"].to(self.device, non_blocking=True)}
+        gen = self._eval_generator(batch_idx)
+        state = gen.get_state()
+        out, losses = self.model.compute_losses(data, gen, train=False)
+        losses = {k: v.item() for k, v in losses.items()}
+        if self.ema is not None:
+            gen.set_state(state)
+            with self.ema.swapped(self.model):
+                _, ema = self.model.compute_losses(data, gen, train=False)
+            losses.update({f"{k}_ema": v.item() for k, v in ema.items()})
+        return out, losses
+
+    def validate(self):
+        """Losses and host metrics over the datamodule's val loader, in
+        eval mode; the means weighted by batch size are logged as
+        `val/<name>` and returned. {} without a val loader. The model is
+        left in eval mode."""
+        loader = getattr(self.data, "val_loader", lambda: None)()
+        if loader is None:
+            return {}
+        self.model.eval()
+        meters = {}
+        for i, batch in enumerate(loader):
+            out, losses = self.eval_step(batch, i)
+            if self.host_metrics_fn is not None:
+                losses.update(self.host_metrics_fn(batch, out))
+            n = batch["img"].shape[0]
+            for k, v in losses.items():
+                meters.setdefault(k, AverageMeter()).update(v, n)
+        results = {f"val/{k}": m.avg for k, m in meters.items()}
+        if results:
+            self.logger.log(results, self.step)
+        return results
 
     def state_dict(self):
         return {"model": self.model.state_dict(),
