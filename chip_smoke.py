@@ -38,8 +38,9 @@ Phases (one flushed line each, with elapsed seconds):
   4. the flagship SAViDiffusion (MOVi-E 128x128, random weights from a
      seeded generator) answers `encode` on 2 videos x 6 frames, `sample`
      (DPM-Solver++, 20 steps, then VQ decode) and one `denoise`, with the
-     kernels' launch counts set to 0 before and read after; its outputs
-     are checked for shape and finiteness, the masks for summing to one
+     kernels' launch counts set to 0 before each and read after; its
+     outputs are checked for shape, dtype and finiteness, the masks for
+     summing to one
      over the slots, and one denoise and one encode against the same
      model run on the CPU (the plain versions);
   5. training the same model: the three model kernels against their
@@ -69,10 +70,26 @@ Phases (one flushed line each, with elapsed seconds):
      trained 64x64 model's shape (B = 8, N = 4096, S = 6, D = 64,
      M = 128) with its plan, bit-identity and times; wall seconds of
      validate and of the test_recon batch beside the card's power limit;
-  7. one JSON line listing every kernel (times per serving request;
+  7. the flagship in bf16 (`use_bf16=True`, f32 parameters; the knobs
+     as above), through the same code as phases 4-6: the GN and
+     attention kernels' bf16 entry points against their plain twins (in
+     bf16) at every shape of the bf16 serving and training paths, each
+     twice on the same inputs (bit-identical), timed beside the library
+     call and the bound, the totals beside phase 3's and 5's f32 ones;
+     phase 4's requests (slots in bf16; masks, images and the UNet output
+     in f32), and one denoise and one encode against the same bf16 model
+     through the plain versions; phase 5's training, with the step times
+     beside phase 5's; `Trainer.validate` as in phase 6 (its plain-version
+     comparison, chunked video, test_recon and res64 shape run in f32
+     only). Every request, training step and validate launches GN and
+     attention only through their bf16 entries, slot attention through
+     its kernel; in phases 4-6 the f32 model never reaches a bf16 entry;
+  8. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
-     `res64_*`: slot attention at the 64x64 model's shape), then the
-     card's name and power limit, then the result line.
+     `res64_*`: slot attention at the 64x64 model's shape; the bf16 entry
+     points of GN and attention as entries of their own, `"entry"` and
+     `"dtype": "bf16"` marking them, with the f32 entry's times beside),
+     then the card's name and power limit, then the result line.
 
 It exits non-zero, printing no result line, when there is no CUDA card,
 when the port is not beside it, or when any phase fails. Matmuls and
@@ -130,6 +147,28 @@ MODEL_KERNELS = ("gn_silu", "attention", "slot_attention")
 DETERMINISTIC = ("gn_silu", "slot_attention")  # checked bit for bit
 TRAIN_BATCHES = (32, 16, 8, 4)  # clips a step: the config's, then cuts
 TRAIN_STEPS = 3
+# 7 (bf16): kernel vs plain twin, both bf16 out, relative to the output's
+# largest magnitude. GN: the f32 statistics are summed in another order,
+# so a value can round one bf16 ulp apart, and one ulp is at most 2^-7 of
+# the largest value. Attention: the normalized weights are rounded to
+# bf16 at the same point on both sides (JAX's), after f32 sums taken in
+# another order, so a weight can round one ulp (2^-8 relative) apart and
+# move an output by 2^-8 of a |v|; then the output's own rounding: 2^-7
+# of the largest output bounds both at these shapes
+BF16_TOL = {"gn_silu_bf16": 2.0 ** -7, "attention_bf16": 2.0 ** -7}
+BF16_KERNELS = ("gn_silu_bf16", "attention_bf16", "slot_attention")
+# 7: the bf16 model through the kernels vs through the plain versions on
+# the card, relative to the output's largest magnitude: the same bf16
+# roundings except where a kernel's sum order moves one by an ulp, which
+# ~100 bf16 layers carry on (measured on an H100: denoise 2.0e-2, encode
+# slots 1.1e-3, masks 2.8e-5)
+BF16_PATH_TOL = 5e-2
+# 7: the 2-clip step's gradients, kernels vs their plain twins (slot
+# attention's with bf16 k/v), as TRAIN_GRAD_TOL; in bf16 every activation
+# is rounded to 2^-8 relative, and where a kernel's sum order lands a
+# rounding one ulp apart, every gradient behind it moves (measured 2.1e-2
+# on an H100, largest at the predictor)
+BF16_TRAIN_GRAD_TOL = 1e-1
 # 6: validation over EVAL_BATCHES batches of EVAL_BATCH clips, kernels vs
 # plain versions (slot attention's bf16 twin). The masks may differ by
 # slot attention's error (the largest mask difference is held to
@@ -240,6 +279,21 @@ def record_shapes(model):
                                (type(model.savi.slot_attention), sa_hook))
                if isinstance(m, cls)]
     return shapes, handles
+
+
+def serving_shapes(model, inputs):
+    """{kernel: {shape key: calls}} of one encode and one denoise request
+    on `inputs` (`serving_inputs`), by `record_shapes`."""
+    import torch
+    from slotdiffusion_tpu_torch.serving import build_serving_fn
+    video, x_t, t_model = inputs
+    shapes, handles = record_shapes(model)
+    slots, _ = build_serving_fn(model, "encode")(video)
+    build_serving_fn(model, "denoise")(x_t, t_model, slots)
+    torch.cuda.synchronize()
+    for hk in handles:
+        hk.remove()
+    return shapes
 
 
 def kernel_cases(shapes, sa_mod, gen, dev):
@@ -546,11 +600,164 @@ def plain_versions(f32_slot_attention):
             setattr(mod, attr, fn)
 
 
-def train(cfg, model, dev, gen):
-    """Phase 5: hold the kernels against their plain versions at the
-    shapes of a training step, then train the built flagship `model`
-    through the port's entry points; -> ({kernel: launches} over the
-    Trainer's steps, {kernel: totals over one step's forward calls})."""
+class StepReport:
+    """A trainer's logger: per step, the kernels' launches since the last
+    reset (then reset), the peak memory and the metrics."""
+
+    def __init__(self, phase):
+        self.phase = phase
+        self.steps = []
+
+    def log(self, record, step):
+        import torch
+        from slotdiffusion_tpu_torch import ops
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
+        self.steps.append(dict(record, launches=counts))
+        log(f"{self.phase}: step {step}: denoise_loss "
+            f"{record['train/denoise_loss']:.5f}, grad norm "
+            f"{record.get('train/grad_norm', float('nan')):.4g}, lr "
+            f"{record.get('lr', float('nan')):.3g}, "
+            f"{record['step_seconds']:.3f} s (host clock), max "
+            f"allocated {peak:.2f} GiB, launches {counts}")
+
+
+def two_clip_grads(model, cfg, dev, tol, phase, f32_slot_attention=True):
+    """One 2-clip step's gradients through the kernels and through the
+    plain versions (`plain_versions`: by default slot attention's f32
+    formula, the JAX model's own off-TPU computation), the same generator
+    state, dropout off (eval mode): each parameter's largest error
+    relative to its largest gradient (or a hundredth of the model's
+    largest, where a gradient is zero in exact arithmetic) within `tol`.
+    Raises SystemExit otherwise."""
+    import torch
+    T, (H, W) = cfg.n_sample_frames, cfg.resolution
+
+    def step_grads():
+        model.eval()
+        model.zero_grad(set_to_none=True)
+        g = torch.Generator(device=dev).manual_seed(7)
+        img = torch.rand(2, T, H, W, 3, generator=g, device=dev) * 2 - 1
+        _, losses = model.compute_losses({"img": img}, g)
+        losses["denoise_loss"].backward()
+        return losses["denoise_loss"].item(), {
+            n: p.grad.clone() for n, p in model.named_parameters()
+            if p.requires_grad}
+
+    loss_k, grads_k = step_grads()
+    with plain_versions(f32_slot_attention):
+        loss_p, grads_p = step_grads()
+    model.zero_grad(set_to_none=True)
+    floor = 1e-2 * max(g.abs().max().item() for g in grads_p.values())
+    worst = max((((grads_k[n] - g).abs().max() /
+                  max(g.abs().max().item(), floor)).item(), n)
+                for n, g in grads_p.items())
+    log(f"{phase}: 2-clip step, kernels vs plain versions: loss "
+        f"{loss_k:.6f} vs {loss_p:.6f}; largest gradient error {worst[0]:.2e}"
+        f" of its parameter's scale at {worst[1]} (tol {tol:.0e})")
+    if not worst[0] <= tol:
+        raise SystemExit("training gradients through the kernels disagree "
+                         "with the plain versions'")
+
+
+def path_kernels(bf16):
+    """The kernels a model of the dtype must launch: GN's and attention's
+    entry of that dtype, and slot attention's kernel."""
+    return BF16_KERNELS if bf16 else MODEL_KERNELS
+
+
+def check_launches(counts, what, bf16, need=None):
+    """`counts` went through each kernel of `need` (by default all of
+    `path_kernels(bf16)`) and never through GN's or attention's entry of
+    the other dtype. Raises SystemExit otherwise."""
+    need = path_kernels(bf16) if need is None else need
+    other = path_kernels(not bf16)[:2]
+    idle = [k for k in need if counts[k] == 0]
+    wrong = [k for k in other if counts[k]]
+    if idle or wrong:
+        raise SystemExit(f"{what} launched none of {idle}, or the other "
+                         f"dtype's entries {wrong}: {counts}")
+
+
+def serving_inputs(cfg, dev):
+    """The serving requests' inputs, from a seeded generator: 2 videos of
+    the clip's frames, a noisy latent per frame and its timestep."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, T, (H, W) = 2, cfg.n_sample_frames, cfg.resolution
+    h, w = cfg.dec_dict["resolution"]
+    return (torch.rand(B, T, H, W, 3, generator=g, device=dev) * 2 - 1,
+            torch.randn(B * T, h, w, 3, generator=g, device=dev),
+            torch.full((B * T,), 500.0, device=dev))
+
+
+def serve(cfg, model, inputs, phase, f32_seconds=None):
+    """The serving path of the built `model` through the port's entry
+    points: one `encode`, `sample` and `denoise` request on `inputs`
+    (`serving_inputs`), each with the launch counts set to 0 just before
+    it and read just after. Checks each output's shape, dtype (slots in
+    the compute dtype, the rest f32) and finiteness, that the masks sum
+    to 1 over the slots and that each request launched its kernels
+    (`check_launches`: encode slot attention, sample and denoise GN and
+    attention). -> ({request: {kernel: launches}}, {request: host
+    seconds}, slots)."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.serving import build_serving_fn
+    video, x_t, t_model = inputs
+    B, T, (H, W) = *video.shape[:2], cfg.resolution
+    S, D = cfg.slot_dict["num_slots"], cfg.slot_dict["slot_size"]
+    f32 = torch.float32
+    want = {"slots": ((B, T, S, D), torch.bfloat16 if cfg.use_bf16 else f32),
+            "masks": ((B, T, S, H, W), f32),
+            "sample": ((B, T, H, W, 3), f32),
+            "denoise": (tuple(x_t.shape), f32)}
+    encode, sample, denoise = (build_serving_fn(model, s)
+                               for s in ("encode", "sample", "denoise"))
+    kernels = path_kernels(cfg.use_bf16)
+    per_surface, seconds, slots = {}, {}, None
+    for name, fn in (("encode", lambda: encode(video)),
+                     ("sample", lambda: sample(0, slots)),
+                     ("denoise", lambda: denoise(x_t, t_model, slots))):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.time() - t0
+        per_surface[name] = counts = ops.launch_counts()
+        outs = dict(zip(("slots", "masks"), out)) if name == "encode" \
+            else {name: out}
+        log(f"{phase}: {name} in {seconds[name]:.2f}s" + (
+            f" (f32, phase 4: {f32_seconds[name]:.2f}s)" if f32_seconds
+            else "") + " -> " + ", ".join(
+                f"{k} {tuple(v.shape)} {v.dtype}" for k, v in outs.items())
+            + f"; launches {counts}")
+        for k, v in outs.items():
+            if (tuple(v.shape), v.dtype) != want[k] or \
+                    not torch.isfinite(v.float()).all():
+                raise SystemExit(f"{phase}: {name}: {k} is {v.dtype} "
+                                 f"{tuple(v.shape)}, not {want[k]}, or "
+                                 "has non-finite values")
+        if name == "encode":
+            slots = outs["slots"]
+            msum = (outs["masks"].sum(2) - 1).abs().max().item()
+            if msum > 1e-4:
+                raise SystemExit(f"{phase}: masks do not sum to 1 over "
+                                 f"the slots ({msum:.2e})")
+        check_launches(counts, f"{phase}: {name}", cfg.use_bf16,
+                       kernels[2:] if name == "encode" else kernels[:2])
+    return per_surface, seconds, slots
+
+
+def train(cfg, model, dev, gen, phase, f32_step_seconds=None):
+    """Phases 5 and 7: hold the kernels of the model's dtype against their
+    plain versions at the shapes of a training step, then train the built
+    flagship `model` through the port's entry points; -> ({kernel:
+    launches} over the Trainer's steps, {kernel: totals over one step's
+    forward calls}, the host seconds of each Trainer step)."""
     import gc
     import tempfile
 
@@ -594,7 +801,7 @@ def train(cfg, model, dev, gen):
         # Adam adds two moments per trainable parameter to the peak
         fits = peak is not None and \
             peak + 2 * param_bytes + 2 * gib < total_mem
-        log(f"phase 5: {bs} clips a step: peak "
+        log(f"{phase}: {bs} clips a step: peak "
             f"{'OOM' if peak is None else f'{peak / gib:.2f} GiB'} + Adam "
             f"{2 * param_bytes / gib:.2f} GiB of {total_mem / gib:.1f} GiB"
             f" -> {'fits' if fits else 'does not fit'}")
@@ -607,13 +814,17 @@ def train(cfg, model, dev, gen):
         raise SystemExit("no training batch fits the card")
     cut = "" if batch == cfg.train_batch_size else \
         f" (cut from the config's {cfg.train_batch_size})"
-    log(f"phase 5: training at {batch} clips x {T} frames a step{cut}")
+    log(f"{phase}: training at {batch} clips x {T} frames a step{cut}")
 
     # the kernels and their gradients at this training step's shapes
     sa_mod = model.savi.slot_attention
-    train_results = check_kernels(shapes, sa_mod, gen, dev, "phase 5")
-    check_grads(model_grad_cases(shapes, sa_mod, gen, dev), gen, dev,
-                "phase 5")
+    if cfg.use_bf16:
+        train_results = check_bf16_kernels(shapes, gen, dev,
+                                           f"{phase} (training shapes)")
+    else:
+        train_results = check_kernels(shapes, sa_mod, gen, dev, phase)
+        check_grads(model_grad_cases(shapes, sa_mod, gen, dev), gen, dev,
+                    phase)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -636,37 +847,24 @@ def train(cfg, model, dev, gen):
              for n, p in trainable]
     start = {n: p.detach().clone() for n, p in trainable}
 
-    class StepReport:
-        """The trainer's logger: per step, the kernels' launches since the
-        last reset (then reset), the peak memory and the metrics."""
-
-        def __init__(self):
-            self.steps = []
-
-        def log(self, record, step):
-            torch.cuda.synchronize()
-            counts = ops.launch_counts()
-            ops.reset_launch_counts()
-            peak = torch.cuda.max_memory_allocated() / gib
-            self.steps.append(dict(record, launches=counts))
-            log(f"phase 5: step {step}: denoise_loss "
-                f"{record['train/denoise_loss']:.5f}, grad norm "
-                f"{record.get('train/grad_norm', float('nan')):.4g}, lr "
-                f"{record.get('lr', float('nan')):.3g}, "
-                f"{record['step_seconds']:.3f} s (host clock), max "
-                f"allocated {peak:.2f} GiB, launches {counts}")
-
     totals = dict.fromkeys(ops.launch_counts(), 0)
     with tempfile.TemporaryDirectory() as tmp:
         trainer = build_method(model, data, tcfg,
                                ckp_path=os.path.join(tmp, "run"))
-        trainer.logger = report = StepReport()
+        trainer.logger = report = StepReport(phase)
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.time()
         trainer.fit(max_steps=TRAIN_STEPS)
-        log(f"phase 5: Trainer.fit(max_steps={TRAIN_STEPS}) took "
-            f"{time.time() - t0:.1f}s (host clock, ckpt_last included)")
+        fit_s = time.time() - t0
+        steps = [st["step_seconds"] for st in report.steps]
+        log(f"{phase}: Trainer.fit(max_steps={TRAIN_STEPS}) took "
+            f"{fit_s:.1f}s (host clock, ckpt_last included), steps " +
+            " ".join(f"{x:.3f}" for x in steps) + " s" + (
+                " (f32, phase 5: " + " ".join(
+                    f"{x:.3f}" for x in f32_step_seconds) + " s)"
+                if f32_step_seconds else "") + ", max allocated "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
         for hk in hooks:
             hk.remove()
         for st in report.steps:
@@ -676,10 +874,9 @@ def train(cfg, model, dev, gen):
         if len(losses) != TRAIN_STEPS or not all(
                 map(math.isfinite, losses)):
             raise SystemExit(f"training losses {losses}")
-        idle = [k for st in report.steps for k in MODEL_KERNELS
-                if st["launches"][k] == 0]
-        if idle:
-            raise SystemExit(f"a training step launched none of {idle}")
+        for st in report.steps:
+            check_launches(st["launches"], f"{phase}: a training step",
+                           cfg.use_bf16)
         no_grad = [n for n, _ in trainable
                    if n not in got_grad or not bool(got_grad[n])]
         if no_grad:
@@ -689,8 +886,17 @@ def train(cfg, model, dev, gen):
         if still:
             raise SystemExit(f"{len(still)} parameters did not move, e.g. "
                              f"{still[:5]}")
-        log(f"phase 5: {len(trainable)} trainable tensors outside the "
-            f"VQ-VAE all got non-zero gradients and moved")
+        # master weights and Adam's moments stay f32 in either dtype
+        moments = [v for st in trainer.optimizer.adam.state.values()
+                   for v in st.values() if torch.is_tensor(v) and v.dim()]
+        if any(p.dtype != torch.float32 for _, p in trainable) or \
+                not moments or \
+                any(v.dtype != torch.float32 for v in moments):
+            raise SystemExit("a parameter or an Adam moment is not f32")
+        log(f"{phase}: {len(trainable)} trainable tensors outside the "
+            f"VQ-VAE all got non-zero gradients and moved; they and "
+            f"Adam's moments are f32")
+        del moments
         del start
         ckpt = os.path.join(tmp, "run", "ckpt_last.pt")
         del trainer
@@ -705,47 +911,31 @@ def train(cfg, model, dev, gen):
         for k, n in report.steps[-1]["launches"].items():
             totals[k] += n
         size = os.path.getsize(ckpt) / gib
-        log(f"phase 5: resumed from ckpt_last ({size:.2f} GiB) at step "
+        log(f"{phase}: resumed from ckpt_last ({size:.2f} GiB) at step "
             f"{TRAIN_STEPS}, took step {resumed.step}")
         del resumed
     gc.collect()
     torch.cuda.empty_cache()
 
     # one 2-clip step's gradients through the kernels and through the plain
-    # versions (the JAX model's own off-TPU computation: slot attention in
-    # f32), the same generator state, dropout off (eval mode)
-    def step_grads():
-        model.eval()
-        model.zero_grad(set_to_none=True)
-        g = torch.Generator(device=dev).manual_seed(7)
-        img = torch.rand(2, T, H, W, 3, generator=g, device=dev) * 2 - 1
-        _, losses = model.compute_losses({"img": img}, g)
-        losses["denoise_loss"].backward()
-        return losses["denoise_loss"].item(), {
-            n: p.grad.clone() for n, p in model.named_parameters()
-            if p.requires_grad}
-
-    loss_k, grads_k = step_grads()
-    with plain_versions(f32_slot_attention=True):
-        loss_p, grads_p = step_grads()
-    model.zero_grad(set_to_none=True)
-    floor = 1e-2 * max(g.abs().max().item() for g in grads_p.values())
-    worst = max((((grads_k[n] - g).abs().max() /
-                  max(g.abs().max().item(), floor)).item(), n)
-                for n, g in grads_p.items())
-    log(f"phase 5: 2-clip step, kernels vs plain versions: loss "
-        f"{loss_k:.6f} vs {loss_p:.6f}; largest gradient error {worst[0]:.2e}"
-        f" of its parameter's scale at {worst[1]} (tol {TRAIN_GRAD_TOL:.0e})")
-    if not worst[0] <= TRAIN_GRAD_TOL:
-        raise SystemExit("training gradients through the kernels disagree "
-                         "with the plain versions'")
-    return totals, train_results
+    # versions, the same generator state, dropout off (eval mode); in f32
+    # slot attention's plain version is the JAX model's own off-TPU
+    # computation (f32), in bf16 its twin with bf16 k/v: there the f32
+    # formula's slots would move every rounding behind them
+    if cfg.use_bf16:
+        two_clip_grads(model, cfg, dev, BF16_TRAIN_GRAD_TOL, phase,
+                       f32_slot_attention=False)
+    else:
+        two_clip_grads(model, cfg, dev, TRAIN_GRAD_TOL, phase)
+    return totals, train_results, steps
 
 
-def evaluate(cfg, model, dev, gen, smi):
-    """Phase 6: the evaluation path of the built flagship `model`;
+def evaluate(cfg, model, dev, gen, smi, phase):
+    """Phases 6 and 7: the evaluation path of the built flagship `model`;
     -> ({path: {kernel: launches}}, {kernel: totals} of slot attention at
-    the res64 model's shape)."""
+    the res64 model's shape). In bf16 (phase 7) `Trainer.validate` alone:
+    the bf16 model's plain-version check is `bf16_vs_plain`, and the
+    chunked video, test_recon and the res64 shape run in f32 only."""
     import gc
 
     import torch
@@ -787,29 +977,31 @@ def evaluate(cfg, model, dev, gen, smi):
     res_k = trainer.validate()
     torch.cuda.synchronize()
     val_s = time.time() - t0
-    per_path["validate"] = ops.launch_counts()
-    log(f"phase 6: Trainer.validate over {EVAL_BATCHES} batches of {B} "
+    key = "bf16_validate" if cfg.use_bf16 else "validate"
+    per_path[key] = ops.launch_counts()
+    log(f"{phase}: Trainer.validate over {EVAL_BATCHES} batches of {B} "
         f"synthetic {cfg.resolution[0]}x{cfg.resolution[1]} clips x {T} "
         f"frames, EMA on: {val_s:.3f} s wall ({val_s / EVAL_BATCHES:.3f} s "
         f"a batch, host metrics included) on {smi}; launches "
-        f"{per_path['validate']}")
-    log("phase 6: " + ", ".join(f"{k} {v:.6f}" for k, v in res_k.items()))
+        f"{per_path[key]}")
+    log(f"{phase}: " + ", ".join(f"{k} {v:.6f}"
+                                  for k, v in res_k.items()))
     want = {f"val/{k}" for k in ("denoise_loss", "denoise_loss_ema", "ari",
                                  "fari", "miou", "fmiou", "mbo")}
     if set(res_k) != want or not all(map(math.isfinite, res_k.values())):
         raise SystemExit(f"validate gave {res_k}")
     if not all(-1.0 <= res_k[k] <= 1.0 for k in ("val/ari", "val/fari")):
         raise SystemExit(f"ARI outside [-1, 1]: {res_k}")
-    idle = [k for k in MODEL_KERNELS if per_path["validate"][k] == 0]
-    if idle:
-        raise SystemExit(f"validate launched none of {idle}")
+    check_launches(per_path[key], f"{phase}: validate", cfg.use_bf16)
     moved = [k for k, v in model.state_dict().items()
              if not torch.equal(v, live[k])]
     if moved:
         raise SystemExit(f"validate left {len(moved)} tensors changed, "
                          f"e.g. {moved[:3]}")
-    log("phase 6: the live state_dict is bit-identical after validate "
+    log(f"{phase}: the live state_dict is bit-identical after validate "
         "(the EMA swap restored it)")
+    if cfg.use_bf16:
+        return per_path, {}
 
     # 2. the same batches (and draws) through the plain versions
     kernel_masks, captured[:] = list(captured), []
@@ -935,7 +1127,107 @@ def evaluate(cfg, model, dev, gen, smi):
     return per_path, res64
 
 
+def kernel_cases_bf16(shapes, gen, dev):
+    """The bf16 entry points of GN and attention at each call shape in
+    `shapes` (from `record_shapes` on the bf16 model), on random bf16
+    inputs: the same tuples as `kernel_cases`. The library calls are
+    `F.group_norm` (+ `F.silu`) with the affine in bf16 and SDPA, both in
+    bf16; bytes at 2 a value."""
+    import torch
+    import torch.nn.functional as F
+    from slotdiffusion_tpu_torch.ops import attention_kernel, fused_norm
+    bf16 = torch.bfloat16
+    for (shape, act, eps, G), calls in sorted(shapes["gn_silu"].items(),
+                                              key=lambda kv: str(kv[0])):
+        C = shape[1]
+        xg = (torch.randn(shape, generator=gen, device=dev) * 2 +
+              0.5).to(bf16)
+        wg = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
+        bg = 0.1 * torch.randn(C, generator=gen, device=dev)
+        wl, bl = wg.to(bf16), bg.to(bf16)
+        n = xg.numel()
+        yield ("gn_silu_bf16", calls,
+               f"{tuple(shape)} act={act} eps={eps:g}",
+               lambda: fused_norm.fused_group_norm(xg, wg, bg, G, eps, act),
+               lambda: fused_norm.group_norm_reference(xg, wg, bg, G, eps,
+                                                       act),
+               (lambda: F.silu(F.group_norm(xg, G, wl, bl, eps)))
+               if act == "silu" else
+               (lambda: F.group_norm(xg, G, wl, bl, eps)),
+               bound_terms(2 * n * 2 + 2 * C * 4,
+                           f32_ops=(10 if act else 6) * n))
+    for (Bq, nq, nk, heads), calls in sorted(shapes["attention"].items()):
+        hd = heads * attention_kernel.HEAD_DIM
+        q, k, v = (torch.randn(Bq, n, hd, generator=gen, device=dev).to(bf16)
+                   for n in (nq, nk, nk))
+        split = lambda t: t.view(Bq, t.shape[1], heads, -1).transpose(1, 2)
+        yield ("attention_bf16", calls, f"B={Bq} Nq={nq} Nk={nk} H={heads}",
+               lambda: attention_kernel.fused_mha(q, k, v, heads),
+               lambda: attention_kernel.mha_reference(q, k, v, heads),
+               lambda: F.scaled_dot_product_attention(split(q), split(k),
+                                                      split(v)),
+               # q k^T and w v on the bf16 tensor cores
+               bound_terms(2 * (2 * q.numel() + 2 * k.numel()),
+                           bf16_ops=4.0 * Bq * nq * nk * hd))
+
+
+def check_bf16_kernels(shapes, gen, dev, phase):
+    """Each bf16 entry point against its plain twin at every shape in
+    `shapes`, timed, and called twice on the same inputs (the same bits).
+    -> {kernel: totals over those calls}. Raises SystemExit if any
+    disagrees."""
+    results, failed = {}, []
+    for name, calls, label, kern, plain, lib, terms in kernel_cases_bf16(
+            shapes, gen, dev):
+        out, ref = kern(), plain()
+        same = same_bits(out, kern())
+        log(f"{phase}: {name} {label}: two calls on the same inputs "
+            f"{'are bit-identical' if same else 'DIFFER'}")
+        if not same or out.dtype != ref.dtype:
+            failed.append(f"{name} {label} not deterministic or not bf16")
+        tol = BF16_TOL[name] * ref.float().abs().max().item()
+        record(results, failed, phase, name, calls, label,
+               max_err(out, ref), tol, timed(kern), timed(plain),
+               timed(lib), terms)
+    if failed:
+        raise SystemExit(f"bf16 kernels disagree with their plain twins: "
+                         f"{failed}")
+    return results
+
+
+def bf16_vs_plain(model, inputs, slots):
+    """The bf16 `model`'s denoise of 2 frames and encode of one 2-frame
+    clip through the kernels against the same through their plain twins
+    (slot attention's with bf16 k/v), on the card, within
+    BF16_PATH_TOL of each output's largest magnitude. Raises SystemExit
+    otherwise."""
+    import torch
+    from slotdiffusion_tpu_torch.serving import build_serving_fn
+    video, x_t, t_model = inputs
+    encode, denoise = (build_serving_fn(model, s)
+                       for s in ("encode", "denoise"))
+    with torch.inference_mode():
+        runs = {}
+        for how in ("kernels", "plain"):
+            ctx = plain_versions(f32_slot_attention=False) \
+                if how == "plain" else contextlib.nullcontext()
+            with ctx:
+                runs[how] = (denoise(x_t[:2], t_model[:2], slots[:1, :2]),
+                             *encode(video[:1, :2]))
+    for name, a, b in zip(("denoise", "encode slots", "encode masks"),
+                          runs["kernels"], runs["plain"]):
+        a, b = a.float(), b.float()
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        log(f"phase 7: bf16 {name}, kernels vs plain versions on the card: "
+            f"max rel err {rel:.2e} (tol {BF16_PATH_TOL:.0e})")
+        if not rel <= BF16_PATH_TOL:
+            raise SystemExit(f"bf16 {name}: kernels disagree with the "
+                             "plain versions")
+
+
 def main():
+    import gc
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -982,21 +1274,9 @@ def main():
     log(f"built SAViDiffusion (MOVi-E 128x128), {n_params / 1e6:.1f}M "
         "parameters, random weights (seed 0)")
     gen = torch.Generator(device=dev).manual_seed(1)
-    B, T, (H, W) = 2, cfg.n_sample_frames, cfg.resolution
-    video = torch.rand(B, T, H, W, 3, generator=gen, device=dev) * 2 - 1
-    encode = build_serving_fn(model, "encode")
-    sample = build_serving_fn(model, "sample")
-    denoise = build_serving_fn(model, "denoise")
-    h, w = cfg.dec_dict["resolution"]
-    x_t = torch.randn(B * T, h, w, 3, generator=gen, device=dev)
-    t_model = torch.full((B * T,), 500.0, device=dev)
-
-    shapes, handles = record_shapes(model)
-    slots, _ = encode(video)
-    denoise(x_t, t_model, slots)
-    torch.cuda.synchronize()
-    for hk in handles:
-        hk.remove()
+    inputs = serving_inputs(cfg, dev)
+    video, x_t, t_model = inputs
+    shapes = serving_shapes(model, inputs)
     log("shapes per request: " + ", ".join(
         f"{len(calls)} {name}" for name, calls in shapes.items()))
 
@@ -1167,56 +1447,21 @@ def main():
     check_grads(cases, gen, dev, "phase 3b")
 
     # ---- 4. the serving path through the kernels -------------------------
-    ops.reset_launch_counts()
-    per_surface = {}
-    before = ops.launch_counts()
-    for name, fn in (("encode", lambda: encode(video)),
-                     ("sample", lambda: sample(0, slots)),
-                     ("denoise", lambda: denoise(x_t, t_model, slots))):
-        t = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        after = ops.launch_counts()
-        per_surface[name] = {k: after[k] - before[k] for k in after}
-        before = after
-        if name == "encode":
-            slots, masks = out
-            outs = {"slots": slots, "masks": masks}
-        else:
-            outs = {name: out}
-        log(f"phase 4: {name} in {time.time() - t:.2f}s -> " + ", ".join(
-            f"{k} {tuple(v.shape)}" for k, v in outs.items()) +
-            f"; launches {per_surface[name]}")
-        for k, v in outs.items():
-            if not torch.isfinite(v).all():
-                raise SystemExit(f"{name}: non-finite values in {k}")
-        if name == "encode":
-            S, D = cfg.slot_dict["num_slots"], cfg.slot_dict["slot_size"]
-            assert slots.shape == (B, T, S, D), slots.shape
-            assert masks.shape == (B, T, S, H, W), masks.shape
-            msum = (masks.sum(2) - 1).abs().max().item()
-            if msum > 1e-4:
-                raise SystemExit(f"masks do not sum to 1 over the slots "
-                                 f"({msum:.2e})")
-        elif name == "sample":
-            assert out.shape == (B, T, H, W, 3), out.shape
-        else:
-            assert out.shape == x_t.shape, out.shape
-    per_path["serving"] = ops.launch_counts()
+    per_surface, surface_seconds, slots = serve(cfg, model, inputs,
+                                                "phase 4")
+    per_path["serving"] = {k: sum(c[k] for c in per_surface.values())
+                           for k in ops.launch_counts()}
     log(f"phase 4: launches on the serving path {per_path['serving']}")
-    missing = [k for k in MODEL_KERNELS if per_path["serving"][k] == 0]
-    if missing:
-        raise SystemExit(f"kernels never launched on the main path: "
-                         f"{missing}")
 
     # the same model on the CPU runs the plain versions: one denoise frame
     # and one 2-frame encode must agree with the card's kernel path
     cpu = build_model(cfg, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    d_gpu = denoise(x_t[:1], t_model[:1], slots[:1, :1]).cpu()
+    d_gpu = build_serving_fn(model, "denoise")(
+        x_t[:1], t_model[:1], slots[:1, :1]).cpu()
     d_cpu = build_serving_fn(cpu, "denoise")(
         x_t[:1].cpu(), t_model[:1].cpu(), slots[:1, :1].cpu())
-    s_gpu, m_gpu = encode(video[:1, :2])
+    s_gpu, m_gpu = build_serving_fn(model, "encode")(video[:1, :2])
     s_cpu, m_cpu = build_serving_fn(cpu, "encode")(video[:1, :2].cpu())
     # f32 through ~100 layers whose sums run in another order on the card:
     # 1e-3 of the output's scale. The encode also rounds k, v, q and the
@@ -1235,13 +1480,48 @@ def main():
     del cpu
 
     # ---- 5. the training path --------------------------------------------
-    per_path["training"], train_results = train(cfg, model, dev, gen)
+    per_path["training"], train_results, step_seconds = train(
+        cfg, model, dev, gen, "phase 5")
 
     # ---- 6. the evaluation path ------------------------------------------
-    eval_paths, res64 = evaluate(cfg, model, dev, gen, smi)
+    eval_paths, res64 = evaluate(cfg, model, dev, gen, smi, "phase 6")
     per_path.update(eval_paths)
+    del model, sa_mod, cases
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ---- 7. report ------------------------------------------------------
+    # ---- 7. the flagship in bf16: phases 4-6 again ------------------------
+    cfg16 = cfg.copy(use_bf16=True)
+    model = build_model(cfg16, device="cuda")
+    init_random_(model, torch.Generator().manual_seed(0))
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise SystemExit("the bf16 model's parameters are not all f32")
+    log("phase 7: built SAViDiffusion (MOVi-E 128x128) with use_bf16: "
+        "bf16 compute, f32 parameters, random weights (seed 0, as phase 4)")
+    bf16_serve = check_bf16_kernels(serving_shapes(model, inputs), gen,
+                                    dev, "phase 7")
+    per_surface16, _, slots = serve(cfg16, model, inputs, "phase 7",
+                                    surface_seconds)
+    per_path["bf16_serving"] = {k: sum(c[k] for c in per_surface16.values())
+                                for k in ops.launch_counts()}
+    bf16_vs_plain(model, inputs, slots)
+    per_path["bf16_training"], bf16_train, _ = train(
+        cfg16, model, dev, gen, "phase 7", step_seconds)
+    per_path.update(evaluate(cfg16, model, dev, gen, smi, "phase 7")[0])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, r in bf16_serve.items():
+        base = results[name.removesuffix("_bf16")]
+        log(f"phase 7: {name} per serving request {r['ms']:.4f} ms device "
+            f"(f32 entry, phase 3: {base['ms']:.4f} ms), bound "
+            f"{max(r['t_bytes'], r['t_ops']):.4f} ms (f32: "
+            f"{max(base['t_bytes'], base['t_ops']):.4f}), library "
+            f"{r['lib']:.4f} ms (f32: {base['lib']:.4f}); per training "
+            f"step's forward {bf16_train[name]['ms']:.4f} ms (f32, phase 5:"
+            f" {train_results[name.removesuffix('_bf16')]['ms']:.4f} ms)")
+
+    # ---- 8. report ------------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():
@@ -1280,6 +1560,28 @@ def main():
                                       res64[name]["t_ops"]),
                 "res64_max_abs_err": res64[name]["err"]}),
             **extra,
+        })
+    for name, r in bf16_serve.items():
+        base = name.removesuffix("_bf16")
+        m, tr = mods[base], bf16_train[name]
+        kernels.append({
+            "name": name, "entry": m.ENTRY[torch.bfloat16], "dtype": "bf16",
+            "route": m.ROUTE, "source": m.SOURCE,
+            "replaces": f"{ops.REFERENCE_PACKAGE}/{m.REPLACES}",
+            "launches": sum(c[name] for c in per_path.values()),
+            "max_abs_err": max(r["err"], tr["err"]),
+            "ms": r["ms"], "event_ms": r["event"], "plain_ms": r["plain"],
+            "bound_ms": max(r["t_bytes"], r["t_ops"]),
+            "bound_by": ("bytes" if r["t_bytes"] >= r["t_ops"]
+                         else "operations"),
+            "library_ms": r["lib"],
+            "train_ms": tr["ms"], "train_plain_ms": tr["plain"],
+            "train_library_ms": tr["lib"],
+            "train_bound_ms": max(tr["t_bytes"], tr["t_ops"]),
+            # the f32 entry point at the same shapes (phases 3 and 5)
+            "f32_ms": results[base]["ms"],
+            "f32_train_ms": train_results[base]["ms"],
+            "per_path_launches": {s: c[name] for s, c in per_path.items()},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the card's time goes in one `encode` and one `sample` request of
 the PyTorch port (flagship SAViDiffusion, MOVi-E 128x128, random weights
-from a seed, 2 videos x 6 frames, f32 with TF32 off), and in one training
-step (`Trainer.train_step` on the config's 32 synthetic 6-frame clips:
-forward, backward, clip, Adam).
+from a seed, 2 videos x 6 frames, f32 with TF32 off, or with `--bf16` the
+model built with `use_bf16`: bf16 compute, f32 parameters), and in one
+training step (`Trainer.train_step` on the config's 32 synthetic 6-frame
+clips: forward, backward, clip, Adam).
 
-    python3 scripts/profile_torch_serving.py [--out chiprun_out/profile]
+    python3 scripts/profile_torch_serving.py [--bf16] [--out DIR]
 
 Each request or step runs once to warm up, then once under
 `torch.profiler`
@@ -17,8 +18,9 @@ three kernels (mean device time per launch, free of the host launch cost
 that CUDA-event timing of back-to-back launches includes at small
 shapes), and the kernels with the most device time. The last line is one
 JSON object with those numbers. The full `key_averages` tables go under
-`--out`. It exits non-zero when a kernel the work runs (REQUIRED) does
-not appear in the trace under its name.
+`--out` (`*_bf16_key_averages.txt` with `--bf16`). It exits non-zero
+when a kernel the work runs (REQUIRED) does not appear in the trace
+under its name (under `--bf16`, GN's and attention's bf16 instances).
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -31,6 +33,10 @@ import time
 
 KERNELS = {"gn_silu": "gn_silu_kernel", "attention": "mha_clamped",
            "slot_attention": "sa_cluster_kernel"}
+# the device names of the bf16 entries' kernels (`--bf16`)
+KERNELS_BF16 = {"gn_silu": "gn_silu_kernel<__nv_bfloat16",
+                "attention": "mha_clamped_bf16_kernel",
+                "slot_attention": "sa_cluster_kernel"}
 # the port's kernels each profiled piece of work must show by name
 REQUIRED = {"encode": ("slot_attention",),
             "sample": ("gn_silu", "attention"),
@@ -66,7 +72,11 @@ def profile(fn, torch):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/profile")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the model in bf16 (use_bf16)")
     args = ap.parse_args()
+    kernels = KERNELS_BF16 if args.bf16 else KERNELS
+    suffix = "_bf16" if args.bf16 else ""
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
@@ -82,7 +92,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(args.out, exist_ok=True)
-    cfg = configs.SAViLDMMoviE128()
+    cfg = configs.SAViLDMMoviE128().copy(use_bf16=args.bf16)
     model = build_model(cfg, device="cuda")
     init_random_(model, torch.Generator().manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -101,17 +111,19 @@ def main():
         trainer.train_step(batch)
 
     summary = {"device": torch.cuda.get_device_name(0),
+               "dtype": "bf16" if args.bf16 else "f32",
                "train_batch": cfg.train_batch_size}
     for name, fn in (("encode", lambda: encode(video)),
                      ("sample", lambda: sample(0, slots)),
                      ("train_step", train_step)):
         prof, wall_ms, busy_ms, by_name = profile(fn, torch)
-        with open(os.path.join(args.out, f"{name}_key_averages.txt"),
+        with open(os.path.join(args.out,
+                               f"{name}{suffix}_key_averages.txt"),
                   "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=60))
         ours = {}
-        for kname, pattern in KERNELS.items():
+        for kname, pattern in kernels.items():
             hits = [(n, tot) for k, (n, tot) in by_name.items()
                     if pattern in k]
             n = sum(h[0] for h in hits)
@@ -119,8 +131,9 @@ def main():
             ours[kname] = {"launches": n, "device_ms": tot,
                            "mean_us": 1e3 * tot / n if n else None}
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-        print(f"{name}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} "
-              f"ms, idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+        print(f"{name}{suffix}: wall {wall_ms:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}",
+              flush=True)
         for kname, r in ours.items():
             print(f"  {kname}: {r['launches']} launches, "
                   f"{r['device_ms']:.3f} ms device", flush=True)

@@ -5,6 +5,7 @@ scripts/train.py for `slotdiffusion_tpu_torch`).
     python scripts/train_torch.py --params SAViLDMMoviFile64 \
         --data_root data_local/movi_file                     # 64x64 MOVi
     python scripts/train_torch.py --cpu --tiny --max_steps 3 # CPU check
+    python scripts/train_torch.py --bf16 ...                 # bf16 compute
 
 `--params` names a port config: the flagship `SAViLDMMoviE128`
 (SAViDiffusion, MOVi-E 128x128, 32 clips a step) or `SAViLDMMoviFile64`
@@ -24,6 +25,10 @@ to `--ckp_path` (default `checkpoint/torch_<run>/`, where the run is
 `savi_ldm_movie` for the flagship, `tiny`, or the config's name):
 `ckpt_last.pt` is rewritten atomically every `save_interval` of an epoch
 and at the end; `--resume` continues from such a file.
+
+`--bf16` (`use_bf16`, the JAX `scripts/train.py --bf16`) computes in bf16
+with f32 master weights, gradients and Adam state; the checkpoints are
+f32 and interchange with an f32 run's.
 """
 
 import argparse
@@ -60,6 +65,8 @@ def main(argv=None):
     parser.add_argument("--ckp_path", default="")
     parser.add_argument("--resume", default="",
                         help="a ckpt_last.pt to continue from")
+    parser.add_argument("--bf16", action="store_true",
+                        help="compute in bf16 (f32 master weights)")
     args = parser.parse_args(argv)
 
     import torch
@@ -76,7 +83,7 @@ def main(argv=None):
     name = "tiny" if args.tiny else RUN_NAMES.get(args.params, args.params)
     cfg = configs.tiny_config() if args.tiny else \
         configs.get_config(args.params)
-    cfg = cfg.copy(seed=args.seed)
+    cfg = cfg.copy(seed=args.seed, use_bf16=args.bf16 or cfg.use_bf16)
     vqvae = args.vqvae_ckp_path
     if not vqvae and args.params == "SAViLDMMoviFile64" and not args.tiny:
         if not os.path.isfile(EXPORTED_VQVAE):
@@ -109,8 +116,9 @@ def main(argv=None):
                                   val_samples=2 * batch)
     ckp_path = args.ckp_path or os.path.join("checkpoint", f"torch_{name}")
     trainer = build_method(model, data, cfg, ckp_path=ckp_path)
-    print(f"training {name} on {device}: {len(data)} steps per epoch of "
-          f"{batch} clips, checkpoints in {ckp_path}", flush=True)
+    print(f"training {name} on {device} in "
+          f"{'bf16' if cfg.use_bf16 else 'f32'}: {len(data)} steps per "
+          f"epoch of {batch} clips, checkpoints in {ckp_path}", flush=True)
     trainer.fit(max_steps=args.max_steps if args.max_steps > 0 else None,
                 resume_from=args.resume or None)
     return 0

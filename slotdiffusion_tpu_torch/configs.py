@@ -22,7 +22,14 @@ main path runs its kernels:
   the clamped-exp form, so `attn_softmax` is ignored on this path, as in
   the JAX package;
 - `use_pallas=True`: every SAVi frame runs the slot-attention kernel
-  (the JAX default "auto" resolves to False).
+  (the JAX default "auto" resolves to False, in the port as in the JAX
+  package).
+
+`use_bf16` (False, the JAX default; `scripts/train.py --bf16` of the JAX
+package, `scripts/train_torch.py --bf16` here) builds the model in bf16 as
+the JAX package does: f32 parameters, each layer computing in bf16
+(`models/blocks.py`), the GN and attention kernels through their bf16
+entry points.
 """
 
 import copy
@@ -96,6 +103,7 @@ class SAViLDMMoviE128(BaseParams):
     val_batch_size = 32
     eval_interval = 1     # epochs between validations
     denoise_loss_w = 1.0
+    use_bf16 = False      # compute dtype bf16, parameters f32
     # data (configs_base.py:_VideoCommon, _Common)
     dataset = "movi"
     movi_level = "e"
@@ -120,11 +128,12 @@ class SAViLDMMoviE128(BaseParams):
 
 
 def tiny_config(resolution=(16, 16), num_slots=3, slot_size=32,
-                timesteps=50, use_pallas=True):
+                timesteps=50, use_pallas=True, use_bf16=False):
     """The flagship's structure at narrow widths, for CPU runs and tests:
     GN-ResNet18 encoder, 2-iteration SA, 1-layer predictor, a 2-level UNet
     with attention at both levels, a 3-level VQ-VAE with 64 codes, no
-    dropout, 2 clips a step; the three kernel knobs as in the flagship."""
+    dropout, 2 clips a step; the three kernel knobs as in the flagship,
+    and the compute dtype `use_bf16` asks for."""
     unet = dict(ldm_unet_dict(slot_size), model_channels=32,
                 num_res_blocks=1, attention_resolutions=(1, 2),
                 channel_mult=(1, 2), num_head_channels=32, dropout=0.0)
@@ -135,6 +144,7 @@ def tiny_config(resolution=(16, 16), num_slots=3, slot_size=32,
     dec.update(unet_dict=unet, vae_dict=vae)
     return SAViLDMMoviE128().copy(
         train_batch_size=2,
+        use_bf16=use_bf16,
         resolution=tuple(resolution),
         slot_dict=dict(num_slots=num_slots, slot_size=slot_size,
                        slot_mlp_size=2 * slot_size, num_iterations=2,
@@ -161,12 +171,12 @@ class SAViLDMMoviFile64(SAViLDMMoviE128):
     decoder; the VQ-VAE of ch 32, mult (1, 2), 512 codes.
 
     The JAX config runs no Pallas kernel, and this copy keeps its knobs:
-    `use_pallas="auto"`, `fused_gn=False`, `attn_backend="einsum"`. On the
-    CPU it computes what the JAX model computes (slot attention in f32).
-    On the card slot attention runs its kernel ("auto" takes the kernel
-    for CUDA inputs; bf16 k/v), while GroupNorm and attention run their
-    plain PyTorch versions: the UNet's heads are 8 wide, and the attention
-    kernel takes 32. `vqvae_ckp_path` is unset: a converted SAViDiffusion
+    `use_pallas="auto"`, `fused_gn=False`, `attn_backend="einsum"`. On
+    every device it computes what the JAX model computes: slot attention
+    in f32 ("auto" resolves to the f32 formula, as in the JAX package),
+    GroupNorm and attention in their plain PyTorch versions (the UNet's
+    heads are 8 wide, and the attention kernel takes 32). `vqvae_ckp_path`
+    is unset: a converted SAViDiffusion
     checkpoint carries its VQ-VAE, and a training run names a port-format
     VQ-VAE file (`scripts/train_torch.py --vqvae_ckp_path`).
     """
@@ -186,6 +196,8 @@ class SAViLDMMoviFile64(SAViLDMMoviE128):
     load_mask = True
     num_workers = 4
     resolution = (64, 64)
+    # "auto": slot attention's f32 formula on every device, as in the JAX
+    # package
     slot_dict = dict(num_slots=6, slot_size=64, slot_mlp_size=128,
                      num_iterations=2, use_pallas="auto")
     enc_dict = dict(enc_channels=(3, 32, 32, 32), enc_ks=5,

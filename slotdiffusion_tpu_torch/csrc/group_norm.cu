@@ -1,4 +1,5 @@
-// GroupNorm(+SiLU) over contiguous f32 NCHW, one read of x, one write of y.
+// GroupNorm(+SiLU) over contiguous f32 or bf16 NCHW, one read of x, one
+// write of y.
 //
 // Replaces the Pallas kernel `_gn_kernel` driven by `_gn_pallas` /
 // `fused_group_norm` (the JAX package's ops/fused_norm.py:53, 83-103, 127):
@@ -41,7 +42,16 @@
 //
 // Bound on the H100: ~8-12 flops per 8 bytes moved, far below the card's
 // f32 balance, so bytes: 2 * B * C * H * W * 4 bytes over 3.35 TB/s.
+//
+// The bf16 entry point (`sdt_group_norm_bf16`, the model under `use_bf16`)
+// is the same kernel on bf16 x and y, as the JAX `_gn_kernel` writes
+// `o_ref.dtype`: the values are widened to f32 as they are loaded, the
+// statistics, the f32 affine and the SiLU are f32, and y is rounded once
+// to bf16 (round to nearest even) on the store. A chunk of 4 values is
+// one 8-byte access. Bound: half the f32 entry's bytes,
+// 2 * B * C * H * W * 2 over 3.35 TB/s.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,6 +59,34 @@ namespace {
 
 constexpr int kBlock = 64;  // threads a block for runs of <= 2 warps
 constexpr int kMaxRun = 32768;   // MAX_GROUP in ops/fused_norm.py
+
+// 4 consecutive values as f32: one 16-byte (f32) or 8-byte (bf16) load
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, const float o[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float o[4]) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(o[0], o[1]);
+  __nv_bfloat162 b = __floats2bfloat162_rn(o[2], o[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      *reinterpret_cast<uint32_t*>(&a), *reinterpret_cast<uint32_t*>(&b));
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void set(float& dst, float x) { dst = x; }
+__device__ __forceinline__ void set(__nv_bfloat16& dst, float x) {
+  dst = __float2bfloat16_rn(x);
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -72,15 +110,16 @@ __device__ __forceinline__ float run_sum(float x, int tpr, float* red) {
 }
 
 // A thread holds up to kN chunks of 4 consecutive values of its run (kN =
-// 4 up to L = 4096, 8 above). kVec: each chunk is one 16-byte access
-// (L % 4 == 0, aligned), else four 4-byte accesses with the run's ragged
-// end masked; kChanVec: a chunk lies in one channel (H * W % 4 == 0), else
-// each value finds its channel. With kN = 4 and kChanVec the chunk's
-// scale and shift are read with x, so their latency overlaps the loads.
-template <int kN, bool kVec, bool kChanVec, bool kSilu>
+// 4 up to L = 4096, 8 above), in f32 whatever T is. kVec: each chunk is
+// one 16-byte (f32) or 8-byte (bf16) access (L % 4 == 0, aligned), else
+// four single-value accesses with the run's ragged end masked; kChanVec:
+// a chunk lies in one channel (H * W % 4 == 0), else each value finds its
+// channel. With kN = 4 and kChanVec the chunk's scale and shift are read
+// with x, so their latency overlaps the loads.
+template <typename T, int kN, bool kVec, bool kChanVec, bool kSilu>
 __global__ void __launch_bounds__(1024)
-gn_silu_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, float* __restrict__ y,
+gn_silu_kernel(const T* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ bias, T* __restrict__ y,
                int runs, int G, int CG, int HW, int L, int tpr, float eps) {
   constexpr bool kEarly = kChanVec && kN == 4;  // affine read with x
   __shared__ float red_sum[1024 / 32], red_sq[1024 / 32];
@@ -101,14 +140,14 @@ gn_silu_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
     if (i < n) {
       if (kVec) {
-        q = *reinterpret_cast<const float4*>(x + base + 4 * i);
+        q = load4(x + base + 4 * i);
       } else {
-        const float* p = x + base + 4 * i;
+        const T* p = x + base + 4 * i;
         const int left = L - 4 * i;  // >= 1
-        q.x = p[0];
-        if (left > 1) q.y = p[1];
-        if (left > 2) q.z = p[2];
-        if (left > 3) q.w = p[3];
+        q.x = to_f32(p[0]);
+        if (left > 1) q.y = to_f32(p[1]);
+        if (left > 2) q.z = to_f32(p[2]);
+        if (left > 3) q.w = to_f32(p[3]);
       }
       if (kEarly) {
         const int c = c0 + 4 * i / HW;
@@ -153,15 +192,14 @@ gn_silu_kernel(const float* __restrict__ x, const float* __restrict__ w,
       o[e] = t;
     }
     if (kVec) {
-      *reinterpret_cast<float4*>(y + base + 4 * i) =
-          make_float4(o[0], o[1], o[2], o[3]);
+      store4(y + base + 4 * i, o);
     } else {
-      float* p = y + base + 4 * i;
+      T* p = y + base + 4 * i;
       const int left = L - 4 * i;
-      p[0] = o[0];
-      if (left > 1) p[1] = o[1];
-      if (left > 2) p[2] = o[2];
-      if (left > 3) p[3] = o[3];
+      set(p[0], o[0]);
+      if (left > 1) set(p[1], o[1]);
+      if (left > 2) set(p[2], o[2]);
+      if (left > 3) set(p[3], o[3]);
     }
   }
 }
@@ -170,9 +208,9 @@ gn_silu_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // scheduled while the kernel before it on the stream finishes, and waits
 // for it inside (griddepcontrol.wait), which takes the launch off the
 // critical path of back-to-back small calls.
-template <int kN, bool kVec, bool kChanVec>
+template <typename T, int kN, bool kVec, bool kChanVec>
 cudaError_t launch(bool silu, dim3 grid, int block, cudaStream_t stream,
-                   const float* x, const float* w, const float* b, float* y,
+                   const T* x, const float* w, const float* b, T* y,
                    int runs, int G, int CG, int HW, int L, int tpr,
                    float eps) {
   cudaLaunchConfig_t cfg = {};
@@ -185,34 +223,32 @@ cudaError_t launch(bool silu, dim3 grid, int block, cudaStream_t stream,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if (silu)
-    return cudaLaunchKernelEx(&cfg, gn_silu_kernel<kN, kVec, kChanVec, true>,
-                              x, w, b, y, runs, G, CG, HW, L, tpr, eps);
-  return cudaLaunchKernelEx(&cfg, gn_silu_kernel<kN, kVec, kChanVec, false>,
-                            x, w, b, y, runs, G, CG, HW, L, tpr, eps);
+    return cudaLaunchKernelEx(
+        &cfg, gn_silu_kernel<T, kN, kVec, kChanVec, true>, x, w, b, y, runs,
+        G, CG, HW, L, tpr, eps);
+  return cudaLaunchKernelEx(
+      &cfg, gn_silu_kernel<T, kN, kVec, kChanVec, false>, x, w, b, y, runs,
+      G, CG, HW, L, tpr, eps);
 }
 
-template <int kN>
+template <typename T, int kN>
 cudaError_t launch_any(bool vec, bool chan_vec, bool silu, dim3 grid,
-                       int block, cudaStream_t s, const float* x,
-                       const float* w, const float* b, float* y, int runs,
+                       int block, cudaStream_t s, const T* x,
+                       const float* w, const float* b, T* y, int runs,
                        int G, int CG, int HW, int L, int tpr, float eps) {
   if (vec && chan_vec)
-    return launch<kN, true, true>(silu, grid, block, s, x, w, b, y, runs, G,
-                                  CG, HW, L, tpr, eps);
+    return launch<T, kN, true, true>(silu, grid, block, s, x, w, b, y, runs,
+                                     G, CG, HW, L, tpr, eps);
   if (vec)
-    return launch<kN, true, false>(silu, grid, block, s, x, w, b, y, runs,
-                                   G, CG, HW, L, tpr, eps);
-  return launch<kN, false, false>(silu, grid, block, s, x, w, b, y, runs, G,
-                                  CG, HW, L, tpr, eps);
+    return launch<T, kN, true, false>(silu, grid, block, s, x, w, b, y,
+                                      runs, G, CG, HW, L, tpr, eps);
+  return launch<T, kN, false, false>(silu, grid, block, s, x, w, b, y, runs,
+                                     G, CG, HW, L, tpr, eps);
 }
 
-}  // namespace
-
-// x, y: contiguous f32 [B, C, H*W]; w, b: f32 [C]
-extern "C" int sdt_group_norm_f32(const float* x, const float* w,
-                                  const float* b, float* y, int B, int C,
-                                  int HW, int G, float eps, int silu,
-                                  void* stream) {
+template <typename T>
+int group_norm(const T* x, const float* w, const float* b, T* y, int B,
+               int C, int HW, int G, float eps, int silu, void* stream) {
   if (B <= 0 || C <= 0 || HW <= 0 || G <= 0 || C % G)
     return (int)cudaErrorInvalidValue;
   const long long Lll = (long long)(C / G) * HW;
@@ -226,15 +262,35 @@ extern "C" int sdt_group_norm_f32(const float* x, const float* w,
   while (tpr * per_thread < L) tpr *= 2;
   const int block = tpr > kBlock ? tpr : kBlock;
   const dim3 grid((unsigned)((runs + block / tpr - 1) / (block / tpr)));
-  const bool vec =
-      L % 4 == 0 && (((uintptr_t)x | (uintptr_t)y) & 15) == 0;
+  const bool vec = L % 4 == 0 &&
+      (((uintptr_t)x | (uintptr_t)y) & (4 * sizeof(T) - 1)) == 0;
   const bool chan_vec = vec && HW % 4 == 0;
   const cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err =
       L <= 4096
-          ? launch_any<4>(vec, chan_vec, silu, grid, block, s, x, w, b, y,
-                          runs, G, C / G, HW, L, tpr, eps)
-          : launch_any<8>(vec, chan_vec, silu, grid, block, s, x, w, b, y,
-                          runs, G, C / G, HW, L, tpr, eps);
+          ? launch_any<T, 4>(vec, chan_vec, silu, grid, block, s, x, w, b,
+                             y, runs, G, C / G, HW, L, tpr, eps)
+          : launch_any<T, 8>(vec, chan_vec, silu, grid, block, s, x, w, b,
+                             y, runs, G, C / G, HW, L, tpr, eps);
   return (int)err;
+}
+
+}  // namespace
+
+// x, y: contiguous f32 [B, C, H*W]; w, b: f32 [C]
+extern "C" int sdt_group_norm_f32(const float* x, const float* w,
+                                  const float* b, float* y, int B, int C,
+                                  int HW, int G, float eps, int silu,
+                                  void* stream) {
+  return group_norm(x, w, b, y, B, C, HW, G, eps, silu, stream);
+}
+
+// x, y: contiguous bf16 [B, C, H*W]; w, b: f32 [C]
+extern "C" int sdt_group_norm_bf16(const void* x, const float* w,
+                                   const float* b, void* y, int B, int C,
+                                   int HW, int G, float eps, int silu,
+                                   void* stream) {
+  return group_norm(static_cast<const __nv_bfloat16*>(x), w, b,
+                    static_cast<__nv_bfloat16*>(y), B, C, HW, G, eps, silu,
+                    stream);
 }

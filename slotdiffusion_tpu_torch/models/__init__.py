@@ -6,16 +6,24 @@ import math
 import torch
 
 
+def compute_dtype_of(params):
+    """bf16 under `params.use_bf16`, else f32 (the JAX `_dtype_of`,
+    models/__init__.py:38-39 of the JAX package)."""
+    return torch.bfloat16 if params.use_bf16 else torch.float32
+
+
 def build_model(params, device="cuda"):
     """Instantiate the model named by `params.model` (SAViDiffusion is the
-    only model of this slice) on `device`, in eval mode."""
+    only model of this slice) on `device`, in eval mode. Parameters are f32
+    whatever the compute dtype (`compute_dtype_of`), so a bf16 model loads
+    an f32 checkpoint and trains f32 master weights."""
     from .slot_diffusion import SAViDiffusion
     if params.model != "SAViDiffusion":
         raise ValueError(f"model {params.model!r} is not ported yet")
     model = SAViDiffusion(
         resolution=tuple(params.resolution), slot_dict=params.slot_dict,
         enc_dict=params.enc_dict, dec_dict=params.dec_dict,
-        pred_dict=params.pred_dict)
+        pred_dict=params.pred_dict, compute_dtype=compute_dtype_of(params))
     return model.to(device).eval()
 
 

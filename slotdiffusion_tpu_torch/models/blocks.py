@@ -1,5 +1,15 @@
 """Shared building blocks, NCHW (mirrors the JAX package's models/blocks.py:
-31-193, 237-313)."""
+31-193, 237-313).
+
+Compute dtype, flax's way (`use_bf16`): parameters stay f32 under the
+same names, and each layer casts its input and its weights to its
+`compute_dtype` at use, as `nn.Dense(dtype=...)` / `nn.Conv(dtype=...)`
+do, and rounds where they do: the product to the compute dtype, then the
+bias added in it (`add_bias`); norms take their statistics and affine in
+f32 and round once to the compute dtype (LayerNorm) or to the input's
+dtype (GroupNorm). With `compute_dtype=torch.float32` (the default) every
+cast is a no-op and the layers are torch's own.
+"""
 
 import math
 
@@ -10,8 +20,71 @@ from torch import nn
 from ..ops.fused_norm import fused_group_norm, group_norm_reference
 
 
+def add_bias(y, bias, shape=(-1,)):
+    """y + bias in y's dtype. Under bf16 that is flax's rounding point:
+    `dot_general` / `conv` round their f32 sums to bf16, then the bias is
+    added in bf16 (a second rounding; a bias fused into the product rounds
+    once, and puts an independent bf16 error on most outputs of every
+    layer). None adds nothing."""
+    return y if bias is None else y + bias.to(y.dtype).reshape(shape)
+
+
+def linear(x, weight, bias, compute_dtype):
+    """x @ weight^T + bias in `compute_dtype` (flax `nn.Dense(dtype)`): the
+    input and the f32 weight cast at use, the bias added after the
+    product's rounding (`add_bias`); in f32, torch's own `F.linear`."""
+    if compute_dtype == torch.float32:
+        return F.linear(x.float(), weight, bias)
+    return add_bias(F.linear(x.to(compute_dtype), weight.to(compute_dtype)),
+                    bias)
+
+
+class Linear(nn.Linear):
+    """`nn.Linear` computing in `compute_dtype` (`linear`)."""
+
+    def __init__(self, in_features, out_features, bias=True,
+                 compute_dtype=torch.float32):
+        super().__init__(in_features, out_features, bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias, self.compute_dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` computing in `compute_dtype` (flax `nn.Conv(dtype)`):
+    f32 parameters, the input and kernel cast at use, the bias added after
+    the convolution's rounding."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x.float())
+        return add_bias(self._conv_forward(x.to(dt), self.weight.to(dt),
+                                           None), self.bias, (-1, 1, 1))
+
+
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` as flax's `nn.LayerNorm(dtype)`: statistics and
+    affine in f32, one rounding to `compute_dtype`."""
+
+    def __init__(self, normalized_shape, eps=1e-5,
+                 compute_dtype=torch.float32):
+        super().__init__(normalized_shape, eps=eps)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.compute_dtype)
+
+
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm with f32 statistics and an optional fused SiLU.
+    """GroupNorm with f32 statistics and an optional fused SiLU; the output
+    has the input's dtype (bf16 under `use_bf16`).
 
     `fused=True` routes the call through the GN(+SiLU) kernel
     (ops/fused_norm.py), the JAX `fused_gn` knob; `fused=False` is the
@@ -58,11 +131,11 @@ def build_grid(resolution, device=None):
 
 class SoftPositionEmbed(nn.Module):
     """Adds a learned linear projection of the coordinate grid to an NHWC
-    feature map (parameters: `dense`)."""
+    feature map (parameters: `dense`), in `compute_dtype`."""
 
-    def __init__(self, hidden_size):
+    def __init__(self, hidden_size, compute_dtype=torch.float32):
         super().__init__()
-        self.dense = nn.Linear(4, hidden_size)
+        self.dense = Linear(4, hidden_size, compute_dtype=compute_dtype)
 
     def forward(self, inputs):
         return inputs + self.dense(build_grid(inputs.shape[1:3],
@@ -70,19 +143,21 @@ class SoftPositionEmbed(nn.Module):
 
 
 class MLP(nn.Sequential):
-    """Dense layers with an activation between them, optional pre-LN."""
+    """Dense layers with an activation between them, optional pre-LN, in
+    `compute_dtype`."""
 
     def __init__(self, in_dim, hidden_dims, out_dim, act=nn.ReLU,
-                 pre_norm=False):
-        layers = [nn.LayerNorm(in_dim)] if pre_norm else []
+                 pre_norm=False, compute_dtype=torch.float32):
+        dt = dict(compute_dtype=compute_dtype)
+        layers = [LayerNorm(in_dim, **dt)] if pre_norm else []
         for d in hidden_dims:
-            layers += [nn.Linear(in_dim, d), act()]
+            layers += [Linear(in_dim, d, **dt), act()]
             in_dim = d
-        layers.append(nn.Linear(in_dim, out_dim))
+        layers.append(Linear(in_dim, out_dim, **dt))
         super().__init__(*layers)
 
 
-class ChannelLayerNorm(nn.LayerNorm):
+class ChannelLayerNorm(LayerNorm):
     """LayerNorm over the channels of an NCHW map (flax's LayerNorm on the
     last axis of NHWC), eps 1e-5."""
 
@@ -90,7 +165,7 @@ class ChannelLayerNorm(nn.LayerNorm):
         return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
-def get_norm(norm, channels):
+def get_norm(norm, channels, compute_dtype=torch.float32):
     """A norm name -> its module over `channels` (None for ""), as the JAX
     package's `get_norm`: GroupNorm32 with 32 groups or LayerNorm."""
     if not norm:
@@ -98,7 +173,8 @@ def get_norm(norm, channels):
     if norm in ("gn", "group_norm", "groupnorm"):
         return GroupNorm32(channels)
     if norm in ("ln", "layer_norm", "layernorm"):
-        return ChannelLayerNorm(channels, eps=1e-5)
+        return ChannelLayerNorm(channels, eps=1e-5,
+                                compute_dtype=compute_dtype)
     raise ValueError(f"unsupported norm: {norm!r}")
 
 
@@ -129,16 +205,18 @@ def same_padding(size, kernel, stride):
 
 
 class ConvNormAct(nn.Sequential):
-    """Conv2d -> norm -> activation with flax's "SAME" padding, NCHW (the
+    """Conv2d -> norm -> activation with flax's "SAME" padding, NCHW, in
+    `compute_dtype` (the
     JAX package's ConvNormAct). Modules `0` (conv), `1` (norm or
     Identity), `2` (activation or Identity), as upstream's
     `conv_norm_act` names them."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
-                 norm="", act="relu"):
+                 norm="", act="relu", compute_dtype=torch.float32):
         super().__init__(
-            nn.Conv2d(in_channels, out_channels, kernel_size, stride),
-            get_norm(norm, out_channels) or nn.Identity(),
+            Conv2d(in_channels, out_channels, kernel_size, stride,
+                   compute_dtype=compute_dtype),
+            get_norm(norm, out_channels, compute_dtype) or nn.Identity(),
             get_act(act) or nn.Identity())
 
     def forward(self, x):

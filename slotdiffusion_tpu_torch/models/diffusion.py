@@ -7,6 +7,9 @@ decode with quantize-as-denoise and its latent loss. Only the
 samplers are later work.
 
 Latents and images are NHWC at every public method, as in the JAX package.
+Under a bf16 `compute_dtype` the UNet and the VQ-VAE compute in bf16 while
+latents, images, the noise, the sampler's state and the loss stay f32
+(the JAX models/diffusion.py:210).
 """
 
 import numpy as np
@@ -29,7 +32,7 @@ def _noise(generator, shape, same_noise, device):
 
 class CondDDPM(nn.Module):
     def __init__(self, resolution, unet_dict, diffusion_dict,
-                 conditioning_key="crossattn"):
+                 conditioning_key="crossattn", compute_dtype=torch.float32):
         super().__init__()
         if conditioning_key != "crossattn":
             raise ValueError(f"conditioning {conditioning_key!r} is not "
@@ -64,7 +67,9 @@ class CondDDPM(nn.Module):
             context_dim=ud.get("context_dim"),
             attn_backend=ud.get("attn_backend", "einsum"),
             attn_softmax=ud.get("attn_softmax", "fast"),
-            fused_gn=ud.get("fused_gn", False))
+            fused_gn=ud.get("fused_gn", False),
+            conv_out_compute=ud.get("conv_out_compute", "f32"),
+            compute_dtype=compute_dtype)
 
     def denoise(self, x, t, context, generator=None):
         """x [B, H, W, C] NHWC, t [B], context [B, S, D] -> NHWC output.
@@ -147,12 +152,13 @@ class LDM(CondDDPM):
     is the x0 correction."""
 
     def __init__(self, resolution, unet_dict, diffusion_dict, vae_dict,
-                 conditioning_key="crossattn"):
+                 conditioning_key="crossattn", compute_dtype=torch.float32):
         super().__init__(resolution, unet_dict, diffusion_dict,
-                         conditioning_key)
+                         conditioning_key, compute_dtype)
         self.vae = VQVAEWrapper(vae_dict["enc_dec_dict"],
                                 vae_dict["vq_dict"],
-                                diffusion_dict.get("z_scale_factor", 1.0))
+                                diffusion_dict.get("z_scale_factor", 1.0),
+                                compute_dtype)
 
     def correct_x0(self, x0):
         return self.vae.quantize(x0)

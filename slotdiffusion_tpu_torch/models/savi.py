@@ -16,21 +16,25 @@ from .slot_attention import SlotAttention
 
 
 class SAVi(nn.Module):
-    def __init__(self, resolution, slot_dict, enc_dict, pred_dict, eps=1e-6):
+    def __init__(self, resolution, slot_dict, enc_dict, pred_dict, eps=1e-6,
+                 compute_dtype=torch.float32):
         super().__init__()
         self.num_slots = slot_dict["num_slots"]
         self.slot_size = slot_dict["slot_size"]
         self.init_latents = nn.Parameter(
             torch.zeros(1, self.num_slots, self.slot_size))
-        self.encoder = SAEncoder(enc_dict, resolution)
+        self.compute_dtype = compute_dtype
+        self.encoder = SAEncoder(enc_dict, resolution, compute_dtype)
         self.slot_attention = SlotAttention(
             in_features=enc_dict["enc_out_channels"],
             num_iterations=slot_dict["num_iterations"],
             slot_size=self.slot_size,
             mlp_hidden_size=slot_dict["slot_mlp_size"], eps=eps,
             return_last_attn=True,
-            use_pallas=slot_dict.get("use_pallas", "auto"))
-        self.predictor = build_predictor(pred_dict, self.slot_size)
+            use_pallas=slot_dict.get("use_pallas", "auto"),
+            compute_dtype=compute_dtype)
+        self.predictor = build_predictor(pred_dict, self.slot_size,
+                                         compute_dtype)
 
     def encode(self, img, prev_slots=None):
         """img [B, T, H, W, 3] -> (slots [B, T, S, D], masks [B, T, S, h*w],
@@ -42,7 +46,8 @@ class SAVi(nn.Module):
         prev = prev_slots
         for t in range(T):
             if prev is None:
-                init = self.init_latents.expand(B, -1, -1)
+                init = self.init_latents.to(self.compute_dtype).expand(
+                    B, -1, -1)
             else:
                 init = self.predictor(prev)
             prev, mask = self.slot_attention(feats[:, t], init)

@@ -2,8 +2,12 @@
 LDM over the B*T frames (mirrors the JAX package's models/
 slot_diffusion.py:30-64, 160-245): the encoder, the training loss
 (`compute_losses`) and the slot-conditioned reconstruction
-(`log_images`)."""
+(`log_images`). `compute_dtype` (bf16 under `use_bf16`) reaches SAVi, the
+UNet and the VQ-VAE, as the JAX model passes its `dtype` down
+(models/slot_diffusion.py:38-61, 97-109 of the JAX package): slots come
+out in it, masks, latents and images in f32."""
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -20,7 +24,7 @@ def _upsample_masks(masks, vis_res, out_res):
     return m.reshape(B, N, *out_res)
 
 
-def _build_dm_decoder(dec_dict):
+def _build_dm_decoder(dec_dict, compute_dtype):
     """The latent-diffusion decoder; pixel-space decoders are not ported."""
     dd = dict(dec_dict)
     if not dd.get("vae_dict"):
@@ -29,19 +33,21 @@ def _build_dm_decoder(dec_dict):
                unet_dict=dd["unet_dict"],
                diffusion_dict=dd.get("diffusion_dict", {}),
                vae_dict=dd["vae_dict"],
-               conditioning_key=dd.get("conditioning_key", "crossattn"))
+               conditioning_key=dd.get("conditioning_key", "crossattn"),
+               compute_dtype=compute_dtype)
 
 
 class SAViDiffusion(nn.Module):
     def __init__(self, resolution, slot_dict, enc_dict, dec_dict, pred_dict,
-                 eps=1e-6):
+                 eps=1e-6, compute_dtype=torch.float32):
         super().__init__()
         self.resolution = tuple(resolution)
         self.num_slots = slot_dict["num_slots"]
         self.slot_size = slot_dict["slot_size"]
+        self.compute_dtype = compute_dtype
         self.savi = SAVi(self.resolution, slot_dict, enc_dict, pred_dict,
-                         eps=eps)
-        self.dm_decoder = _build_dm_decoder(dec_dict)
+                         eps=eps, compute_dtype=compute_dtype)
+        self.dm_decoder = _build_dm_decoder(dec_dict, compute_dtype)
         # the JAX model's `use_ema` (models/slot_diffusion.py:176-178): the
         # decoder's config may ask for an EMA of `dm_decoder`
         self.use_ema = bool(dec_dict.get("use_ema", False))

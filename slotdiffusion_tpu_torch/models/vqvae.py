@@ -5,34 +5,43 @@ methods take and return NHWC ([B, H, W, C] or [B, T, H, W, C]).
 Parameter names follow the upstream VQ-VAE (encoder.down.L.block.i, ...).
 
 Every GroupNorm here has eps 1e-6 and runs the plain formula, as the JAX
-VQ-VAE does (it never enables the fused kernel).
+VQ-VAE does (it never enables the fused kernel); the SiLU after it is a
+separate op in the compute dtype, as there.
+
+Under a bf16 `compute_dtype` (the JAX VQ-VAE's `dtype`): the blocks
+compute in bf16, the attention's logits and softmax in f32; the encoder's
+and the decoder's `conv_out`, `quant_conv` and `post_quant_conv` in f32
+(models/vqvae.py:143, 188, 296-299 of the JAX package), so latents and
+images are f32; the quantizer's distances in f32.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import GroupNorm32
+from .blocks import Conv2d, GroupNorm32
 
 _GN_EPS = 1e-6
 
 
-def _gn(ch, act=None):
-    return GroupNorm32(ch, eps=_GN_EPS, act=act)
+def _gn(ch):
+    return GroupNorm32(ch, eps=_GN_EPS)
 
 
 class ResnetBlock(nn.Module):
-    def __init__(self, in_ch, out_ch):
+    def __init__(self, in_ch, out_ch, compute_dtype=torch.float32):
         super().__init__()
-        self.norm1 = _gn(in_ch, "silu")
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-        self.norm2 = _gn(out_ch, "silu")
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
-        self.nin_shortcut = nn.Conv2d(in_ch, out_ch, 1) \
+        dt = dict(compute_dtype=compute_dtype)
+        self.norm1 = _gn(in_ch)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1, **dt)
+        self.norm2 = _gn(out_ch)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1, **dt)
+        self.nin_shortcut = Conv2d(in_ch, out_ch, 1, **dt) \
             if in_ch != out_ch else None
 
     def forward(self, x):
-        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -41,39 +50,44 @@ class ResnetBlock(nn.Module):
 class AttnBlock(nn.Module):
     """Single-head self-attention over the pixels, standard softmax."""
 
-    def __init__(self, ch):
+    def __init__(self, ch, compute_dtype=torch.float32):
         super().__init__()
+        dt = dict(compute_dtype=compute_dtype)
         self.norm = _gn(ch)
-        self.q = nn.Conv2d(ch, ch, 1)
-        self.k = nn.Conv2d(ch, ch, 1)
-        self.v = nn.Conv2d(ch, ch, 1)
-        self.proj_out = nn.Conv2d(ch, ch, 1)
+        self.q = Conv2d(ch, ch, 1, **dt)
+        self.k = Conv2d(ch, ch, 1, **dt)
+        self.v = Conv2d(ch, ch, 1, **dt)
+        self.proj_out = Conv2d(ch, ch, 1, **dt)
 
     def forward(self, x):
         B, C, H, W = x.shape
         h = self.norm(x)
         flat = lambda t: t.reshape(B, C, H * W).transpose(1, 2)
         q, k, v = flat(self.q(h)), flat(self.k(h)), flat(self.v(h))
-        w = torch.softmax((q @ k.transpose(1, 2)) * C ** -0.5, dim=-1)
-        out = (w @ v).transpose(1, 2).reshape(B, C, H, W)
-        return x + self.proj_out(out)
+        # f32 logits and softmax, the weights in v's dtype for an
+        # f32-summed value product
+        w = torch.softmax((q.float() @ k.float().transpose(1, 2)) *
+                          C ** -0.5, dim=-1)
+        out = (w.to(v.dtype).float() @ v.float()).to(v.dtype)
+        return x + self.proj_out(out.transpose(1, 2).reshape(B, C, H, W))
 
 
 class _Mid(nn.Module):
-    def __init__(self, ch):
+    def __init__(self, ch, compute_dtype):
         super().__init__()
-        self.block_1 = ResnetBlock(ch, ch)
-        self.attn_1 = AttnBlock(ch)
-        self.block_2 = ResnetBlock(ch, ch)
+        self.block_1 = ResnetBlock(ch, ch, compute_dtype)
+        self.attn_1 = AttnBlock(ch, compute_dtype)
+        self.block_2 = ResnetBlock(ch, ch, compute_dtype)
 
     def forward(self, h):
         return self.block_2(self.attn_1(self.block_1(h)))
 
 
 class _Resample(nn.Module):
-    def __init__(self, ch, stride, padding):
+    def __init__(self, ch, stride, padding, compute_dtype):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, stride=stride, padding=padding)
+        self.conv = Conv2d(ch, ch, 3, stride=stride, padding=padding,
+                           compute_dtype=compute_dtype)
 
 
 class _Level(nn.Module):
@@ -91,23 +105,24 @@ def _check_dict(ed):
 
 class Encoder(nn.Module):
     def __init__(self, ch, ch_mult, num_res_blocks, z_channels,
-                 in_channels=3):
+                 in_channels=3, compute_dtype=torch.float32):
         super().__init__()
-        self.conv_in = nn.Conv2d(in_channels, ch, 3, padding=1)
+        dt = dict(compute_dtype=compute_dtype)
+        self.conv_in = Conv2d(in_channels, ch, 3, padding=1, **dt)
         self.down = nn.ModuleList()
         cin = ch
         for level, mult in enumerate(ch_mult):
             blocks = []
             for _ in range(num_res_blocks):
-                blocks.append(ResnetBlock(cin, ch * mult))
+                blocks.append(ResnetBlock(cin, ch * mult, **dt))
                 cin = ch * mult
             lvl = _Level(blocks)
             if level != len(ch_mult) - 1:
-                lvl.downsample = _Resample(cin, stride=2, padding=0)
+                lvl.downsample = _Resample(cin, 2, 0, compute_dtype)
             self.down.append(lvl)
-        self.mid = _Mid(cin)
-        self.norm_out = _gn(cin, "silu")
-        self.conv_out = nn.Conv2d(cin, z_channels, 3, padding=1)
+        self.mid = _Mid(cin, compute_dtype)
+        self.norm_out = _gn(cin)
+        self.conv_out = Conv2d(cin, z_channels, 3, padding=1)  # f32
 
     def forward(self, x):
         h = self.conv_in(x)
@@ -117,28 +132,30 @@ class Encoder(nn.Module):
             if hasattr(lvl, "downsample"):
                 # asymmetric (0, 1) pad, stride-2 conv
                 h = lvl.downsample.conv(F.pad(h, (0, 1, 0, 1)))
-        return self.conv_out(self.norm_out(self.mid(h)))
+        return self.conv_out(F.silu(self.norm_out(self.mid(h))))
 
 
 class Decoder(nn.Module):
-    def __init__(self, ch, ch_mult, num_res_blocks, z_channels, out_ch):
+    def __init__(self, ch, ch_mult, num_res_blocks, z_channels, out_ch,
+                 compute_dtype=torch.float32):
         super().__init__()
+        dt = dict(compute_dtype=compute_dtype)
         cin = ch * ch_mult[-1]
-        self.conv_in = nn.Conv2d(z_channels, cin, 3, padding=1)
-        self.mid = _Mid(cin)
+        self.conv_in = Conv2d(z_channels, cin, 3, padding=1, **dt)
+        self.mid = _Mid(cin, compute_dtype)
         levels = [None] * len(ch_mult)
         for level in reversed(range(len(ch_mult))):
             blocks = []
             for _ in range(num_res_blocks + 1):
-                blocks.append(ResnetBlock(cin, ch * ch_mult[level]))
+                blocks.append(ResnetBlock(cin, ch * ch_mult[level], **dt))
                 cin = ch * ch_mult[level]
             lvl = _Level(blocks)
             if level != 0:
-                lvl.upsample = _Resample(cin, stride=1, padding=1)
+                lvl.upsample = _Resample(cin, 1, 1, compute_dtype)
             levels[level] = lvl
         self.up = nn.ModuleList(levels)
-        self.norm_out = _gn(cin, "silu")
-        self.conv_out = nn.Conv2d(cin, out_ch, 3, padding=1)
+        self.norm_out = _gn(cin)
+        self.conv_out = Conv2d(cin, out_ch, 3, padding=1)  # f32
 
     def forward(self, z):
         h = self.mid(self.conv_in(z))
@@ -148,7 +165,7 @@ class Decoder(nn.Module):
             if hasattr(lvl, "upsample"):
                 h = lvl.upsample.conv(F.interpolate(h, scale_factor=2.0,
                                                     mode="nearest"))
-        return self.conv_out(self.norm_out(h))
+        return self.conv_out(F.silu(self.norm_out(h)))
 
 
 class VectorQuantizer(nn.Module):
@@ -168,15 +185,16 @@ class VectorQuantizer(nn.Module):
 
 
 class VQVAE(nn.Module):
-    def __init__(self, enc_dec_dict, vq_dict):
+    def __init__(self, enc_dec_dict, vq_dict, compute_dtype=torch.float32):
         super().__init__()
         ed = enc_dec_dict
         _check_dict(ed)
         mult = tuple(ed["ch_mult"])
         self.encoder = Encoder(ed["ch"], mult, ed["num_res_blocks"],
-                               ed["z_channels"], ed.get("in_channels", 3))
+                               ed["z_channels"], ed.get("in_channels", 3),
+                               compute_dtype)
         self.decoder = Decoder(ed["ch"], mult, ed["num_res_blocks"],
-                               ed["z_channels"], ed["out_ch"])
+                               ed["z_channels"], ed["out_ch"], compute_dtype)
         self.quantize = VectorQuantizer(vq_dict["n_embed"],
                                         vq_dict["embed_dim"])
         self.quant_conv = nn.Conv2d(ed["z_channels"], vq_dict["embed_dim"], 1)
@@ -207,9 +225,10 @@ class VQVAEWrapper(nn.Module):
     """Frozen first stage: latents are divided by `scale_factor` after
     encoding and multiplied back before quantizing or decoding."""
 
-    def __init__(self, enc_dec_dict, vq_dict, scale_factor=1.0):
+    def __init__(self, enc_dec_dict, vq_dict, scale_factor=1.0,
+                 compute_dtype=torch.float32):
         super().__init__()
-        self.vqvae = VQVAE(enc_dec_dict, vq_dict)
+        self.vqvae = VQVAE(enc_dec_dict, vq_dict, compute_dtype)
         self.scale_factor = scale_factor
 
     def encode(self, x):

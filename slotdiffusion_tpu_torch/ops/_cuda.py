@@ -31,10 +31,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes. Each returns cudaGetLastError().
 _SIGNATURES = {
-    # x, w, b, y, B, C, H*W, groups, eps, silu, stream
+    # x, w, b, y, B, C, H*W, groups, eps, silu, stream (x, y f32 / bf16)
     "sdt_group_norm_f32": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
-    # q, k, v, out, B, Nq, Nk, H, D, scale, stream
+    "sdt_group_norm_bf16": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
+    # q, k, v, out, B, Nq, Nk, H, D, scale, stream (q, k, v, out f32 / bf16)
     "sdt_mha_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "sdt_mha_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # k, v, slots0, wq, ln_q_scale, ln_q_bias, gru_wi, gru_bi, gru_wh,
     # gru_bh, ln_mlp_scale, ln_mlp_bias, w1, b1, w2, b2, slots_out, mask,
     # B, N, S, D, M, num_iterations, eps, scale, with_mask, then the

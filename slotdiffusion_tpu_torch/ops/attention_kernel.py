@@ -9,6 +9,13 @@ kernel is one pass over the keys with no rescaling (see the source for
 the design and its bound on the H100). The UNet reaches it through
 `attn_backend="fused"`, which ignores `attn_softmax` as the JAX package
 does.
+
+Two entry points: `sdt_mha_f32` and `sdt_mha_bf16` (bf16 q/k/v/out, f32
+logits and sums). Under bf16 both the kernel and `mha_reference` round at
+the JAX kernel's point: the normalized weights to bf16 before the value
+product (the JAX package's ops/attention_kernel.py:57, 81-83), whose sums
+are f32, then the output. The wrapper takes the entry of q's dtype and
+raises on any other dtype.
 """
 
 import torch
@@ -21,12 +28,15 @@ SOURCE = "slotdiffusion_tpu_torch/csrc/attention.cu"
 REPLACES = "ops/attention_kernel.py:61"  # in the JAX package
 HEAD_DIM = 32  # the only head width the kernel takes (the UNet's)
 
-launches = 0  # kernel launches since ops.reset_launch_counts()
+ENTRY = {torch.float32: "sdt_mha_f32", torch.bfloat16: "sdt_mha_bf16"}
+# kernel launches since ops.reset_launch_counts(), by entry point
+launches = dict.fromkeys(ENTRY.values(), 0)
 
 
 def mha_reference(q, k, v, num_heads, scale=None):
-    """Plain version: clamped-exp multi-head attention in f32; the CPU path
-    of `fused_mha`."""
+    """Plain version: clamped-exp multi-head attention with f32 logits and
+    sums; the weights rounded to q's dtype before the value product, the
+    output to q's dtype. The CPU path of `fused_mha`."""
     B, Nq, HD = q.shape
     Nk = k.shape[1]
     D = HD // num_heads
@@ -36,15 +46,16 @@ def mha_reference(q, k, v, num_heads, scale=None):
     vh = v.float().reshape(B, Nk, num_heads, D).transpose(1, 2)
     logits = (qh @ kh.transpose(-1, -2)) * scale
     e = torch.exp(torch.clamp(logits, max=80.0))
-    w = e / (e.sum(-1, keepdim=True) + 1e-30)
+    w = (e / (e.sum(-1, keepdim=True) + 1e-30)).to(q.dtype).float()
     out = (w @ vh).transpose(1, 2).reshape(B, Nq, HD)
     return out.to(q.dtype)
 
 
 def check_inputs(q, k, v, num_heads):
     """Raise ValueError unless the kernel takes these arguments: contiguous
-    f32 q [B, Nq, H*32] and k = v [B, Nk, H*32] on one device, each
-    16-byte aligned (the kernel stages K and V with 16-byte loads)."""
+    q [B, Nq, H*32] and k = v [B, Nk, H*32] of one dtype, f32 or bf16, on
+    one device, each 16-byte aligned (the kernel stages K and V with
+    16-byte loads)."""
     if q.dim() != 3 or k.dim() != 3 or k.shape[0] != q.shape[0] or \
             k.shape[2] != q.shape[2] or v.shape != k.shape:
         raise ValueError(f"fused_mha: q {tuple(q.shape)} k {tuple(k.shape)}"
@@ -53,14 +64,15 @@ def check_inputs(q, k, v, num_heads):
         raise ValueError(f"fused_mha takes head_dim {HEAD_DIM}, got "
                          f"{q.shape[2]} / {num_heads}")
     for t in (q, k, v):
-        if t.dtype != torch.float32 or not t.is_contiguous() or \
-                t.device != q.device or t.data_ptr() % 16:
+        if t.dtype not in ENTRY or t.dtype != q.dtype or \
+                not t.is_contiguous() or t.device != q.device or \
+                t.data_ptr() % 16:
             raise ValueError("fused_mha takes contiguous, 16-byte-aligned "
-                             "f32 tensors on one device")
+                             "f32 or bf16 tensors of one dtype on one "
+                             "device")
 
 
 def _forward(q, k, v, num_heads, scale):
-    global launches
     if q.device.type == "cpu":
         return mha_reference(q, k, v, num_heads, scale)
     if q.device.type != "cuda":
@@ -69,12 +81,13 @@ def _forward(q, k, v, num_heads, scale):
     B, Nq, _ = q.shape
     scale = HEAD_DIM ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
-    err = _cuda.lib().sdt_mha_f32(
+    entry = ENTRY[q.dtype]
+    err = getattr(_cuda.lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Nq,
         k.shape[1], num_heads, HEAD_DIM, float(scale),
         _cuda.stream_ptr(q.device))
-    _cuda.check(err, "sdt_mha_f32")
-    launches += 1
+    _cuda.check(err, entry)
+    launches[entry] += 1
     return out
 
 

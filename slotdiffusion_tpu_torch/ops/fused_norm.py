@@ -11,6 +11,12 @@ contiguous, so one (sample, group) is one contiguous run of
 `C/G * H * W` values; the kernel holds a run in registers (up to
 MAX_GROUP values), so x is read once and y written once.
 
+Two entry points: `sdt_group_norm_f32` and `sdt_group_norm_bf16` (bf16 x
+and y, f32 affine and statistics, y rounded once on the store: the JAX
+kernel writes `o_ref.dtype`, bf16 under `use_bf16`). The wrapper takes the
+one of x's dtype and raises on any other dtype; `group_norm_reference`,
+which rounds once to x's dtype, is the plain twin of both.
+
 The wrapper's host work a call is the checks, one `torch.empty_like` and
 one ctypes call; the autograd.Function is entered only when a gradient
 can flow (serving runs under `torch.inference_mode`).
@@ -26,12 +32,16 @@ SOURCE = "slotdiffusion_tpu_torch/csrc/group_norm.cu"
 REPLACES = "ops/fused_norm.py:53"  # in the JAX package
 MAX_GROUP = 32768  # values of one (sample, group) the kernel holds
 
-launches = 0  # kernel launches since ops.reset_launch_counts()
+ENTRY = {torch.float32: "sdt_group_norm_f32",
+         torch.bfloat16: "sdt_group_norm_bf16"}
+# kernel launches since ops.reset_launch_counts(), by entry point
+launches = dict.fromkeys(ENTRY.values(), 0)
 
 
 def group_norm_reference(x, weight, bias, num_groups, eps=1e-5, act=None):
     """Plain version: GroupNorm over NCHW with f32 statistics (biased
-    variance) and optional SiLU; the CPU path of `fused_group_norm`."""
+    variance), f32 affine and optional SiLU, rounded once to x's dtype;
+    the CPU path of `fused_group_norm`."""
     B, C = x.shape[:2]
     xf = x.float().reshape(B, num_groups, -1)
     mean = xf.mean(-1, keepdim=True)
@@ -46,13 +56,13 @@ def group_norm_reference(x, weight, bias, num_groups, eps=1e-5, act=None):
 
 def check_inputs(x, weight, bias, num_groups, act):
     """Raise ValueError unless the kernel takes these arguments: a
-    contiguous f32 NCHW tensor, f32 [C] affine on its device, whole groups
-    of at most MAX_GROUP values."""
+    contiguous f32 or bf16 NCHW tensor, f32 [C] affine on its device, whole
+    groups of at most MAX_GROUP values."""
     if act not in (None, "silu"):
         raise ValueError(f"fused_group_norm: unsupported act {act!r}")
-    if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("fused_group_norm takes a contiguous f32 NCHW "
-                         f"tensor, got {x.dtype} {tuple(x.shape)} "
+    if x.dtype not in ENTRY or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("fused_group_norm takes a contiguous f32 or bf16 "
+                         f"NCHW tensor, got {x.dtype} {tuple(x.shape)} "
                          f"strides {x.stride()}")
     B, C, H, W = x.shape
     if C % num_groups:
@@ -68,7 +78,6 @@ def check_inputs(x, weight, bias, num_groups, act):
 
 
 def _forward(x, weight, bias, num_groups, eps, act):
-    global launches
     if x.device.type == "cpu":
         return group_norm_reference(x, weight, bias, num_groups, eps, act)
     if x.device.type != "cuda":
@@ -76,11 +85,12 @@ def _forward(x, weight, bias, num_groups, eps, act):
     check_inputs(x, weight, bias, num_groups, act)
     B, C, H, W = x.shape
     y = torch.empty_like(x)
-    err = _cuda.lib().sdt_group_norm_f32(
+    entry = ENTRY[x.dtype]
+    err = getattr(_cuda.lib(), entry)(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), B,
         C, H * W, num_groups, eps, act == "silu", _cuda.stream_ptr(x.device))
-    _cuda.check(err, "sdt_group_norm_f32")
-    launches += 1
+    _cuda.check(err, entry)
+    launches[entry] += 1
     return y
 
 

@@ -45,7 +45,9 @@ SA_WEIGHT_KEYS = ("wq", "ln_q_scale", "ln_q_bias", "gru_wi", "gru_bi",
 # torch nn.LayerNorm default eps, as the JAX kernel uses
 _LN_EPS = 1e-5
 
-launches = 0  # kernel launches since ops.reset_launch_counts()
+ENTRY = "sdt_sa_iterations_bf16"
+# kernel launches since ops.reset_launch_counts(), by entry point
+launches = {ENTRY: 0}
 
 
 def _ln(x, scale, bias):
@@ -191,7 +193,6 @@ def check_inputs(k, v, slots, p, num_iterations, kv_dtype):
 
 def _forward(k, v, slots, p, num_iterations, eps, return_last_attn,
              kv_dtype):
-    global launches
     if k.device.type == "cpu":
         return sa_iterations_ref(
             k, v, slots, p, num_iterations=num_iterations, eps=eps,
@@ -208,15 +209,15 @@ def _forward(k, v, slots, p, num_iterations, eps, return_last_attn,
     mask = torch.empty((B, S, N), dtype=torch.float32, device=k.device) \
         if return_last_attn else out  # unused when with_mask = 0
     plan = launch_plan(B, N, S, D, M)
-    err = _cuda.lib().sdt_sa_iterations_bf16(
+    err = getattr(_cuda.lib(), ENTRY)(
         kb.data_ptr(), vb.data_ptr(), s0.data_ptr(),
         *[t.data_ptr() for t in w], out.data_ptr(), mask.data_ptr(),
         B, N, S, D, M, num_iterations, float(eps), float(D ** -0.5),
         int(return_last_attn), plan["cluster"], plan["positions"],
         plan["tile"], int(plan["resident"]), plan["smem_bytes"],
         _cuda.stream_ptr(k.device))
-    _cuda.check(err, "sdt_sa_iterations_bf16")
-    launches += 1
+    _cuda.check(err, ENTRY)
+    launches[ENTRY] += 1
     if return_last_attn:
         return out, mask
     return out

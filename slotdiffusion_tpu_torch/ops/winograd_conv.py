@@ -32,7 +32,9 @@ ROUTE = "cuda"
 SOURCE = "slotdiffusion_tpu_torch/csrc/winograd.cu"
 REPLACES = "ops/winograd_conv.py:78"  # in the JAX package
 
-launches = 0  # convolutions launched since ops.reset_launch_counts()
+ENTRY = "sdt_winograd_conv_bf16"
+# convolutions launched since ops.reset_launch_counts(), by entry point
+launches = {ENTRY: 0}
 
 # the products kernel's block (csrc/winograd.cu kMt, kNt, kKc): U^T is
 # padded to whole blocks of output and input channels, V to whole blocks
@@ -166,7 +168,6 @@ def winograd_conv3x3_u(x, ut, f):
     -> [B, H, W, f] in x's dtype. The CUDA kernels for a CUDA tensor (bf16
     only), the plain version for a CPU tensor. Not differentiable: the
     autograd path is `winograd_conv3x3`."""
-    global launches
     if x.device.type == "cpu":
         return winograd_reference_u(x, ut, f)
     if x.device.type != "cuda":
@@ -193,12 +194,12 @@ def winograd_conv3x3_u(x, ut, f):
     yacc = torch.empty(splits * B * H * W * f, dtype=torch.float32,
                        device=x.device) if splits > 1 else None
     y = torch.empty((B, H, W, f), dtype=x.dtype, device=x.device)
-    err = _cuda.lib().sdt_winograd_conv_bf16(
+    err = getattr(_cuda.lib(), ENTRY)(
         x.data_ptr(), ut.data_ptr(), v.data_ptr(),
         None if yacc is None else yacc.data_ptr(), y.data_ptr(), B, H, W,
         C, f, Fp, Cp, Tp, per_split, _cuda.stream_ptr(x.device))
-    _cuda.check(err, "sdt_winograd_conv_bf16")
-    launches += 1
+    _cuda.check(err, ENTRY)
+    launches[ENTRY] += 1
     return y
 
 

@@ -7,7 +7,9 @@ the JAX package's serving.py:77-135):
   DPM-Solver++ chain over the B*T frames, then VQ decode;
 - ``denoise`` (x_t [B*T, h, w, C], t [B*T], slots) -> the UNet output.
 
-Each runs under `torch.inference_mode` on the model's device. There is no
+Each runs under `torch.inference_mode` on the model's device. Outputs keep
+the JAX package's dtypes: slots in the model's compute dtype (bf16 under
+`use_bf16`), masks, images and the UNet output in f32. There is no
 exported artifact and no HTTP server in the port yet.
 """
 

@@ -12,6 +12,10 @@ EMA and the step, so a resumed run continues the same sequence (bit for
 bit on the CPU). The frozen VQ-VAE (`dm_decoder.vae`) takes no gradient
 and no update. Metrics go to stdout and `<ckp_path>/train_log.jsonl`.
 
+Under `use_bf16` the model computes in bf16 while its parameters, and
+so the gradients, the clipping norm (`train/grad_norm`) and Adam's
+state, stay f32: the master weights of mixed precision.
+
 `validate` runs every `eval_interval` epochs and at the end of `fit`:
 each val batch's `compute_losses` in eval mode with the live parameters
 and, with an EMA, again with the EMA swapped into `dm_decoder`

@@ -37,31 +37,54 @@ from slotdiffusion_tpu_torch.ops.winograd_conv import (
 # f32 on both sides, the same formula with sums taken in another order:
 # differences are a few f32 ulps of O(1) values
 F32_TOL = dict(rtol=1e-5, atol=2e-5)
+# bf16 out on both sides, rounded once from f32 values that differ by a
+# few f32 ulps (sums in another order): a value can land one bf16 ulp
+# apart, and one bf16 ulp is at most 2^-7 of the value
+BF16_OUT_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 
 
+def _to_dtype(x, dtype):
+    """A numpy f32 array in `dtype` ("float32" or "bfloat16") for the JAX
+    side, and the same values as a torch tensor for the port."""
+    j = jnp.asarray(x).astype(getattr(jnp, dtype))
+    return j, torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 8, 8, 128), (2, 4, 4, 256)])
 @pytest.mark.parametrize("act,eps", [(None, 1e-6), ("silu", 1e-5)])
-def test_group_norm_matches_pallas(shape, act, eps):
+def test_group_norm_matches_pallas(shape, act, eps, dtype):
+    """bf16: bf16 x and y on both sides (the JAX kernel writes o_ref.dtype),
+    f32 statistics and affine, one rounding."""
     r = np.random.RandomState(0)
     x = (r.randn(*shape) * 2 + 0.5).astype(np.float32)
     C = shape[-1]
     w = (1 + 0.1 * r.randn(C)).astype(np.float32)
     b = (0.1 * r.randn(C)).astype(np.float32)
-    ref = np.asarray(jax_gn(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
-                            32, eps, act, True))  # interpret=True
-    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()  # NCHW
+    xj, xt = _to_dtype(x, dtype)
+    ref = jax_gn(xj, jnp.asarray(w), jnp.asarray(b), 32, eps, act,
+                 True)  # interpret=True
+    assert ref.dtype == xj.dtype
+    ref = np.asarray(ref.astype(jnp.float32))
+    tol = F32_TOL if dtype == "float32" else BF16_OUT_TOL
+    xt = xt.permute(0, 3, 1, 2).contiguous()  # NCHW
     out = fused_group_norm(xt, torch.from_numpy(w), torch.from_numpy(b), 32,
                            eps, act)
-    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref,
-                               **F32_TOL)
+    assert out.dtype == xt.dtype
+    np.testing.assert_allclose(_np(out.permute(0, 2, 3, 1)), ref, **tol)
     gn = GroupNorm32(C, eps=eps, act=act, fused=True)
     with torch.no_grad():
         gn.weight.copy_(torch.from_numpy(w))
         gn.bias.copy_(torch.from_numpy(b))
         np.testing.assert_allclose(
-            gn(xt).permute(0, 2, 3, 1).numpy(), ref, **F32_TOL)
+            _np(gn(xt).permute(0, 2, 3, 1)), ref, **tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nq,nk,hd,heads", [
     (256, 256, 256, 8),    # ds2 self-attention
     (64, 64, 384, 12),     # ds4 self-attention
@@ -69,14 +92,23 @@ def test_group_norm_matches_pallas(shape, act, eps):
     (256, 15, 256, 8),     # ds2 cross-attention over 15 slots
     (64, 15, 384, 12),     # ds4 cross-attention
 ])
-def test_attention_matches_pallas(nq, nk, hd, heads):
+def test_attention_matches_pallas(nq, nk, hd, heads, dtype):
+    """bf16: bf16 q/k/v/out on both sides, f32 logits and sums, the
+    normalized weights rounded to bf16 before the value product. A weight
+    whose f32 value differs in its last bits (sums in another order) can
+    round one bf16 ulp apart, which moves an output by 2^-8 of that
+    weight's v: rtol 2^-7 and atol 2^-8 of the largest |v| cover it."""
     r = np.random.RandomState(1)
     q, k, v = (r.randn(1, n, hd).astype(np.float32) for n in (nq, nk, nk))
-    ref = np.asarray(jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                             heads, None, True))  # interpret=True
-    out = fused_mha(torch.from_numpy(q), torch.from_numpy(k),
-                    torch.from_numpy(v), heads)
-    np.testing.assert_allclose(out.numpy(), ref, **F32_TOL)
+    (qj, qt), (kj, kt), (vj, vt) = (_to_dtype(a, dtype) for a in (q, k, v))
+    ref = jax_mha(qj, kj, vj, heads, None, True)  # interpret=True
+    assert ref.dtype == qj.dtype
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = fused_mha(qt, kt, vt, heads)
+    assert out.dtype == qt.dtype
+    tol = F32_TOL if dtype == "float32" else dict(
+        rtol=2.0 ** -7, atol=2.0 ** -8 * float(np.abs(v).max()))
+    np.testing.assert_allclose(_np(out), ref, **tol)
 
 
 def _sa_weights(D, M, seed=0, std=0.2):
@@ -263,13 +295,23 @@ def test_wrappers_launch_or_raise_off_the_cpu():
     x = torch.empty(1, 4, 4, 16, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         winograd_conv3x3(x, torch.empty(3, 3, 16, 16, device="meta"))
+    # the bf16 entry points' inputs, and a dtype no entry point takes
+    for dtype in (torch.bfloat16, torch.float16):
+        x = torch.empty(1, 32, 4, 4, device="meta", dtype=dtype)
+        with pytest.raises(ValueError):
+            fused_group_norm(x, w, w, 32)
+        q = torch.empty(1, 16, 64, device="meta", dtype=dtype)
+        with pytest.raises(ValueError):
+            fused_mha(q, q, q, 2)
     # the CPU path is the plain version and launches nothing
     fused_group_norm(torch.ones(1, 32, 4, 4), torch.ones(32),
                      torch.zeros(32), 32)
+    fused_group_norm(torch.ones(1, 32, 4, 4, dtype=torch.bfloat16),
+                     torch.ones(32), torch.zeros(32), 32)
     winograd_conv3x3(torch.ones(1, 4, 4, 16), torch.ones(3, 3, 16, 16))
     assert ops.launch_counts() == {
         "gn_silu": 0, "attention": 0, "slot_attention": 0,
-        "winograd_conv3x3": 0}
+        "winograd_conv3x3": 0, "gn_silu_bf16": 0, "attention_bf16": 0}
 
 
 # ---- the fourth kernel: Winograd F(2x2, 3x3) ----------------------------

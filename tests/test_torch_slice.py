@@ -149,17 +149,25 @@ def test_chip_smoke_refuses_without_a_card():
 def test_kernel_inputs_are_what_the_kernels_take(pair, monkeypatch):
     """On the card each wrapper raises on an input its kernel does not take
     (layout, strides, dtype, sizes). The same checks run here on every
-    kernel call of `encode` and `denoise`, so a layout the serving path
-    hands a kernel is caught without a card."""
-    from slotdiffusion_tpu_torch.models import blocks, slot_attention, unet
+    kernel call of `encode` and `denoise`, of the f32 model and of the same
+    weights built in bf16 (`use_bf16`), so a layout or dtype the serving
+    path hands a kernel is caught without a card. The bf16 build hands GN
+    and attention bf16 inputs (their bf16 entry points), slot attention
+    its f32 k/v."""
+    from slotdiffusion_tpu_torch.models import (blocks, build_model,
+                                                slot_attention, unet)
     from slotdiffusion_tpu_torch.ops import (attention_kernel, fused_norm,
                                              slot_attention_kernel)
+    from torch_parity_helpers import tiny_config
     calls = {"gn": 0, "mha": 0, "sa": 0}
+    dtypes = {"gn": set(), "mha": set(), "sa": set()}
 
     def checked(name, check, fn, args_of):
         def wrapper(*args, **kwargs):
-            check(*args_of(*args, **kwargs))
+            inputs = args_of(*args, **kwargs)
+            check(*inputs)
             calls[name] += 1
+            dtypes[name].add(inputs[0].dtype)
             return fn(*args, **kwargs)
         return wrapper
 
@@ -174,10 +182,19 @@ def test_kernel_inputs_are_what_the_kernels_take(pair, monkeypatch):
         slot_attention_kernel.sa_iterations,
         lambda k, v, s, p, num_iterations, kv_dtype=torch.bfloat16, **kw:
         (k, v, s, p, num_iterations, kv_dtype)))
-    model = pair[3]
-    slots, _ = build_serving_fn(model, "encode")(torch.from_numpy(video(4)))
-    slots_in, x = _inputs(5, B=1)
-    build_serving_fn(model, "denoise")(
-        torch.from_numpy(x), torch.full((x.shape[0],), 3.0),
-        torch.from_numpy(slots_in))
-    assert calls["gn"] > 0 and calls["mha"] > 0 and calls["sa"] > 0, calls
+    bf16 = build_model(tiny_config(use_bf16=True), device="cpu")
+    bf16.load_state_dict(pair[3].state_dict(), strict=True)
+    for model, dtype in ((pair[3], torch.float32), (bf16, torch.bfloat16)):
+        for name in calls:
+            calls[name] = 0
+            dtypes[name].clear()
+        slots, _ = build_serving_fn(model, "encode")(
+            torch.from_numpy(video(4)))
+        slots_in, x = _inputs(5, B=1)
+        build_serving_fn(model, "denoise")(
+            torch.from_numpy(x), torch.full((x.shape[0],), 3.0),
+            torch.from_numpy(slots_in))
+        assert calls["gn"] > 0 and calls["mha"] > 0 and calls["sa"] > 0, \
+            calls
+        assert dtypes == {"gn": {dtype}, "mha": {dtype},
+                          "sa": {torch.float32}}, dtypes

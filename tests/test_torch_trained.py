@@ -36,7 +36,7 @@ from slotdiffusion_tpu_torch.methods.build import (build_method,
                                                    seg_metrics_fn)
 from slotdiffusion_tpu_torch.models import build_model
 from slotdiffusion_tpu_torch.training.checkpoint import load_model_weights
-from torch_parity_helpers import t2n
+from torch_parity_helpers import ROUNDS, WHOLE_C, t2n
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "checkpoint/savi_ldm_movi_file-res64/ckpt_final")
@@ -324,3 +324,99 @@ def test_entry_points_on_the_tree(trained, tree, jax_val, tmp_path, capsys):
                                         for f in ds.files]
         for v in slots[split].values():
             assert v.shape == (6, S, D) and v.dtype == np.float32
+
+
+@pytest.fixture(scope="module")
+def jax_bf16(trained):
+    """The JAX model of the same config built in bf16 (`use_bf16`), to
+    apply with the checkpoint's variables."""
+    jparams = load_params(JAX_CONFIG)
+    jparams.use_bf16 = True
+    return build_jax_model(jparams)
+
+
+def test_bf16_matches_jax_bf16_on_trained_weights(trained, tree, jax_val,
+                                                  jax_bf16):
+    """The trained model in bf16 on both sides (`use_bf16`), on the val
+    clips: the port's `Trainer.validate` metrics (raw weights live, the
+    checkpoint's EMA in the shadow) against the JAX bf16 model's metrics
+    on the same batches. The masks of the val clips are held to the
+    whole-model gate of test_torch_bf16.py against the JAX bf16 and f32
+    models' (readings: d/floor 0.49, own/floor 1.09), which a port that
+    did not round fails; FG-ARI may differ by at most the JAX model's own
+    bf16-vs-f32 difference, or 0.005 if that is larger (a bar the f32
+    port meets too). Printed: the argmax agreement of the two bf16
+    models' masks, every metric's difference, and the denoising loss of
+    one clip at fixed t and noise on both sides (a loss of bf16 sums:
+    held to 2 % relative)."""
+    cfg = configs.SAViLDMMoviFile64().copy(data_root=tree, num_workers=0,
+                                           use_bf16=True)
+    model = build_model(cfg, device="cpu")
+    raw = jax.tree_util.tree_map(np.asarray, trained["raw"]["params"])
+    model.load_state_dict(convert_savi_diffusion(raw, cfg), strict=True)
+    trainer = build_method(model, build_datamodule(cfg), cfg)
+    ema = trained["model"].state_dict()
+    for name in trainer.ema.shadow:
+        trainer.ema.shadow[name].copy_(ema[name])
+    res = trainer.validate()
+
+    batches = _val_batches(tree)
+    j16 = _jax_val_metrics(dict(trained, jmodel=jax_bf16), batches)
+    # the masks of the four models: port and JAX, each in bf16 and f32
+    masks = {k: [] for k in ("port16", "port32", "jax16", "jax32")}
+    fwd = {k: jax.jit(lambda v, x, m=m: m.apply(v, {"img": x}, train=False))
+           for k, m in (("jax16", jax_bf16), ("jax32", trained["jmodel"]))}
+    for batch in batches:
+        for k, m in (("port16", model), ("port32", trained["model"])):
+            with torch.no_grad():
+                masks[k].append(m({"img": batch["img"]})["masks"].numpy())
+        for k, f in fwd.items():
+            masks[k].append(np.asarray(f(trained["raw"],
+                                         batch["img"].numpy())["masks"]))
+    masks = {k: np.concatenate(v) for k, v in masks.items()}
+    agree = float(np.mean(masks["port16"].argmax(2) ==
+                          masks["jax16"].argmax(2)))
+    rms = lambda a, b: float(np.sqrt(np.mean((masks[a] - masks[b]) ** 2)))
+    d, floor = rms("port16", "jax16"), rms("jax16", "jax32")
+    own = rms("port16", "port32")
+
+    img = _clip()
+    r = np.random.RandomState(4)
+    t = r.randint(0, 200, size=2).astype(np.int32)
+    noise = r.randn(2, 32, 32, 3).astype(np.float32)
+
+    def f(m, img, t, noise):
+        out = m({"img": img}, train=True)
+        dm = m.dm_decoder
+        x0 = dm.encode_latent(img.reshape(-1, *img.shape[2:]))
+        pred = dm.denoise(dm.q_sample(x0, t, noise), t,
+                          context=out["slots"].reshape(-1, S, D),
+                          train=False)
+        return jnp.mean((pred.astype(jnp.float32) - noise) ** 2)
+
+    want = float(jax.jit(lambda v, *a: jax_bf16.apply(v, *a, method=f))(
+        trained["jvars"], *map(jnp.asarray, (img, t, noise))))
+    exported = build_model(cfg, device="cpu")  # dm_decoder's EMA in it
+    exported.load_state_dict(trained["model"].state_dict(), strict=True)
+    with torch.no_grad():
+        _, losses = exported.eval().compute_losses(
+            {"img": torch.from_numpy(img)}, t=torch.from_numpy(t).long(),
+            noise=torch.from_numpy(noise), train=False)
+    loss = losses["denoise_loss"].item()
+    print(f"bf16 port vs bf16 JAX on trained weights: masks rms d {d:.4g},"
+          f" floor {floor:.4g}, own {own:.4g} (d/floor {d / floor:.3f}, "
+          f"own/floor {own / floor:.3f}); argmax agreement "
+          f"{agree:.6f}; " + ", ".join(
+              f"{k} {res[f'val/{k}']:.6f} vs {j16[k]:.6f} (JAX f32 "
+              f"{jax_val[k]:.6f})" for k in sorted(j16)) +
+          f"; denoising loss {loss:.6f} vs {want:.6f} "
+          f"(diff {loss - want:+.3e})")
+    # the whole-model gate of test_torch_bf16.py on the masks: no farther
+    # from the JAX bf16 masks than WHOLE_C times the bf16 noise floor, and
+    # as far from the port's f32 masks as ROUNDS allows (the control: the
+    # f32 port's own distance is 0)
+    assert d <= WHOLE_C * floor
+    assert ROUNDS[0] * floor <= own <= ROUNDS[1] * floor
+    fari_tol = max(abs(j16["fari"] - jax_val["fari"]), 0.005)
+    assert abs(res["val/fari"] - j16["fari"]) <= fari_tol
+    assert abs(loss - want) <= 0.02 * abs(want)

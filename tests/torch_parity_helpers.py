@@ -17,12 +17,18 @@ RES = (16, 16)          # image; latents and ResNet features are 4x4
 SLOTS, SLOT_SIZE = 3, 32
 T_FRAMES = 2
 TIMESTEPS = 50
+# the whole-model gate of a bf16 output (tests/test_torch_bf16.py): |port16
+# - jax16| <= WHOLE_C |jax16 - jax32| and ROUNDS[0] <= |port16 - port32| /
+# |jax16 - jax32| <= ROUNDS[1]
+WHOLE_C = 2.0
+ROUNDS = (0.5, 2.0)
 
 
-def tiny_config(use_pallas=True):
+def tiny_config(use_pallas=True, use_bf16=False):
     """The flagship's structure at narrow widths
     (`slotdiffusion_tpu_torch.configs.tiny_config`)."""
-    return configs.tiny_config(RES, SLOTS, SLOT_SIZE, TIMESTEPS, use_pallas)
+    return configs.tiny_config(RES, SLOTS, SLOT_SIZE, TIMESTEPS, use_pallas,
+                               use_bf16)
 
 
 def jax_params_of(cfg):
@@ -30,7 +36,8 @@ def jax_params_of(cfg):
     model reads the same nested dicts; it ignores `use_pallas` in
     slot_dict and resolves its own knobs)."""
     p = BaseParams()
-    for k in ("model", "resolution", "enc_dict", "dec_dict", "pred_dict"):
+    for k in ("model", "resolution", "enc_dict", "dec_dict", "pred_dict",
+              "use_bf16"):
         setattr(p, k, getattr(cfg, k))
     p.slot_dict = {k: v for k, v in cfg.slot_dict.items()
                    if k != "use_pallas"}
@@ -70,10 +77,11 @@ def random_params(shapes, seed=0):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def build_pair(use_pallas=True, seed=0):
+def build_pair(use_pallas=True, seed=0, use_bf16=False):
     """-> (cfg, jax model, jax variables, port model on the CPU), both
-    holding the same seeded weights."""
-    cfg = tiny_config(use_pallas)
+    holding the same seeded (f32) weights and computing in bf16 under
+    `use_bf16`."""
+    cfg = tiny_config(use_pallas, use_bf16)
     jmodel = build_jax_model(jax_params_of(cfg))
     rngs = {n: jax.random.PRNGKey(i) for i, n in enumerate(
         ("params", "diffusion", "dropout"))}
