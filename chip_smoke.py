@@ -29,7 +29,8 @@ Phases (one flushed line each, with elapsed seconds):
      ragged edges of each kernel (slot attention: B = 1, S = 16, N that does
      not split evenly over the cluster, D not a multiple of 8 or 16, the
      largest S, D and M it takes); the GN wrapper's host cost a call, split
-     into its checks, `empty_like`, the ctypes call and `Function.apply`;
+     into its checks, `empty_like`, the ctypes call and `Function.apply`,
+     beside the same launch through its operator `sdt::group_norm`;
   3b. each kernel's autograd.Function on the card, at the largest of its
      serving shapes (Winograd: the second bench shape): the gradients of
      a random projection of its output through the kernel path against
@@ -84,7 +85,22 @@ Phases (one flushed line each, with elapsed seconds):
      only). Every request, training step and validate launches GN and
      attention only through their bf16 entries, slot attention through
      its kernel; in phases 4-6 the f32 model never reaches a bf16 entry;
-  8. one JSON line listing every kernel (times per serving request;
+  8. serving as one captured program, after phase 6 on the f32 model and
+     after phase 7 on the bf16 one: `encode`, `sample` (the whole 20-step
+     chain and the VQ decode) and `denoise` replayed from CUDA graphs
+     (`serving.build_serving_fn`), each against the eager path of the
+     same model and seed bit for bit, with the launch counts of one
+     graphed request (carried over the replay) equal to the eager
+     request's, and the host seconds of each path (median of 5 warm
+     requests; the capture timed apart); in f32 also an in-place weight
+     update that the graph reads and a parameter whose storage moves,
+     which drops the graph; each surface exported (`save_artifact`:
+     seconds, MB), reloaded (`load_artifact`: seconds, the first call's
+     seconds) and held against the graphed path bit for bit, launches
+     equal; each artifact behind `scripts/serve_model_torch.py`'s
+     `make_server` on 127.0.0.1: `/health`, one `/predict` equal to the
+     artifact's output, and a malformed request that must get a 400;
+  9. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
      `res64_*`: slot attention at the 64x64 model's shape; the bf16 entry
      points of GN and attention as entries of their own, `"entry"` and
@@ -186,6 +202,7 @@ BF16_TRAIN_GRAD_TOL = 1e-1
 # SEG_METRIC_TOL (about the share of pixels that flip, 7x the largest
 # measured move); the losses by 1e-3 relative (f32 sums in another order)
 EVAL_BATCH, EVAL_BATCHES = 8, 2
+GRAPH_REQUESTS = 5  # 8: warm requests a median of host seconds is over
 ARGMAX_TIE = 2 * TOL["slot_attention"]
 ARGMAX_EXACT = 0.995
 LOSS_RTOL = 1e-3
@@ -288,8 +305,8 @@ def serving_shapes(model, inputs):
     from slotdiffusion_tpu_torch.serving import build_serving_fn
     video, x_t, t_model = inputs
     shapes, handles = record_shapes(model)
-    slots, _ = build_serving_fn(model, "encode")(video)
-    build_serving_fn(model, "denoise")(x_t, t_model, slots)
+    slots, _ = build_serving_fn(model, "encode", graphed=False)(video)
+    build_serving_fn(model, "denoise", graphed=False)(x_t, t_model, slots)
     torch.cuda.synchronize()
     for hk in handles:
         hk.remove()
@@ -375,10 +392,11 @@ def gn_host_split(dev, calls=2000):
     """Host microseconds a GN call at a small UNet shape (12 x 512 x 4 x 4,
     where the device needs ~3 us): the wrapper's checks, `empty_like`, the
     stream pointer, the ctypes call alone (launch included), the whole
-    wrapper under inference mode (serving) and with a gradient to track
-    (`Function.apply`, training); each the host clock over `calls` calls
-    ending in a synchronize, so each includes what the card's queue adds
-    when the host outruns it."""
+    wrapper under inference mode (serving), the `sdt::group_norm`
+    operator (what an exported program calls) and the wrapper with a
+    gradient to track (`Function.apply`, training); each the host clock
+    over `calls` calls ending in a synchronize, so each includes what the
+    card's queue adds when the host outruns it."""
     import torch
     from slotdiffusion_tpu_torch.ops import _cuda, fused_norm
     x = torch.randn(12, 512, 4, 4, device=dev)
@@ -409,6 +427,10 @@ def gn_host_split(dev, calls=2000):
                 512, 16, 32, 1e-5, 1, stream)),
             "wrapper_inference": per_call(lambda: fused_norm.fused_group_norm(
                 x, w, b, 32, 1e-5, "silu")),
+            # the same launch through the dispatcher (`sdt::group_norm`,
+            # the node an exported program calls)
+            "operator": per_call(lambda: torch.ops.sdt.group_norm(
+                x, w, b, 32, 1e-5, True)),
         }
     split["wrapper_function_apply"] = per_call(
         lambda: fused_norm.fused_group_norm(x, wg, b, 32, 1e-5, "silu"))
@@ -714,7 +736,7 @@ def serve(cfg, model, inputs, phase, f32_seconds=None):
             "masks": ((B, T, S, H, W), f32),
             "sample": ((B, T, H, W, 3), f32),
             "denoise": (tuple(x_t.shape), f32)}
-    encode, sample, denoise = (build_serving_fn(model, s)
+    encode, sample, denoise = (build_serving_fn(model, s, graphed=False)
                                for s in ("encode", "sample", "denoise"))
     kernels = path_kernels(cfg.use_bf16)
     per_surface, seconds, slots = {}, {}, None
@@ -1204,7 +1226,7 @@ def bf16_vs_plain(model, inputs, slots):
     import torch
     from slotdiffusion_tpu_torch.serving import build_serving_fn
     video, x_t, t_model = inputs
-    encode, denoise = (build_serving_fn(model, s)
+    encode, denoise = (build_serving_fn(model, s, graphed=False)
                        for s in ("encode", "denoise"))
     with torch.inference_mode():
         runs = {}
@@ -1223,6 +1245,233 @@ def bf16_vs_plain(model, inputs, slots):
         if not rel <= BF16_PATH_TOL:
             raise SystemExit(f"bf16 {name}: kernels disagree with the "
                              "plain versions")
+
+
+def median_seconds(fn, n=GRAPH_REQUESTS):
+    """The host clock's median over `n` calls of `fn`, each ending in a
+    device sync; -> (median seconds, last output)."""
+    import torch
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[n // 2], out
+
+
+def outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
+def compare(name, a, b, failed):
+    """-> the verdict on two outputs of one request: bit-identical or not,
+    with the largest difference relative to the output's largest
+    magnitude; `failed` gets `name` unless they are the same bits."""
+    same = same_bits(a, b) and all(
+        x.dtype == y.dtype for x, y in zip(outputs(a), outputs(b)))
+    rel = max(((x.float() - y.float()).abs().max() /
+               y.float().abs().max().clamp_min(1e-30)).item()
+              for x, y in zip(outputs(a), outputs(b)))
+    if not same:
+        failed.append(name)
+    return f"{'bit-identical' if same else 'DIFFER'} (max rel err {rel:.2e})"
+
+
+def weight_ptrs(module):
+    """{name: address} of `module`'s parameters and buffers."""
+    return {n: t.data_ptr() for n, t in (*module.named_parameters(),
+                                         *module.named_buffers())}
+
+
+def serve_graphed(cfg, model, inputs, phase, per_path, failed):
+    """Phase 8, on the built flagship `model` (f32 or bf16): `encode`,
+    `sample` and `denoise` replayed from CUDA graphs against the eager
+    path of the same model and seed (bit for bit), each request's launch
+    counts against the eager request's, the host seconds of each (median
+    of GRAPH_REQUESTS warm requests, the capture timed apart); then each
+    surface exported, reloaded and held against the graphed path; then
+    the three artifacts behind `serve_model_torch.make_server` on
+    127.0.0.1: /health, one /predict each, one malformed request (400).
+    Launches go into `per_path`; a disagreement into `failed`."""
+    import io
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from slotdiffusion_tpu_torch import ops, serving
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    from serve_model_torch import make_server
+    tag = "bf16_" if cfg.use_bf16 else ""
+    video, x_t, t_model = inputs
+    model.eval()
+    live = {what: (serving.build_serving_fn(model, what, graphed=False),
+                   serving.build_serving_fn(model, what))
+            for what in serving.SURFACES}
+    slots = live["encode"][0](video)[0]
+    args = {"encode": (video,), "sample": (0, slots),
+            "denoise": (x_t, t_model, slots)}
+    counts = {}
+    for what in serving.SURFACES:
+        eager, graphed = live[what]
+        e_s, e_out = median_seconds(lambda: eager(*args[what]))
+        ops.reset_launch_counts()
+        eager(*args[what])
+        torch.cuda.synchronize()
+        e_counts = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphed(*args[what])  # warm-up and capture
+        torch.cuda.synchronize()
+        cap_s = time.perf_counter() - t0
+        g_s, g_out = median_seconds(lambda: graphed(*args[what]))
+        ops.reset_launch_counts()
+        g_out = graphed(*args[what])
+        torch.cuda.synchronize()
+        counts[what] = g_counts = ops.launch_counts()
+        same = compare(f"{phase}: graphed {what}", g_out, e_out, failed)
+        log(f"{phase}: {what} graphed vs eager {same}; host s (median of "
+            f"{GRAPH_REQUESTS}): eager {e_s:.4f}, graphed {g_s:.4f} "
+            f"(x{e_s / g_s:.2f}), capture {cap_s:.3f}; launches graphed "
+            f"{nonzero(g_counts)} eager {nonzero(e_counts)}")
+        if g_counts != e_counts:
+            failed.append(f"{phase}: graphed {what} launch counts")
+        check_launches(g_counts, f"{phase}: graphed {what}", cfg.use_bf16,
+                       path_kernels(cfg.use_bf16)[2:] if what == "encode"
+                       else path_kernels(cfg.use_bf16)[:2])
+    per_path[f"{tag}graphed_serving"] = {
+        k: sum(c[k] for c in counts.values()) for k in ops.launch_counts()}
+    if not cfg.use_bf16:
+        # in-place weight updates are read by the graph; a parameter whose
+        # storage moves drops it
+        enc_e, enc_g = live["encode"]
+        p = next(model.savi.slot_attention.parameters())
+        with torch.no_grad():
+            p.mul_(1.001)
+            same = compare(f"{phase}: graphed encode after an in-place "
+                           "update", enc_g(video), enc_e(video), failed)
+            p.div_(1.001)
+        kept = len(enc_g.program.graphs)
+        p.data = p.data.clone()
+        dropped = compare(f"{phase}: graphed encode after a storage move",
+                          enc_g(video), enc_e(video), failed)
+        log(f"{phase}: graphed encode after an in-place weight update "
+            f"{same} ({kept} graph kept); after a parameter's storage "
+            f"moved, captured again: {dropped}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        loaded = {}
+        for what in serving.SURFACES:
+            # a client's request: slots in f32, as npz carries them
+            fn = live[what][1]
+            example = {"encode": (video,),
+                       "sample": (np.int32(3), slots.float()),
+                       "denoise": (x_t, t_model, slots.float())}[what]
+            path = os.path.join(tmp, f"{what}.pt2")
+            ptrs, kept = weight_ptrs(fn.module), dict(fn.program.graphs)
+            t0 = time.perf_counter()
+            header = serving.save_artifact(path, fn, example,
+                                           meta={"what": what})
+            exp_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            call, _ = serving.load_artifact(path)
+            load_s = time.perf_counter() - t0
+            # exporting and loading must leave the live model's storage,
+            # and so its graphs, where they were
+            moved = [n for n, q in weight_ptrs(fn.module).items()
+                     if ptrs.get(n) != q]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(*example)  # warm-up and capture
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            ops.reset_launch_counts()
+            a_out = call(*example)
+            torch.cuda.synchronize()
+            a_counts = ops.launch_counts()
+            # a client's bf16 `sample`/`denoise` request sends f32 slots,
+            # which the graphed requests above did not: one new graph
+            fn(*example)
+            held = all(fn.program.graphs.get(k) is g for k, g in kept.items())
+            new = len(fn.program.graphs) - len(kept)
+            fresh = int(cfg.use_bf16 and what != "encode")
+            ops.reset_launch_counts()
+            g_out = fn(*example)
+            torch.cuda.synchronize()
+            g_counts = ops.launch_counts()
+            same = compare(f"{phase}: {what} artifact", a_out, g_out, failed)
+            loaded[what] = (path, example, a_out)
+            per_path[f"{tag}artifact_{what}"] = a_counts
+            log(f"{phase}: {what} artifact ({len(header['programs'])} "
+                f"programs) {os.path.getsize(path) / 1e6:.1f} MB: export "
+                f"{exp_s:.2f} s, load {load_s:.2f} s, first call (capture) "
+                f"{first_s:.2f} s; reloaded vs graphed {same}; launches "
+                f"{nonzero(a_counts)} (graphed {nonzero(g_counts)}); "
+                f"export and load moved {len(moved)} of {len(ptrs)} live "
+                f"parameters and buffers {moved[:4]}; the graphed surface "
+                f"kept its {len(kept)} graph(s): {held}, captured {new} for "
+                f"the client's dtypes (expected {fresh})")
+            if a_counts != g_counts:
+                failed.append(f"{phase}: {what} artifact launch counts")
+            if moved or not held or new != fresh:
+                failed.append(f"{phase}: {what} export or load moved the "
+                              "live model's storage or graphs")
+            del call
+        # the HTTP surface of each artifact
+        ops.reset_launch_counts()
+        for what, (path, example, a_out) in loaded.items():
+            srv = make_server(path, port=0, host="127.0.0.1")
+            th = threading.Thread(target=srv.serve_forever, daemon=True)
+            th.start()
+            base = f"http://127.0.0.1:{srv.server_port}"
+            try:
+                health = json.loads(urllib.request.urlopen(
+                    f"{base}/health", timeout=60).read())
+                arrays = [a.cpu().numpy() if torch.is_tensor(a) else
+                          np.asarray(a) for a in example]
+                buf = io.BytesIO()
+                np.savez(buf, **{f"arg{i}": a for i, a in enumerate(arrays)})
+                got = np.load(io.BytesIO(urllib.request.urlopen(
+                    urllib.request.Request(f"{base}/predict",
+                                           buf.getvalue(), method="POST"),
+                    timeout=600).read()))
+                want = [o.float().cpu().numpy() for o in outputs(a_out)]
+                same = all(np.array_equal(got[f"out{i}"], w)
+                           for i, w in enumerate(want))
+                bad = io.BytesIO()
+                np.savez(bad, **{f"arg{i}": a[:1] if a.ndim else a
+                                 for i, a in enumerate(arrays)})
+                try:
+                    urllib.request.urlopen(urllib.request.Request(
+                        f"{base}/predict", bad.getvalue(), method="POST"),
+                        timeout=60)
+                    code = 200
+                except urllib.error.HTTPError as e:
+                    code = e.code
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                th.join(timeout=60)
+            log(f"{phase}: HTTP {what}: /health {health['status']} "
+                f"{health['surface']} on {health['device']}; /predict "
+                f"{'equals' if same else 'DIFFERS from'} the artifact's "
+                f"output; a malformed request -> {code}")
+            if not (same and code == 400 and health["status"] == "ok"):
+                failed.append(f"{phase}: HTTP {what}")
+        torch.cuda.synchronize()
+        per_path[f"{tag}http"] = ops.launch_counts()
+    log(f"{phase}: launches over the graphed requests "
+        f"{nonzero(per_path[f'{tag}graphed_serving'])}, the HTTP requests "
+        f"{nonzero(per_path[f'{tag}http'])}")
 
 
 def main():
@@ -1457,11 +1706,12 @@ def main():
     # and one 2-frame encode must agree with the card's kernel path
     cpu = build_model(cfg, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    d_gpu = build_serving_fn(model, "denoise")(
+    d_gpu = build_serving_fn(model, "denoise", graphed=False)(
         x_t[:1], t_model[:1], slots[:1, :1]).cpu()
     d_cpu = build_serving_fn(cpu, "denoise")(
         x_t[:1].cpu(), t_model[:1].cpu(), slots[:1, :1].cpu())
-    s_gpu, m_gpu = build_serving_fn(model, "encode")(video[:1, :2])
+    s_gpu, m_gpu = build_serving_fn(model, "encode", graphed=False)(
+        video[:1, :2])
     s_cpu, m_cpu = build_serving_fn(cpu, "encode")(video[:1, :2].cpu())
     # f32 through ~100 layers whose sums run in another order on the card:
     # 1e-3 of the output's scale. The encode also rounds k, v, q and the
@@ -1486,6 +1736,11 @@ def main():
     # ---- 6. the evaluation path ------------------------------------------
     eval_paths, res64 = evaluate(cfg, model, dev, gen, smi, "phase 6")
     per_path.update(eval_paths)
+
+    # ---- 8 (f32). serving from CUDA graphs, artifacts, HTTP -------------
+    graph_failed = []
+    serve_graphed(cfg, model, inputs, "phase 8 (f32)", per_path,
+                  graph_failed)
     del model, sa_mod, cases
     gc.collect()
     torch.cuda.empty_cache()
@@ -1508,6 +1763,12 @@ def main():
     per_path["bf16_training"], bf16_train, _ = train(
         cfg16, model, dev, gen, "phase 7", step_seconds)
     per_path.update(evaluate(cfg16, model, dev, gen, smi, "phase 7")[0])
+    # ---- 8 (bf16) --------------------------------------------------------
+    serve_graphed(cfg16, model, inputs, "phase 8 (bf16)", per_path,
+                  graph_failed)
+    if graph_failed:
+        raise SystemExit(f"graphed serving, artifacts or HTTP failed: "
+                         f"{graph_failed}")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1521,7 +1782,7 @@ def main():
             f"step's forward {bf16_train[name]['ms']:.4f} ms (f32, phase 5:"
             f" {train_results[name.removesuffix('_bf16')]['ms']:.4f} ms)")
 
-    # ---- 8. report ------------------------------------------------------
+    # ---- 9. report ------------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():

@@ -2,17 +2,19 @@
 """Where the card's time goes in one `encode` and one `sample` request of
 the PyTorch port (flagship SAViDiffusion, MOVi-E 128x128, random weights
 from a seed, 2 videos x 6 frames, f32 with TF32 off, or with `--bf16` the
-model built with `use_bf16`: bf16 compute, f32 parameters), and in one
-training step (`Trainer.train_step` on the config's 32 synthetic 6-frame
-clips: forward, backward, clip, Adam).
+model built with `use_bf16`: bf16 compute, f32 parameters), each run
+eagerly and replayed from its CUDA graph (`encode_graphed`,
+`sample_graphed`: `serving.build_serving_fn`'s default on the card), and
+in one training step (`Trainer.train_step` on the config's 32 synthetic
+6-frame clips: forward, backward, clip, Adam).
 
     python3 scripts/profile_torch_serving.py [--bf16] [--out DIR]
 
-Each request or step runs once to warm up, then once under
-`torch.profiler`
+Each request or step runs once to warm up (a graphed request's capture),
+then once under `torch.profiler`
 (CPU + CUDA activities). Printed per request: the host wall time, the
-device busy time (the sum of the device activities: kernels, copies,
-memsets, which run on one stream and so do not overlap), the idle share
+device busy time (the time the device activities cover: kernels,
+copies, memsets, counted once where they overlap), the idle share
 (1 - busy / wall), the device time and launches of each of the port's
 three kernels (mean device time per launch, free of the host launch cost
 that CUDA-event timing of back-to-back launches includes at small
@@ -40,7 +42,24 @@ KERNELS_BF16 = {"gn_silu": "gn_silu_kernel<__nv_bfloat16",
 # the port's kernels each profiled piece of work must show by name
 REQUIRED = {"encode": ("slot_attention",),
             "sample": ("gn_silu", "attention"),
+            "encode_graphed": ("slot_attention",),
+            "sample_graphed": ("gn_silu", "attention"),
             "train_step": tuple(KERNELS)}
+
+
+def union_us(spans):
+    """Microseconds covered by the (start, end) spans: device work that
+    overlaps (cuDNN's and cuBLAS's own streams inside a CUDA graph) counts
+    once."""
+    total, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
 
 
 def profile(fn, torch):
@@ -54,14 +73,15 @@ def profile(fn, torch):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    busy, by_name = 0.0, {}
+    spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.elapsed_us()
-        busy += us
+        spans.append((e.time_range.start, e.time_range.end))
         n, tot = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, tot + us)
+    busy = union_us(spans)
     if busy <= 0:
         # CUPTI tracing is not open to this process: an idle share of 1
         # would be a false reading
@@ -98,8 +118,10 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(1)
     video = torch.rand(2, cfg.n_sample_frames, *cfg.resolution, 3,
                        generator=gen, device="cuda") * 2 - 1
-    encode = build_serving_fn(model, "encode")
-    sample = build_serving_fn(model, "sample")
+    encode = build_serving_fn(model, "encode", graphed=False)
+    sample = build_serving_fn(model, "sample", graphed=False)
+    encode_g = build_serving_fn(model, "encode")
+    sample_g = build_serving_fn(model, "sample")
     slots, _ = encode(video)
     data = SyntheticVideoData(cfg, cfg.train_batch_size,
                               num_samples=cfg.train_batch_size)
@@ -115,6 +137,8 @@ def main():
                "train_batch": cfg.train_batch_size}
     for name, fn in (("encode", lambda: encode(video)),
                      ("sample", lambda: sample(0, slots)),
+                     ("encode_graphed", lambda: encode_g(video)),
+                     ("sample_graphed", lambda: sample_g(0, slots)),
                      ("train_step", train_step)):
         prof, wall_ms, busy_ms, by_name = profile(fn, torch)
         with open(os.path.join(args.out,

@@ -72,9 +72,13 @@ def _spatial_transformer(out, p, sub, depth):
 
 def convert_unet(params, num_res_blocks: int, channel_mult: Sequence[int],
                  attention_resolutions: Sequence[int],
-                 transformer_depth: int = 1) -> Dict[str, np.ndarray]:
+                 transformer_depth: int = 1, resblock_updown: bool = False,
+                 conv_resample: bool = True) -> Dict[str, np.ndarray]:
     """flax UNetModel params -> port UNetModel names (block indices
-    replayed as the UNet builds them)."""
+    replayed as the UNet builds them). The resamplers between levels are
+    ResBlocks under `resblock_updown` (the JAX exporter's
+    models/torch_export.py:129, 154), convs under `conv_resample`, else
+    parameter-free (pooling, nearest x2)."""
     out: Dict[str, np.ndarray] = {}
     _linear(out, "time_embed.0", params["Dense_0"])
     _linear(out, "time_embed.2", params["Dense_1"])
@@ -92,8 +96,12 @@ def convert_unet(params, num_res_blocks: int, channel_mult: Sequence[int],
                                      transformer_depth)
             idx += 1
         if level != len(channel_mult) - 1:
-            _conv(out, f"input_blocks.{idx}.0.op",
-                  params[f"down{level}_ds"]["Conv_0"])
+            if resblock_updown:
+                _resblock(out, f"input_blocks.{idx}.0",
+                          params[f"down{level}_ds"])
+            elif conv_resample:
+                _conv(out, f"input_blocks.{idx}.0.op",
+                      params[f"down{level}_ds"]["Conv_0"])
             idx += 1
             ds *= 2
     _resblock(out, "middle_block.0", params["mid_res1"])
@@ -112,8 +120,12 @@ def convert_unet(params, num_res_blocks: int, channel_mult: Sequence[int],
                                      transformer_depth)
                 pos += 1
             if level > 0 and i == num_res_blocks:
-                _conv(out, f"output_blocks.{j}.{pos}.conv",
-                      params[f"up{level}_us"]["Conv_0"])
+                if resblock_updown:
+                    _resblock(out, f"output_blocks.{j}.{pos}",
+                              params[f"up{level}_us"])
+                elif conv_resample:
+                    _conv(out, f"output_blocks.{j}.{pos}.conv",
+                          params[f"up{level}_us"]["Conv_0"])
                 ds //= 2
             j += 1
     return out
@@ -289,7 +301,8 @@ def convert_savi_diffusion(params, cfg) -> Dict[str, torch.Tensor]:
     put("dm_decoder.unet", convert_unet(
         params["dm_decoder"]["unet"], ud["num_res_blocks"],
         ud["channel_mult"], ud["attention_resolutions"],
-        ud.get("transformer_depth", 1)))
+        ud.get("transformer_depth", 1), ud.get("resblock_updown", False),
+        ud.get("conv_resample", True)))
     if cfg.dec_dict.get("vae_dict"):
         put("dm_decoder.vae.vqvae", convert_vqvae(
             params["dm_decoder"]["vae"]["vqvae"],

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.dpm_solver import dpm_solver_sample
+from ..ops.dpm_solver import sample_denoiser
 from .schedules import make_beta_schedule
 from .unet import UNetModel
 from .vqvae import VQVAEWrapper
@@ -28,6 +28,13 @@ def _noise(generator, shape, same_noise, device):
     n = torch.randn((1, *shape[1:]) if same_noise else shape,
                     generator=generator, device=generator.device)
     return n.to(device).expand(shape).contiguous()
+
+
+def denoise_nhwc(unet, x, t, context, generator=None):
+    """`CondDDPM.denoise` through the `unet` alone (the serving surface
+    `denoise` holds nothing else)."""
+    out = unet(x.permute(0, 3, 1, 2).contiguous(), t, context, generator)
+    return out.permute(0, 2, 3, 1)
 
 
 class CondDDPM(nn.Module):
@@ -62,7 +69,10 @@ class CondDDPM(nn.Module):
             attention_resolutions=tuple(ud["attention_resolutions"]),
             dropout=ud.get("dropout", 0.0),
             channel_mult=tuple(ud.get("channel_mult", (1, 2, 4, 8))),
+            conv_resample=ud.get("conv_resample", True),
+            use_checkpoint=ud.get("use_checkpoint", False),
             num_head_channels=ud.get("num_head_channels", 32),
+            resblock_updown=ud.get("resblock_updown", False),
             transformer_depth=ud.get("transformer_depth", 1),
             context_dim=ud.get("context_dim"),
             attn_backend=ud.get("attn_backend", "einsum"),
@@ -74,9 +84,7 @@ class CondDDPM(nn.Module):
     def denoise(self, x, t, context, generator=None):
         """x [B, H, W, C] NHWC, t [B], context [B, S, D] -> NHWC output.
         `generator` draws the UNet's dropout masks in train mode."""
-        out = self.unet(x.permute(0, 3, 1, 2).contiguous(), t, context,
-                        generator)
-        return out.permute(0, 2, 3, 1)
+        return denoise_nhwc(self.unet, x, t, context, generator)
 
     forward = denoise
 
@@ -126,17 +134,15 @@ class CondDDPM(nn.Module):
         device = self.unet.out[2].weight.device
         if x_T is None:
             x_T = _noise(generator, shape, same_noise, device)
-        steps = steps or max(20, self.num_timesteps // 50)
+        return sample_denoiser(
+            self.denoise, self.betas, x_T, cond, steps=steps or
+            self.dpm_steps, order=order, model_type=self.pred_target,
+            correcting_x0_fn=self.correct_x0)
 
-        def model_fn(x, t_cont):
-            # continuous time -> model time, `(t - 1/N) * 1000` at any N
-            tb = (t_cont - 1.0 / self.num_timesteps) * 1000.0
-            t = torch.full((B,), tb, dtype=torch.float32, device=x.device)
-            return self.denoise(x, t, cond)
-
-        return dpm_solver_sample(
-            model_fn, self.betas, x_T, steps=steps, order=order,
-            model_type=self.pred_target, correcting_x0_fn=self.correct_x0)
+    @property
+    def dpm_steps(self):
+        """DPM-Solver steps of `generate_imgs`: max(20, T/50)."""
+        return max(20, self.num_timesteps // 50)
 
     def generate_imgs(self, generator=None, cond=None, batch_size=None,
                       use_dpm=True, same_noise=False, x_T=None):

@@ -37,6 +37,18 @@ def _build_dm_decoder(dec_dict, compute_dtype):
                compute_dtype=compute_dtype)
 
 
+def encode_video(savi, resolution, img, prev_slots=None, train=False):
+    """`SAViDiffusion.encode` through the `savi` encoder alone (the serving
+    surface `encode` holds nothing else)."""
+    slots, masks, vis_res = savi.encode(img, prev_slots)
+    B, T, N = masks.shape[:3]
+    if not train and vis_res != tuple(resolution):
+        m = _upsample_masks(masks.reshape(B * T, N, -1), vis_res,
+                            resolution)
+        return slots, m.reshape(B, T, N, *resolution)
+    return slots, masks.reshape(B, T, N, *vis_res)
+
+
 class SAViDiffusion(nn.Module):
     def __init__(self, resolution, slot_dict, enc_dict, dec_dict, pred_dict,
                  eps=1e-6, compute_dtype=torch.float32):
@@ -55,13 +67,8 @@ class SAViDiffusion(nn.Module):
     def encode(self, img, prev_slots=None, train=False):
         """img [B, T, H, W, 3] -> slots [B, T, S, D], masks
         [B, T, S, H, W] (at the visual resolution when `train`)."""
-        slots, masks, vis_res = self.savi.encode(img, prev_slots)
-        B, T, N = masks.shape[:3]
-        if not train and vis_res != self.resolution:
-            m = _upsample_masks(masks.reshape(B * T, N, -1), vis_res,
-                                self.resolution)
-            return slots, m.reshape(B, T, N, *self.resolution)
-        return slots, masks.reshape(B, T, N, *vis_res)
+        return encode_video(self.savi, self.resolution, img, prev_slots,
+                            train)
 
     def forward(self, data_dict, prev_slots=None, train=False):
         slots, masks = self.encode(data_dict["img"], prev_slots, train)

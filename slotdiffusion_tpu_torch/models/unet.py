@@ -15,10 +15,18 @@ for the value product; GEGLU takes the tanh GELU under bf16; the
 phase-conv Upsample sums its taps in f32 before the cast; the output conv
 runs in f32 (`conv_out_compute="f32"`) or on bf16 operands with an f32
 output (`"bf16"`, `ConvOutBf16Acc`).
+
+The three resampling and memory keys of the JAX `UNetModel`
+(models/unet.py:323-336, 396-415, 521-524, 560-566, 596-602):
+`conv_resample=False` resamples without a conv (2x2 average pool down,
+nearest x2 up); `resblock_updown=True` resamples inside a ResBlock in
+place of `Downsample` / `Upsample`; `use_checkpoint=True` recomputes
+every ResBlock in the backward (`_checkpointed`).
 """
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention_kernel import fused_mha
@@ -168,15 +176,28 @@ class Dropout(nn.Module):
         return x * keep / (1.0 - self.p)
 
 
+def _resample(x, how):
+    """x2 nearest (`"up"`) or a 2x2 average pool (`"down"`) of NCHW `x`
+    in its dtype: the JAX `_upsample2x` / `_avgpool2x`."""
+    if how == "up":
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+    return F.avg_pool2d(x, 2)
+
+
 class ResBlock(nn.Module):
     """GN+SiLU -> conv3x3, + time-embedding, GN+SiLU -> dropout ->
     conv3x3, residual with a 1x1 skip on a channel change. A decoder
-    block takes the channel-concat of h and its skip."""
+    block takes the channel-concat of h and its skip. With `up` or `down`
+    (`resblock_updown`) both h, after its GN+SiLU, and the residual x are
+    resampled before the first conv (`_resample`), as the JAX block
+    does."""
 
     def __init__(self, channels, out_channels, emb_channels, dropout=0.0,
-                 fused_gn=False, compute_dtype=torch.float32):
+                 fused_gn=False, up=False, down=False,
+                 compute_dtype=torch.float32):
         super().__init__()
         dt = dict(compute_dtype=compute_dtype)
+        self.updown = "up" if up else "down" if down else None
         self.in_layers = nn.Sequential(
             GroupNorm32(channels, act="silu", fused=fused_gn), nn.Identity(),
             Conv2d(channels, out_channels, 3, padding=1, **dt))
@@ -190,20 +211,29 @@ class ResBlock(nn.Module):
             else Conv2d(channels, out_channels, 1, **dt)
 
     def forward(self, x, emb, generator=None):
-        h = self.in_layers(x)
+        if self.updown is None:
+            h = self.in_layers(x)
+        else:
+            norm, _, conv = self.in_layers
+            h = conv(_resample(norm(x), self.updown))
+            x = _resample(x, self.updown)
         h = h + self.emb_layers(emb)[:, :, None, None]
         norm, _, drop, conv = self.out_layers
         return self.skip_connection(x) + conv(drop(norm(h), generator))
 
 
 class Downsample(nn.Module):
-    def __init__(self, channels, compute_dtype=torch.float32):
+    """A stride-2 3x3 conv (`op`), or with `use_conv=False`
+    (`conv_resample`) a 2x2 average pool with no parameters."""
+
+    def __init__(self, channels, use_conv=True, compute_dtype=torch.float32):
         super().__init__()
-        self.op = Conv2d(channels, channels, 3, stride=2, padding=1,
-                         compute_dtype=compute_dtype)
+        if use_conv:
+            self.op = Conv2d(channels, channels, 3, stride=2, padding=1,
+                             compute_dtype=compute_dtype)
 
     def forward(self, x):
-        return self.op(x)
+        return self.op(x) if hasattr(self, "op") else _resample(x, "down")
 
 
 class Upsample(nn.Module):
@@ -212,14 +242,18 @@ class Upsample(nn.Module):
     sums of the 3x3 taps, interleaved depth-to-space. Exact in real
     arithmetic; parameters are the 3x3 conv's (`conv`). The taps are
     summed in f32 and then cast to the compute dtype, the convolutions and
-    the bias add run in it."""
+    the bias add run in it. With `use_conv=False` (`conv_resample`):
+    nearest-2x alone, no parameters."""
 
-    def __init__(self, channels, compute_dtype=torch.float32):
+    def __init__(self, channels, use_conv=True, compute_dtype=torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        if use_conv:
+            self.conv = nn.Conv2d(channels, channels, 3, padding=1)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
+        if not hasattr(self, "conv"):
+            return _resample(x, "up")
         dt = self.compute_dtype
         x = x.to(dt)
         W = self.conv.weight  # [F, C, 3, 3], f32
@@ -279,9 +313,38 @@ class ConvOutBf16Acc(nn.Conv2d):
         super().__init__(in_channels, out_channels, 3, padding=1)
 
     def forward(self, x):
-        y = _ConvBf16AccF32.apply(x.to(torch.bfloat16),
-                                  self.weight.to(torch.bfloat16))
+        x16, w16 = x.to(torch.bfloat16), self.weight.to(torch.bfloat16)
+        if torch.is_grad_enabled() and (x16.requires_grad or
+                                        w16.requires_grad):
+            y = _ConvBf16AccF32.apply(x16, w16)
+        else:  # the Function's forward, without the Function (export)
+            y = F.conv2d(x16.float(), w16.float(), padding=1)
         return y + self.bias[None, :, None, None]
+
+
+def _checkpointed(block, h, emb, generator):
+    """`block(h, emb, generator)` with its activations recomputed in the
+    backward (the JAX `nn.remat(ResBlock)`). The recompute must draw the
+    dropout masks the forward drew, and torch's `preserve_rng_state` saves
+    only the default generators: so the state of the caller's `generator`
+    is taken before the block, set again for the recompute and put back
+    after it. The block draws from nothing else."""
+    state = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(h, emb):
+        if calls and state is not None:  # the backward's recompute
+            now = generator.get_state()
+            generator.set_state(state)
+            try:
+                return block(h, emb, generator)
+            finally:
+                generator.set_state(now)
+        calls.append(1)
+        return block(h, emb, generator)
+
+    return torch.utils.checkpoint.checkpoint(
+        run, h, emb, use_reentrant=False, preserve_rng_state=False)
 
 
 class UNetModel(nn.Module):
@@ -290,9 +353,11 @@ class UNetModel(nn.Module):
 
     def __init__(self, in_channels, model_channels, out_channels,
                  num_res_blocks, attention_resolutions, dropout=0.0,
-                 channel_mult=(1, 2, 4, 8), num_head_channels=32,
-                 transformer_depth=1, context_dim=None,
-                 attn_backend="einsum", attn_softmax="fast", fused_gn=False,
+                 channel_mult=(1, 2, 4, 8), conv_resample=True,
+                 use_checkpoint=False, num_head_channels=32,
+                 resblock_updown=False, transformer_depth=1,
+                 context_dim=None, attn_backend="einsum",
+                 attn_softmax="fast", fused_gn=False,
                  conv_out_compute="f32", compute_dtype=torch.float32):
         super().__init__()
         mc = model_channels
@@ -300,11 +365,12 @@ class UNetModel(nn.Module):
         emb = mc * 4
         dt = dict(compute_dtype=compute_dtype)
         self.compute_dtype = compute_dtype
+        self.use_checkpoint = use_checkpoint
         self.time_embed = nn.Sequential(Linear(mc, emb, **dt), nn.SiLU(),
                                         Linear(emb, emb, **dt))
 
-        def res(ci, co):
-            return ResBlock(ci, co, emb, dropout, fused_gn, **dt)
+        def res(ci, co, **updown):
+            return ResBlock(ci, co, emb, dropout, fused_gn, **updown, **dt)
 
         def attn(ch):
             return SpatialTransformer(
@@ -325,8 +391,9 @@ class UNetModel(nn.Module):
                 self.input_blocks.append(nn.ModuleList(layers))
                 chans.append(ch)
             if level != len(channel_mult) - 1:
-                self.input_blocks.append(
-                    nn.ModuleList([Downsample(ch, **dt)]))
+                self.input_blocks.append(nn.ModuleList([
+                    res(ch, ch, down=True) if resblock_updown
+                    else Downsample(ch, conv_resample, **dt)]))
                 chans.append(ch)
                 ds *= 2
         self.middle_block = nn.ModuleList([res(ch, ch), attn(ch),
@@ -339,7 +406,8 @@ class UNetModel(nn.Module):
                 if ds in attention_resolutions:
                     layers.append(attn(ch))
                 if level and i == num_res_blocks:
-                    layers.append(Upsample(ch, **dt))
+                    layers.append(res(ch, ch, up=True) if resblock_updown
+                                  else Upsample(ch, conv_resample, **dt))
                     ds //= 2
                 self.output_blocks.append(nn.ModuleList(layers))
         if conv_out_compute == "bf16":
@@ -352,11 +420,12 @@ class UNetModel(nn.Module):
             GroupNorm32(mc, act="silu", fused=fused_gn), nn.Identity(),
             conv_out)
 
-    @staticmethod
-    def _run(block, h, emb, context, generator):
+    def _run(self, block, h, emb, context, generator):
         for layer in block:
             if isinstance(layer, ResBlock):
-                h = layer(h, emb, generator)
+                h = _checkpointed(layer, h, emb, generator) \
+                    if self.use_checkpoint and torch.is_grad_enabled() \
+                    else layer(h, emb, generator)
             elif isinstance(layer, SpatialTransformer):
                 h = layer(h, context)
             else:

@@ -16,7 +16,15 @@ the JAX kernel's point: the normalized weights to bf16 before the value
 product (the JAX package's ops/attention_kernel.py:57, 81-83), whose sums
 are f32, then the output. The wrapper takes the entry of q's dtype and
 raises on any other dtype.
+
+The forward is also the PyTorch operator `sdt::mha` (CPU: the plain
+version; CUDA: the same ctypes launch; fake: q's shape and dtype), which
+only a call made while exporting goes through (`_forward`): eager calls
+skip the dispatcher. The autograd.Function is entered only when a
+gradient can flow.
 """
+
+from typing import Optional
 
 import torch
 
@@ -72,11 +80,8 @@ def check_inputs(q, k, v, num_heads):
                              "device")
 
 
-def _forward(q, k, v, num_heads, scale):
-    if q.device.type == "cpu":
-        return mha_reference(q, k, v, num_heads, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_mha: unsupported device {q.device}")
+def _launch(q, k, v, num_heads, scale):
+    """The CUDA kernel on CUDA q, k, v."""
     check_inputs(q, k, v, num_heads)
     B, Nq, _ = q.shape
     scale = HEAD_DIM ** -0.5 if scale is None else scale
@@ -89,6 +94,34 @@ def _forward(q, k, v, num_heads, scale):
     _cuda.check(err, entry)
     launches[entry] += 1
     return out
+
+
+@torch.library.custom_op("sdt::mha", mutates_args=(), device_types="cpu")
+def mha_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+           scale: Optional[float]) -> torch.Tensor:
+    """Clamped-exp attention as an operator: on the CPU the plain
+    version."""
+    return mha_reference(q, k, v, num_heads, scale)
+
+
+@mha_op.register_kernel("cuda")
+def _(q, k, v, num_heads, scale):
+    return _launch(q, k, v, num_heads, scale)
+
+
+@mha_op.register_fake
+def _(q, k, v, num_heads, scale):
+    return torch.empty_like(q)
+
+
+def _forward(q, k, v, num_heads, scale):
+    if torch.compiler.is_exporting():
+        return mha_op(q, k, v, num_heads, scale)
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, num_heads, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_mha: unsupported device {q.device}")
+    return _launch(q, k, v, num_heads, scale)
 
 
 class FusedMHA(torch.autograd.Function):
@@ -114,5 +147,9 @@ class FusedMHA(torch.autograd.Function):
 
 def fused_mha(q, k, v, num_heads, scale=None):
     """Clamped-exp attention: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors; differentiable through `FusedMHA`."""
-    return FusedMHA.apply(q, k, v, num_heads, scale)
+    version for CPU tensors; differentiable through `FusedMHA` (entered
+    only when a gradient can flow)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return FusedMHA.apply(q, k, v, num_heads, scale)
+    return _forward(q, k, v, num_heads, scale)

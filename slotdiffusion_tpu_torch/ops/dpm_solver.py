@@ -11,6 +11,12 @@ and adaptive methods of the JAX package are not ported yet.
 import math
 
 import numpy as np
+import torch
+
+# What `sample_denoiser` computes, named: a `sample` artifact records it and
+# `serving.load_artifact` refuses one recorded with another name. Change it
+# whenever a change here would move a sample's output.
+SAMPLER = "dpmsolver++-singlestep-order3-time_uniform-v1"
 
 
 class VPSchedule:
@@ -143,3 +149,22 @@ def dpm_solver_sample(model_fn, betas, x_T, steps=20, order=3,
                          (ns.lam(inner[1]) - lam_s) / h,
                          (ns.lam(inner[2]) - lam_s) / h)
     return x
+
+
+def sample_denoiser(denoise, betas, x_T, cond, steps=20, order=3,
+                    model_type="eps", correcting_x0_fn=None):
+    """`dpm_solver_sample` over a conditional denoiser in model time:
+    `denoise(x, t [B], cond)` is called at t = (t_continuous - 1/N) * 1000
+    for a schedule of N = len(betas) steps (`CondDDPM.sample_dpm`'s
+    conversion, at any N), with t filled on x's device from a host
+    float, so no step waits on the device."""
+    n = len(betas)
+
+    def model_fn(x, t_cont):
+        t = torch.full((x.shape[0],), (t_cont - 1.0 / n) * 1000.0,
+                       dtype=torch.float32, device=x.device)
+        return denoise(x, t, cond)
+
+    return dpm_solver_sample(model_fn, betas, x_T, steps=steps, order=order,
+                             model_type=model_type,
+                             correcting_x0_fn=correcting_x0_fn)

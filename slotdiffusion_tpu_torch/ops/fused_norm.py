@@ -20,6 +20,13 @@ which rounds once to x's dtype, is the plain twin of both.
 The wrapper's host work a call is the checks, one `torch.empty_like` and
 one ctypes call; the autograd.Function is entered only when a gradient
 can flow (serving runs under `torch.inference_mode`).
+
+The forward is also the PyTorch operator `sdt::group_norm`, so that
+`torch.export` records it as one node: its CPU implementation is the
+plain version, its CUDA one the same ctypes launch, its fake one the
+output's shape and dtype. Eager calls skip the dispatcher and call the
+launch directly; only a call made while exporting goes through the
+operator (`_forward`).
 """
 
 import torch
@@ -77,11 +84,8 @@ def check_inputs(x, weight, bias, num_groups, act):
                          f"exceeds the kernel's {MAX_GROUP}")
 
 
-def _forward(x, weight, bias, num_groups, eps, act):
-    if x.device.type == "cpu":
-        return group_norm_reference(x, weight, bias, num_groups, eps, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_group_norm: unsupported device {x.device}")
+def _launch(x, weight, bias, num_groups, eps, act):
+    """The CUDA kernel on a CUDA `x`."""
     check_inputs(x, weight, bias, num_groups, act)
     B, C, H, W = x.shape
     y = torch.empty_like(x)
@@ -92,6 +96,37 @@ def _forward(x, weight, bias, num_groups, eps, act):
     _cuda.check(err, entry)
     launches[entry] += 1
     return y
+
+
+@torch.library.custom_op("sdt::group_norm", mutates_args=(),
+                         device_types="cpu")
+def group_norm_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  num_groups: int, eps: float, silu: bool) -> torch.Tensor:
+    """GroupNorm(+SiLU) as an operator: on the CPU the plain version."""
+    return group_norm_reference(x, weight, bias, num_groups, eps,
+                                "silu" if silu else None)
+
+
+@group_norm_op.register_kernel("cuda")
+def _(x, weight, bias, num_groups, eps, silu):
+    return _launch(x, weight, bias, num_groups, eps, "silu" if silu else None)
+
+
+@group_norm_op.register_fake
+def _(x, weight, bias, num_groups, eps, silu):
+    return torch.empty_like(x)
+
+
+def _forward(x, weight, bias, num_groups, eps, act):
+    if act not in (None, "silu"):
+        raise ValueError(f"fused_group_norm: unsupported act {act!r}")
+    if torch.compiler.is_exporting():
+        return group_norm_op(x, weight, bias, num_groups, eps, act == "silu")
+    if x.device.type == "cpu":
+        return group_norm_reference(x, weight, bias, num_groups, eps, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_group_norm: unsupported device {x.device}")
+    return _launch(x, weight, bias, num_groups, eps, act)
 
 
 class FusedGroupNorm(torch.autograd.Function):

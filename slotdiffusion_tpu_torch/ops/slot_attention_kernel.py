@@ -16,9 +16,17 @@ The weight dict has the JAX kernel's keys and layout (`SA_WEIGHT_KEYS`,
 `x @ W` orientation, GRU gates packed r | z | n). `launch_plan` decides
 how the kernel splits an item over a cluster; the wrapper passes the plan
 to the C entry point, which refuses a plan it cannot run.
+
+The forward is also the PyTorch operator `sdt::sa_iterations` (CPU: the
+plain version; CUDA: the same ctypes launch; fake: the slots' and the
+mask's shapes, f32), which only a call made while exporting goes through
+(`_forward`): eager calls skip the dispatcher. It returns the mask always,
+empty unless `return_last_attn`. The autograd.Function is entered only
+when a gradient can flow.
 """
 
 import ctypes
+from typing import List
 
 import torch
 
@@ -191,12 +199,9 @@ def check_inputs(k, v, slots, p, num_iterations, kv_dtype):
                              f"{expect[key]} on {k.device}")
 
 
-def _forward(k, v, slots, p, num_iterations, eps, return_last_attn,
-             kv_dtype):
-    if k.device.type == "cpu":
-        return sa_iterations_ref(
-            k, v, slots, p, num_iterations=num_iterations, eps=eps,
-            return_last_attn=return_last_attn, kv_dtype=kv_dtype)
+def _launch(k, v, slots, p, num_iterations, eps, return_last_attn,
+            kv_dtype):
+    """The CUDA kernel on CUDA tensors."""
     check_inputs(k, v, slots, p, num_iterations, kv_dtype)
     B, N, D = k.shape
     S = slots.shape[1]
@@ -221,6 +226,60 @@ def _forward(k, v, slots, p, num_iterations, eps, return_last_attn,
     if return_last_attn:
         return out, mask
     return out
+
+
+def _op_outputs(out, return_last_attn):
+    """(slots, mask) of the operator: the mask empty unless asked for."""
+    if return_last_attn:
+        return out
+    return out, out.new_empty((0,))
+
+
+@torch.library.custom_op("sdt::sa_iterations", mutates_args=(),
+                         device_types="cpu")
+def sa_iterations_op(k: torch.Tensor, v: torch.Tensor, slots: torch.Tensor,
+                     weights: List[torch.Tensor], num_iterations: int,
+                     eps: float, return_last_attn: bool,
+                     kv_dtype: torch.dtype
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """All slot-attention iterations as an operator: on the CPU the plain
+    version. `weights` in SA_WEIGHT_KEYS order."""
+    out = sa_iterations_ref(
+        k, v, slots, dict(zip(SA_WEIGHT_KEYS, weights)),
+        num_iterations=num_iterations, eps=eps,
+        return_last_attn=return_last_attn, kv_dtype=kv_dtype)
+    return _op_outputs(out, return_last_attn)
+
+
+@sa_iterations_op.register_kernel("cuda")
+def _(k, v, slots, weights, num_iterations, eps, return_last_attn, kv_dtype):
+    out = _launch(k, v, slots, dict(zip(SA_WEIGHT_KEYS, weights)),
+                  num_iterations, eps, return_last_attn, kv_dtype)
+    return _op_outputs(out, return_last_attn)
+
+
+@sa_iterations_op.register_fake
+def _(k, v, slots, weights, num_iterations, eps, return_last_attn, kv_dtype):
+    B, S = slots.shape[:2]
+    f32 = torch.float32
+    mask = (B, S, k.shape[1]) if return_last_attn else (0,)
+    return slots.new_empty(slots.shape, dtype=f32), \
+        slots.new_empty(mask, dtype=f32)
+
+
+def _forward(k, v, slots, p, num_iterations, eps, return_last_attn,
+             kv_dtype):
+    if torch.compiler.is_exporting():
+        out, mask = sa_iterations_op(
+            k, v, slots, [p[key] for key in SA_WEIGHT_KEYS], num_iterations,
+            eps, return_last_attn, kv_dtype)
+        return (out, mask) if return_last_attn else out
+    if k.device.type == "cpu":
+        return sa_iterations_ref(
+            k, v, slots, p, num_iterations=num_iterations, eps=eps,
+            return_last_attn=return_last_attn, kv_dtype=kv_dtype)
+    return _launch(k, v, slots, p, num_iterations, eps, return_last_attn,
+                   kv_dtype)
 
 
 class SlotAttentionIterations(torch.autograd.Function):
@@ -260,9 +319,14 @@ def sa_iterations(k, v, slots, p, *, num_iterations, eps,
                   return_last_attn=False, kv_dtype=torch.bfloat16):
     """Slot-attention refinement: the CUDA kernel for CUDA tensors (bf16
     k/v only), the plain version for CPU tensors; differentiable through
-    `SlotAttentionIterations`."""
+    `SlotAttentionIterations` (entered only when a gradient can flow)."""
     if k.device.type not in ("cpu", "cuda"):
         raise ValueError(f"sa_iterations: unsupported device {k.device}")
-    return SlotAttentionIterations.apply(
-        k, v, slots, num_iterations, eps, return_last_attn, kv_dtype,
-        *[p[key] for key in SA_WEIGHT_KEYS])
+    weights = [p[key] for key in SA_WEIGHT_KEYS]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (k, v, slots, *weights)):
+        return SlotAttentionIterations.apply(
+            k, v, slots, num_iterations, eps, return_last_attn, kv_dtype,
+            *weights)
+    return _forward(k, v, slots, p, num_iterations, eps, return_last_attn,
+                    kv_dtype)
