@@ -100,7 +100,24 @@ Phases (one flushed line each, with elapsed seconds):
      equal; each artifact behind `scripts/serve_model_torch.py`'s
      `make_server` on 127.0.0.1: `/health`, one `/predict` equal to the
      artifact's output, and a malformed request that must get a 400;
-  9. one JSON line listing every kernel (times per serving request;
+  9. the flagship's stage 1 and its handoff: `VQVAEMoviE128` at full
+     width (128x128, ch 64, 4096 codes) built with `init_reference_`,
+     trained by `build_method` -> `Trainer.fit(max_steps=3)` on
+     synthetic single frames at the config's 64 a step, in f32 and then
+     in bf16, with the LPIPS term live on a seed-0 random `.npz` written
+     by the port's `save_random_lpips_npz` (passed as the config's
+     `lpips_weights`): finite losses with `percept_loss` in every step, a
+     non-zero gradient on every parameter, parameters that moved, no
+     kernel launched (the JAX VQ-VAE runs none), step seconds and peak
+     memory beside the card's name and power limit, `Trainer.validate`
+     over one batch and ckpt_last.pt; 4 frames' losses on the card
+     against the same model on the CPU; then that ckpt_last.pt grafted
+     into the flagship SAViDiffusion through `vqvae_ckp_path` (its
+     VQ-VAE bit-identical to the stage-1 model and decoding a latent
+     bit-identically), which serves phase 4's requests and takes one
+     training step at 4 clips, each with the counts set to 0 before and
+     read after and all three model kernels launched;
+ 10. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
      `res64_*`: slot attention at the 64x64 model's shape; the bf16 entry
      points of GN and attention as entries of their own, `"entry"` and
@@ -117,6 +134,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -207,6 +225,12 @@ ARGMAX_TIE = 2 * TOL["slot_attention"]
 ARGMAX_EXACT = 0.995
 LOSS_RTOL = 1e-3
 SEG_METRIC_TOL = 2e-3
+# 9: the stage-1 VQ-VAE's steps a dtype, the frames its card-vs-CPU loss
+# check takes (the CPU runs the 128x128 model at a few seconds a frame),
+# and the clips of stage 2's one training step on the grafted flagship
+STAGE1_STEPS = 3
+STAGE1_CPU_FRAMES = 4
+STAGE2_CLIPS = 4
 
 
 def log(msg):
@@ -1474,6 +1498,251 @@ def serve_graphed(cfg, model, inputs, phase, per_path, failed):
         f"{nonzero(per_path[f'{tag}http'])}")
 
 
+class VQReport:
+    """A stage-1 trainer's logger: per train step, its losses, host
+    seconds and the peak memory; the val record apart."""
+
+    def __init__(self, phase, smi):
+        self.phase, self.smi = phase, smi
+        self.steps, self.val = [], None
+
+    def log(self, record, step):
+        import torch
+        if "val/recon_loss" in record:
+            self.val = record
+            log(f"{self.phase}: validate at step {step}: " + ", ".join(
+                f"{k} {v:.5f}" for k, v in record.items()))
+            return
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
+        self.steps.append(dict(record, peak_gib=peak))
+        log(f"{self.phase}: step {step}: " + ", ".join(
+            f"{k.removeprefix('train/')} {record[k]:.5f}" for k in
+            ("train/recon_loss", "train/quant_loss", "train/percept_loss",
+             "train/grad_norm") if k in record) +
+            f", {record['step_seconds']:.3f} s (host clock), max allocated "
+            f"{peak:.2f} GiB [{self.smi}]")
+
+
+def train_stage1(cfg, dev, tmp, smi, phase):
+    """Train the stage-1 VQ-VAE `cfg` (built with `init_reference_`, seed
+    0) for STAGE1_STEPS steps through `build_method` -> `Trainer.fit`, on
+    synthetic single frames at the config's batch, with one val batch:
+    finite losses with `percept_loss` in every step, a non-zero gradient
+    on every parameter, parameters that moved, no kernel launched (the
+    JAX VQ-VAE runs none); `fit` then validates and writes ckpt_last.pt
+    under `tmp`. -> (model, its ckpt_last.pt, step seconds, peak GiB)."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.data.synthetic import SyntheticVideoData
+    from slotdiffusion_tpu_torch.methods.build import build_method
+    from slotdiffusion_tpu_torch.models import build_model, init_reference_
+
+    model = build_model(cfg, device=dev)
+    init_reference_(model, torch.Generator().manual_seed(0))
+    B = cfg.train_batch_size
+    data = SyntheticVideoData(cfg, B, num_samples=STAGE1_STEPS * B, seed=0,
+                              val_samples=cfg.val_batch_size)
+    params = list(model.named_parameters())
+    start = {n: p.detach().clone() for n, p in params}
+    got_grad = {}
+
+    def note_grad(name):
+        def hook(p):
+            got_grad[name] = got_grad.get(name, False) | bool(
+                (p.grad != 0).any())
+        return hook
+
+    hooks = [p.register_post_accumulate_grad_hook(note_grad(n))
+             for n, p in params]
+    trainer = build_method(model, data, cfg, ckp_path=tmp)
+    trainer.logger = report = VQReport(phase, smi)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    trainer.fit(max_steps=STAGE1_STEPS)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"{phase}: Trainer.fit(max_steps={STAGE1_STEPS}) at {B} frames a "
+        f"step took {time.time() - t0:.1f}s (host clock; validate and "
+        f"ckpt_last included); launches {counts}")
+    for hk in hooks:
+        hk.remove()
+    if any(counts.values()):
+        raise SystemExit(f"{phase}: the VQ-VAE launched a kernel: {counts}")
+    if len(report.steps) != STAGE1_STEPS or any(
+            "train/percept_loss" not in st or not all(
+                math.isfinite(st[k]) for k in st if k.startswith("train/"))
+            for st in report.steps):
+        raise SystemExit(f"{phase}: a step's losses are not finite or lack "
+                         f"percept_loss: {report.steps}")
+    if report.val is None or "val/percept_loss" not in report.val:
+        raise SystemExit(f"{phase}: validate gave {report.val}")
+    no_grad = [n for n, _ in params if not got_grad.get(n)]
+    still = [n for n, p in params if torch.equal(p, start[n])]
+    if no_grad or still:
+        raise SystemExit(f"{phase}: {len(no_grad)} parameters got no "
+                         f"gradient ({no_grad[:5]}), {len(still)} did not "
+                         f"move ({still[:5]})")
+    ckpt = os.path.join(tmp, "ckpt_last.pt")
+    log(f"{phase}: all {len(params)} parameter tensors got non-zero "
+        f"gradients and moved; ckpt_last.pt "
+        f"{os.path.getsize(ckpt) / 2 ** 20:.1f} MiB")
+    steps = [st["step_seconds"] for st in report.steps]
+    return model, ckpt, steps, max(st["peak_gib"] for st in report.steps)
+
+
+def stage1(smi, dev, gen, phase="phase 9"):
+    """Phase 9: the flagship's stage 1 and its handoff. `VQVAEMoviE128` at
+    full width trains in f32 and in bf16 (`train_stage1`) with the
+    perceptual term live on a seeded random LPIPS npz written by the
+    port's `save_random_lpips_npz` and passed explicitly; one batch's
+    losses on the card against the same model on the CPU; then the f32
+    run's ckpt_last.pt grafted into the flagship SAViDiffusion through
+    `vqvae_ckp_path`, whose VQ-VAE must decode a latent bit-identically
+    to the stage-1 model, and which serves one `encode` + `sample` (+
+    `denoise`) request and takes one training step with the three model
+    kernels launched. -> {path: {kernel: launches}}."""
+    import gc
+    import tempfile
+
+    import torch
+    from slotdiffusion_tpu_torch import configs, ops
+    from slotdiffusion_tpu_torch.data.synthetic import SyntheticVideoData
+    from slotdiffusion_tpu_torch.methods.build import build_method
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    from slotdiffusion_tpu_torch.ops.lpips import (load_lpips,
+                                                   save_random_lpips_npz)
+    from slotdiffusion_tpu_torch.training.checkpoint import graft_pretrained
+
+    per_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = save_random_lpips_npz(os.path.join(tmp, "lpips.npz"), seed=0)
+        # a log line every step, no checkpoint before the end of the run,
+        # one val batch
+        cfg = configs.VQVAEMoviE128().copy(
+            lpips_weights=npz, print_iter=1, save_interval=1e6,
+            val_batch_size=64)
+        ed = cfg.enc_dec_dict
+        log(f"{phase}: stage 1: VQVAEMoviE128 ({cfg.resolution[0]}x"
+            f"{cfg.resolution[1]}, ch {ed['ch']}, ch_mult "
+            f"{tuple(ed['ch_mult'])}, {cfg.vq_dict['n_embed']} codes), LPIPS "
+            f"live on a seed-0 random npz, {cfg.train_batch_size} frames a "
+            "step")
+        model, ckpt, f32_steps, f32_peak = train_stage1(
+            cfg, dev, os.path.join(tmp, "f32"), smi, f"{phase} (f32)")
+        # one batch's losses, the card against the CPU (the plain formulas
+        # there, TF32 off here); train=False: no dropout draw to match
+        cpu = build_model(cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             model.state_dict().items()})
+        img = torch.rand(STAGE1_CPU_FRAMES, 1, *cfg.resolution, 3,
+                         generator=gen, device=dev) * 2 - 1
+        with torch.no_grad():
+            out_d, loss_d = model.compute_losses({"img": img}, train=False)
+            out_c, loss_c = cpu.compute_losses({"img": img.cpu()},
+                                               train=False)
+        agree = (out_d["token_id"].cpu() == out_c["token_id"]).float()
+        rel = {k: abs(loss_d[k].item() - v.item()) / abs(v.item())
+               for k, v in loss_c.items()}
+        log(f"{phase}: {STAGE1_CPU_FRAMES} frames' losses, card vs CPU: " +
+            ", ".join(f"{k} {loss_d[k].item():.6f} vs {loss_c[k].item():.6f}"
+                      f" (rel {r:.1e})" for k, r in rel.items()) +
+            f" (tol {LOSS_RTOL:.0e}); token ids agree at "
+            f"{agree.mean().item():.5f}")
+        if set(rel) != {"recon_loss", "quant_loss", "percept_loss"} or \
+                max(rel.values()) > LOSS_RTOL:
+            raise SystemExit(f"{phase}: the card's VQ-VAE losses disagree "
+                             f"with the CPU's: {rel}")
+        del cpu, out_c
+        # the perceptual term's share of a step: LPIPS forward and backward
+        # (to the reconstruction) over one step's frames, CUDA events
+        x = torch.rand(cfg.train_batch_size, *cfg.resolution, 3,
+                       generator=gen, device=dev) * 2 - 1
+        y = (x + 0.1 * torch.randn(x.shape, generator=gen, device=dev)
+             ).requires_grad_(True)
+        net = load_lpips(npz, dev)
+        lp_ms = []
+        for _ in range(4):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            net(y, x).mean().backward()
+            end.record()
+            torch.cuda.synchronize()
+            lp_ms.append(start.elapsed_time(end))
+        lp = sorted(lp_ms[1:])[1]
+        log(f"{phase}: LPIPS forward + backward over {cfg.train_batch_size} "
+            f"frames: {lp:.1f} ms (median of 3 after a warm-up; CUDA "
+            f"events), {lp / 1e3 / statistics.median(f32_steps):.3f} of the "
+            f"f32 step's median host seconds [{smi}]")
+        del x, y
+        stage1_model = model.eval()
+        gc.collect()
+        torch.cuda.empty_cache()
+        model16, _, bf16_steps, bf16_peak = train_stage1(
+            cfg.copy(use_bf16=True), dev, os.path.join(tmp, "bf16"), smi,
+            f"{phase} (bf16)")
+        del model16
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{phase}: VQ-VAE step seconds (host clock) f32 " +
+            " ".join(f"{s:.3f}" for s in f32_steps) + ", bf16 " +
+            " ".join(f"{s:.3f}" for s in bf16_steps) + f"; peak memory "
+            f"f32 {f32_peak:.2f} GiB, bf16 {bf16_peak:.2f} GiB [{smi}]")
+
+        # ---- stage 2: the flagship on the port's own stage-1 checkpoint
+        scfg = configs.SAViLDMMoviE128()
+        vae = dict(scfg.dec_dict["vae_dict"], vqvae_ckp_path=ckpt)
+        scfg = scfg.copy(dec_dict=dict(scfg.dec_dict, vae_dict=vae))
+        flagship = build_model(scfg, device=dev)
+        init_random_(flagship, torch.Generator().manual_seed(0))
+        if not graft_pretrained(flagship, scfg):
+            raise SystemExit(f"{phase}: nothing grafted")
+        got = flagship.dm_decoder.vae.vqvae.state_dict()
+        differ = [k for k, v in stage1_model.state_dict().items()
+                  if not torch.equal(got[k], v)]
+        z = torch.randn(2, *scfg.dec_dict["resolution"], 3, generator=gen,
+                        device=dev)
+        with torch.no_grad():
+            same = torch.equal(flagship.dm_decoder.vae.decode(
+                z, quantize=False), stage1_model.decode(z))
+        log(f"{phase}: grafted {ckpt.removeprefix(tmp)} into the flagship: "
+            f"{len(got)} tensors, {len(differ)} differ; its VQ-VAE decodes "
+            f"a latent {'bit-identically to' if same else 'UNLIKE'} the "
+            "stage-1 model")
+        if differ or not same:
+            raise SystemExit(f"{phase}: the grafted VQ-VAE is not the "
+                             f"stage-1 model ({differ[:5]})")
+        del stage1_model, model
+        per_surface, _, _ = serve(scfg, flagship, serving_inputs(scfg, dev),
+                                  f"{phase} (stage 2)")
+        per_path["stage2_serving"] = {
+            k: sum(c[k] for c in per_surface.values())
+            for k in ops.launch_counts()}
+        tcfg = scfg.copy(print_iter=1)
+        data = SyntheticVideoData(tcfg, STAGE2_CLIPS,
+                                  num_samples=STAGE2_CLIPS, seed=0)
+        trainer = build_method(flagship, data, tcfg)
+        flagship.train()
+        batch = next(iter(data.train_loader(0)))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        per_path["stage2_training"] = counts = ops.launch_counts()
+        log(f"{phase} (stage 2): one training step at {STAGE2_CLIPS} clips: "
+            f"denoise_loss {metrics['train/denoise_loss']:.5f}, "
+            f"{metrics['step_seconds']:.3f} s; launches {counts}")
+        if not math.isfinite(metrics["train/denoise_loss"]):
+            raise SystemExit(f"{phase}: stage 2's loss is not finite")
+        check_launches(counts, f"{phase} (stage 2): a training step", False)
+        del trainer, flagship
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_path
+
+
 def main():
     import gc
 
@@ -1782,7 +2051,10 @@ def main():
             f"step's forward {bf16_train[name]['ms']:.4f} ms (f32, phase 5:"
             f" {train_results[name.removesuffix('_bf16')]['ms']:.4f} ms)")
 
-    # ---- 9. report ------------------------------------------------------
+    # ---- 9. stage 1, and the flagship on its checkpoint ----------------
+    per_path.update(stage1(smi, dev, gen))
+
+    # ---- 10. report -----------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():

@@ -6,8 +6,14 @@ read: {"model": state_dict, "config": name, "source": path, "ema": bool}.
 
     # the repo's trained SAViDiffusion, with the EMA of dm_decoder
     python scripts/export_torch_checkpoint.py
-    # its frozen stage-1 VQ-VAE alone (for train_torch.py --vqvae_ckp_path)
+    # a stand-alone stage-1 VQ-VAE run (default: vqvae_synthetic_params-
+    # res64's ckpt_last), for the port's VQVAE configs and for
+    # train_torch.py --vqvae_ckp_path
     python scripts/export_torch_checkpoint.py --vqvae
+    python scripts/export_torch_checkpoint.py --vqvae \
+        --params configs/vqvae_synthetic_lpips-res64.py \
+        --weight checkpoint/vqvae_synthetic_lpips-res64/ckpt_final \
+        --out checkpoint/torch_vqvae_synthetic_lpips-res64/vqvae.pt
 
 This script imports JAX and orbax, so it runs where the JAX package runs,
 not on the card machine. The outputs go under `checkpoint/torch_*/`
@@ -29,23 +35,28 @@ DEFAULTS = {
            "checkpoint/vqvae_synthetic_params-res64/ckpt_last",
            "checkpoint/torch_vqvae_synthetic_params-res64/vqvae.pt"),
 }
+# the port's config of each JAX VQ-VAE config file
+VQVAE_CONFIGS = {"vqvae_synthetic_params-res64": "VQVAESynthetic64",
+                 "vqvae_synthetic_lpips-res64": "VQVAESyntheticLPIPS64"}
 
 
-def export(params_path, weight, out, config="SAViLDMMoviFile64",
-           use_ema=True, vqvae=False):
+def export(params_path, weight, out, config=None, use_ema=True,
+           vqvae=False):
     """Restore `weight` (built by the JAX config `params_path`), convert
-    it and write `out`; -> the written dict."""
+    it and write `out`; -> the written dict. With `vqvae` the checkpoint
+    is a stand-alone VQVAE run (its tree's root is the VQVAE) and
+    `config` is the port's name of that run's config (default: the
+    `VQVAE_CONFIGS` entry of the JAX file, else its file name)."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
-    import torch
 
     from slotdiffusion_tpu.models import build_model
     from slotdiffusion_tpu.training.checkpoint import load_model_params
     from slotdiffusion_tpu.utils import load_params
     from slotdiffusion_tpu_torch import configs
     from slotdiffusion_tpu_torch.convert import (convert_savi_diffusion,
-                                                 convert_vqvae)
+                                                 convert_vqvae_state_dict)
     from slotdiffusion_tpu_torch.training.checkpoint import save_checkpoint
 
     jparams = load_params(params_path)
@@ -53,13 +64,13 @@ def export(params_path, weight, out, config="SAViLDMMoviFile64",
     variables = load_model_params(model, weight, jparams, use_ema=use_ema)
     tree = jax.tree_util.tree_map(np.asarray, variables["params"])
     if vqvae:
-        sd = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in
-              convert_vqvae(tree, jparams.enc_dec_dict).items()}
-        name = os.path.splitext(os.path.basename(params_path))[0]
+        sd = convert_vqvae_state_dict(tree, jparams.enc_dec_dict)
+        stem = os.path.splitext(os.path.basename(params_path))[0]
+        name = config or VQVAE_CONFIGS.get(stem, stem)
         use_ema = False
     else:
-        sd = convert_savi_diffusion(tree, configs.get_config(config))
-        name = config
+        name = config or "SAViLDMMoviFile64"
+        sd = convert_savi_diffusion(tree, configs.get_config(name))
     state = {"model": sd, "config": name, "source": weight,
              "ema": bool(use_ema)}
     save_checkpoint(out, state)
@@ -74,8 +85,10 @@ def main(argv=None):
                         help="the JAX config file the checkpoint trained")
     parser.add_argument("--weight", default="",
                         help="the orbax checkpoint directory")
-    parser.add_argument("--config", default="SAViLDMMoviFile64",
-                        help="the port's config of the model")
+    parser.add_argument("--config", default=None,
+                        help="the port's config of the model (default: "
+                             "SAViLDMMoviFile64, or with --vqvae the "
+                             "port's name of the JAX config)")
     parser.add_argument("--out", default="", help="the .pt to write")
     parser.add_argument("--no_ema", action="store_true",
                         help="keep the raw dm_decoder, not its EMA")

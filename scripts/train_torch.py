@@ -1,15 +1,29 @@
-"""Train the PyTorch port's SAViDiffusion (the counterpart of
-scripts/train.py for `slotdiffusion_tpu_torch`).
+"""Train the PyTorch port's SAViDiffusion or its stage-1 VQ-VAE (the
+counterpart of scripts/train.py for `slotdiffusion_tpu_torch`).
 
-    python scripts/train_torch.py --vqvae_ckp_path vae.pt    # the card
+    # stage 1, then stage 2 on its checkpoint, on the card
+    python scripts/train_torch.py --params VQVAEMoviE128 \
+        --lpips_weights lpips.npz --data_root data/MOVi
+    python scripts/train_torch.py --data_root data/MOVi \
+        --vqvae_ckp_path checkpoint/torch_VQVAEMoviE128/ckpt_last.pt
     python scripts/train_torch.py --params SAViLDMMoviFile64 \
         --data_root data_local/movi_file                     # 64x64 MOVi
     python scripts/train_torch.py --cpu --tiny --max_steps 3 # CPU check
+    python scripts/train_torch.py --cpu --params VQVAESynthetic64 \
+        --max_steps 3                                        # stage 1, CPU
     python scripts/train_torch.py --bf16 ...                 # bf16 compute
 
-`--params` names a port config: the flagship `SAViLDMMoviE128`
-(SAViDiffusion, MOVi-E 128x128, 32 clips a step) or `SAViLDMMoviFile64`
-(the repo's trained 64x64 model). The model starts from the JAX model's
+`--params` names a port config (`slotdiffusion_tpu_torch.configs`): the
+flagship `SAViLDMMoviE128` (SAViDiffusion, MOVi-E 128x128, 32 clips a
+step), its siblings, `SAViLDMMoviFile64` (the repo's trained 64x64
+model), or a stage-1 VQ-VAE: `VQVAEMoviE128` (the flagship's, 64
+frames a step) and its siblings, `VQVAESynthetic64` and
+`VQVAESyntheticLPIPS64` (the repo's trained 64x64 ones). A VQ-VAE's
+`ckpt_last.pt` is a file that a SAViDiffusion run takes as
+`--vqvae_ckp_path` as it is. Its perceptual term is live when LPIPS
+weights are given (`--lpips_weights`, or `SLOTDIFFUSION_LPIPS_WEIGHTS`;
+said on stdout), as in the JAX package. The model starts from the JAX
+model's
 own init (`init_reference_`, seeded; said on stdout) and trains against
 the frozen stage-1 VQ-VAE that `--vqvae_ckp_path` names (a port-format
 checkpoint). Without that path, `SAViLDMMoviFile64` takes the repo's
@@ -18,8 +32,11 @@ it, the flagship refuses to start, and `--tiny` (the flagship's structure
 at narrow widths, 2 clips of 16x16 a step) keeps a random VQ-VAE.
 
 With `--data_root` the clips come from a MOVi-layout tree
-(`scripts/gen_movi_tree.py`), else from the synthetic clips at the
-config's resolution. Validation (losses, FG-ARI, mIoU, mBO) runs every
+(`scripts/gen_movi_tree.py`; the STEVE-MOVi layout for the MOVi-Solid and
+-Tex configs), else from the synthetic clips at the
+config's resolution (a config whose dataset is `synthetic_video` takes
+its own split sizes). Validation (losses; FG-ARI, mIoU, mBO for
+SAViDiffusion) runs every
 `eval_interval` epochs and at the end. Checkpoints and the JSONL log go
 to `--ckp_path` (default `checkpoint/torch_<run>/`, where the run is
 `savi_ldm_movie` for the flagship, `tiny`, or the config's name):
@@ -54,8 +71,9 @@ def main(argv=None):
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (the kernels' plain versions)")
     parser.add_argument("--params", default="SAViLDMMoviE128",
-                        help="a port config: SAViLDMMoviE128 or "
-                             "SAViLDMMoviFile64")
+                        help="a port config, e.g. SAViLDMMoviE128, "
+                             "SAViLDMMoviFile64, VQVAEMoviE128, "
+                             "VQVAESynthetic64")
     parser.add_argument("--tiny", action="store_true",
                         help="the flagship's structure at narrow widths")
     parser.add_argument("--data_root", default="",
@@ -67,6 +85,8 @@ def main(argv=None):
                         help="a ckpt_last.pt to continue from")
     parser.add_argument("--bf16", action="store_true",
                         help="compute in bf16 (f32 master weights)")
+    parser.add_argument("--lpips_weights", default="",
+                        help="a VQ-VAE's LPIPS .npz (ops/lpips.py layout)")
     args = parser.parse_args(argv)
 
     import torch
@@ -76,6 +96,7 @@ def main(argv=None):
     from slotdiffusion_tpu_torch.data.synthetic import SyntheticVideoData
     from slotdiffusion_tpu_torch.methods.build import build_method
     from slotdiffusion_tpu_torch.models import build_model, init_reference_
+    from slotdiffusion_tpu_torch.ops.lpips import lpips_available
 
     if not args.cpu and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --cpu to train on the CPU")
@@ -84,6 +105,19 @@ def main(argv=None):
     cfg = configs.tiny_config() if args.tiny else \
         configs.get_config(args.params)
     cfg = cfg.copy(seed=args.seed, use_bf16=args.bf16 or cfg.use_bf16)
+    stage1 = cfg.model == "VQVAE"
+    if stage1:
+        if args.vqvae_ckp_path:
+            raise SystemExit("a stage-1 VQ-VAE takes no --vqvae_ckp_path")
+        cfg.lpips_weights = args.lpips_weights or cfg.lpips_weights
+        if not cfg.vq_dict.get("percept_loss_w"):
+            percept = "off (the config's percept_loss_w is 0)"
+        elif lpips_available(cfg.lpips_weights):
+            percept = "live"
+        else:
+            percept = ("off: no LPIPS weights (pass --lpips_weights or set "
+                       "SLOTDIFFUSION_LPIPS_WEIGHTS)")
+        print(f"the perceptual (LPIPS) term is {percept}", flush=True)
     vqvae = args.vqvae_ckp_path
     if not vqvae and args.params == "SAViLDMMoviFile64" and not args.tiny:
         if not os.path.isfile(EXPORTED_VQVAE):
@@ -96,10 +130,10 @@ def main(argv=None):
         print(f"the frozen VQ-VAE: {vqvae}", flush=True)
         vae = dict(cfg.dec_dict["vae_dict"], vqvae_ckp_path=vqvae)
         cfg = cfg.copy(dec_dict=dict(cfg.dec_dict, vae_dict=vae))
-    elif not args.tiny:
+    elif not args.tiny and not stage1:
         raise SystemExit("the LDM trains against a frozen stage-1 VQ-VAE: "
                          "pass --vqvae_ckp_path")
-    else:
+    elif not stage1:
         print("the VQ-VAE is random (no --vqvae_ckp_path; the repo's "
               "trained one, for --params SAViLDMMoviFile64, comes from "
               "scripts/export_torch_checkpoint.py --vqvae)", flush=True)
@@ -109,14 +143,18 @@ def main(argv=None):
     print(f"initialized from the JAX model's reference init "
           f"(init_reference_, seed {args.seed})", flush=True)
     if args.data_root:
+        # a MOVi tree, in the STEVE-MOVi layout for the configs that name it
+        layout = "steve_movi" if cfg.dataset == "steve_movi" else "movi"
         data = build_datamodule(cfg.copy(data_root=args.data_root,
-                                         dataset="movi"))
+                                         dataset=layout))
+    elif cfg.dataset == "synthetic_video":
+        data = build_datamodule(cfg)
     else:
         data = SyntheticVideoData(cfg, batch, seed=args.seed,
                                   val_samples=2 * batch)
     ckp_path = args.ckp_path or os.path.join("checkpoint", f"torch_{name}")
     trainer = build_method(model, data, cfg, ckp_path=ckp_path)
-    print(f"training {name} on {device} in "
+    print(f"training {name} ({cfg.model}) on {device} in "
           f"{'bf16' if cfg.use_bf16 else 'f32'}: {len(data)} steps per "
           f"epoch of {batch} clips, checkpoints in {ckp_path}", flush=True)
     trainer.fit(max_steps=args.max_steps if args.max_steps > 0 else None,

@@ -1,6 +1,9 @@
 """Configurations of the port: the flagship SAViDiffusion on MOVi-E,
-128x128 (`SAViLDMMoviE128`), and the repo's trained 64x64 SAViDiffusion
-(`SAViLDMMoviFile64`).
+128x128 (`SAViLDMMoviE128`), its MOVi-D, -Solid and -Tex siblings, the
+repo's trained 64x64 SAViDiffusion (`SAViLDMMoviFile64`), and the
+stage-1 VQ-VAEs: the flagship's (`VQVAEMoviE128`) and its siblings, and
+the repo's two trained 64x64 ones (`VQVAESynthetic64`,
+`VQVAESyntheticLPIPS64`).
 
 An own copy of the settings of the JAX package's `configs_base.py:17-140,
 274-330` and `configs/video_based/savi_ldm/savi_ldm_movie_params-res128.py`
@@ -226,8 +229,132 @@ class SAViLDMMoviFile64(SAViLDMMoviE128):
         conditioning_key="crossattn")
 
 
-CONFIGS = {"SAViLDMMoviE128": SAViLDMMoviE128,
-           "SAViLDMMoviFile64": SAViLDMMoviFile64}
+class SAViLDMMoviD128(SAViLDMMoviE128):
+    """SAViDiffusion on MOVi-D (savi_ldm_movid_params-res128): the
+    flagship on another level."""
+    movi_level = "d"
+
+
+class SAViLDMMoviSolid128(SAViLDMMoviE128):
+    """SAViDiffusion on MOVi-Solid (savi_ldm_movisolid_params-res128): 12
+    slots, the plain CNN encoder (3 -> 64 x 4, 5x5, no norm;
+    configs_base.py:cnn_enc_dict of the JAX package), the STEVE-MOVi data
+    layout."""
+    movi_level = "Solid"
+    dataset = "steve_movi"
+    slot_dict = dict(SAViLDMMoviE128.slot_dict, num_slots=12)
+    enc_dict = dict(enc_channels=(3, 64, 64, 64, 64), enc_ks=5,
+                    enc_out_channels=192, enc_norm="")
+
+
+class SAViLDMMoviTex128(SAViLDMMoviSolid128):
+    """SAViDiffusion on MOVi-Tex (savi_ldm_movitex_params-res128)."""
+    movi_level = "Tex"
+
+
+class VQVAEMoviE128(BaseParams):
+    """The flagship's stage 1: the VQ-VAE on single MOVi-E frames at
+    128x128 (vqvae_movie_params-res128 over VQVAEVideoBase and
+    VQVAEImgBase, configs_base.py:250-268, 369-378 of the JAX package):
+    ch 64, ch_mult (1, 2, 4), 2 res blocks, no attention but the mid
+    one, 4096 codes of 3, L1 + quant + LPIPS losses, Adam at 1e-3 with 5 %
+    warmup and no clipping, 64 frames a step, 50 epochs. Its
+    `ckpt_last.pt` is what a SAViDiffusion run takes as
+    `vqvae_ckp_path`. `lpips_weights` names the LPIPS `.npz` (None: the
+    file `SLOTDIFFUSION_LPIPS_WEIGHTS` names; without one the perceptual
+    term is off, as in the JAX package)."""
+    seed = 0
+    max_epochs = 50
+    save_interval = 0.5
+    eval_interval = 2
+    print_iter = 50
+    lr = 1e-3
+    min_lr = 0.0
+    clip_grad = -1.0
+    warmup_steps_pct = 0.05
+    grad_accum_steps = 1
+    use_ema = False
+    ema_decay = 0.9999
+    train_batch_size = 64
+    val_batch_size = 128
+    recon_loss_w = 1.0
+    quant_loss_w = 1.0
+    percept_loss_w = 1.0
+    use_bf16 = False
+    lpips_weights = None
+    dataset = "movi"
+    movi_level = "e"
+    data_root = "./data/MOVi"
+    n_sample_frames = 1
+    frame_offset = 1
+    video_len = 24
+    load_mask = False
+    num_workers = 8
+    model = "VQVAE"
+    resolution = (128, 128)
+    enc_dec_dict = dict(
+        resolution=128, in_channels=3, z_channels=3, ch=64,
+        ch_mult=[1, 2, 4], num_res_blocks=2, attn_resolutions=[],
+        out_ch=3, dropout=0.0)
+    vq_dict = dict(n_embed=4096, embed_dim=3, percept_loss_w=1.0)
+
+
+class VQVAEMoviD128(VQVAEMoviE128):
+    """vqvae_movid_params-res128."""
+    movi_level = "d"
+
+
+class VQVAEMoviSolid128(VQVAEMoviE128):
+    """vqvae_movisolid_params-res128 (the STEVE-MOVi data layout)."""
+    movi_level = "Solid"
+    dataset = "steve_movi"
+
+
+class VQVAEMoviTex128(VQVAEMoviSolid128):
+    """vqvae_movitex_params-res128."""
+    movi_level = "Tex"
+
+
+class VQVAESynthetic64(VQVAEMoviE128):
+    """The repo's trained stage-1 model: an own copy of the JAX package's
+    `configs/vqvae_synthetic_params-res64.py`, whose checkpoint
+    `checkpoint/vqvae_synthetic_params-res64/ckpt_last` the export script
+    carries into the port (`--vqvae`). Single 64x64 synthetic frames, 128
+    train and 16 val, 16 a step, 2 epochs; ch 32, ch_mult (1, 2), 1 res
+    block, 512 codes of 3, no perceptual term."""
+    max_epochs = 2
+    save_interval = 1.0
+    eval_interval = 1
+    print_iter = 10
+    train_batch_size = 16
+    val_batch_size = 16
+    dataset = "synthetic_video"
+    data_root = ""
+    train_samples = 128
+    val_samples = 16
+    max_objects = 4
+    video_len = 6
+    num_workers = 2
+    resolution = (64, 64)
+    enc_dec_dict = dict(
+        resolution=64, in_channels=3, z_channels=3, ch=32, ch_mult=[1, 2],
+        num_res_blocks=1, attn_resolutions=[], out_ch=3, dropout=0.0)
+    vq_dict = dict(n_embed=512, embed_dim=3, percept_loss_w=0.0)
+
+
+class VQVAESyntheticLPIPS64(VQVAESynthetic64):
+    """`configs/vqvae_synthetic_lpips-res64.py`: the same with the LPIPS
+    term live (trained on `save_random_lpips_npz(seed=0)` weights; its
+    checkpoint is `checkpoint/vqvae_synthetic_lpips-res64/ckpt_final`)."""
+    vq_dict = dict(n_embed=512, embed_dim=3, percept_loss_w=1.0)
+    percept_loss_w = 1.0
+
+
+CONFIGS = {c.__name__: c for c in (
+    SAViLDMMoviE128, SAViLDMMoviFile64, SAViLDMMoviD128,
+    SAViLDMMoviSolid128, SAViLDMMoviTex128, VQVAEMoviE128, VQVAEMoviD128,
+    VQVAEMoviSolid128, VQVAEMoviTex128, VQVAESynthetic64,
+    VQVAESyntheticLPIPS64)}
 
 
 def get_config(name):

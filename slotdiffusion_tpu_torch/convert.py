@@ -250,29 +250,45 @@ def _vq_attnblock(out, p, sub):
 
 
 def convert_vqvae(params, enc_dec_dict):
-    """flax VQVAE params -> port VQVAE names (upstream layout)."""
+    """flax VQVAE params -> port VQVAE names (upstream layout). `params`
+    is the tree of a bare VQVAE (a stage-1 run's `params`) or the
+    `dm_decoder/vae/vqvae` subtree of an LDM; the mid attention exists
+    unless `attn_type` is "none", a level's attention where its
+    resolution is in `attn_resolutions`."""
     ch_mult = list(enc_dec_dict["ch_mult"])
     nrb = enc_dec_dict["num_res_blocks"]
+    attn = enc_dec_dict.get("attn_type", "vanilla") == "vanilla"
+    attn_res = tuple(enc_dec_dict.get("attn_resolutions", ()))
     out: Dict[str, np.ndarray] = {}
     for side, enc in (("encoder", params["encoder"]),
                       ("decoder", params["decoder"])):
         _conv(out, f"{side}.conv_in", enc["conv_in"])
         _vq_resblock(out, f"{side}.mid.block_1", enc["mid_res1"])
-        _vq_attnblock(out, f"{side}.mid.attn_1", enc["mid_attn"])
+        if attn:
+            _vq_attnblock(out, f"{side}.mid.attn_1", enc["mid_attn"])
         _vq_resblock(out, f"{side}.mid.block_2", enc["mid_res2"])
         _norm(out, f"{side}.norm_out", enc["norm_out"])
         _conv(out, f"{side}.conv_out", enc["conv_out"])
     enc, dec = params["encoder"], params["decoder"]
+    res = enc_dec_dict.get("resolution", 128)
     for level in range(len(ch_mult)):
+        # the encoder's resolution at this level is the decoder's too
+        level_attn = attn and res // 2 ** level in attn_res
         for i in range(nrb):
             _vq_resblock(out, f"encoder.down.{level}.block.{i}",
                          enc[f"down{level}_res{i}"])
+            if level_attn:
+                _vq_attnblock(out, f"encoder.down.{level}.attn.{i}",
+                              enc[f"down{level}_attn{i}"])
         if level != len(ch_mult) - 1:
             _conv(out, f"encoder.down.{level}.downsample.conv",
                   enc[f"down{level}_ds"])
         for i in range(nrb + 1):
             _vq_resblock(out, f"decoder.up.{level}.block.{i}",
                          dec[f"up{level}_res{i}"])
+            if level_attn:
+                _vq_attnblock(out, f"decoder.up.{level}.attn.{i}",
+                              dec[f"up{level}_attn{i}"])
         if level != 0:
             _conv(out, f"decoder.up.{level}.upsample.conv",
                   dec[f"up{level}_us"])
@@ -280,6 +296,19 @@ def convert_vqvae(params, enc_dec_dict):
     _conv(out, "quant_conv", params["quant_conv"])
     _conv(out, "post_quant_conv", params["post_quant_conv"])
     return out
+
+
+def _tensors(out) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in out.items()}
+
+
+def convert_vqvae_state_dict(params, enc_dec_dict) -> Dict[str,
+                                                           torch.Tensor]:
+    """A bare JAX VQVAE's params -> the port VQVAE's state_dict (f32
+    tensors), which `build_model` of a "VQVAE" config loads strictly and
+    `graft_pretrained` takes as it is."""
+    return _tensors(convert_vqvae(params, enc_dec_dict))
 
 
 def convert_savi_diffusion(params, cfg) -> Dict[str, torch.Tensor]:
@@ -307,5 +336,4 @@ def convert_savi_diffusion(params, cfg) -> Dict[str, torch.Tensor]:
         put("dm_decoder.vae.vqvae", convert_vqvae(
             params["dm_decoder"]["vae"]["vqvae"],
             cfg.dec_dict["vae_dict"]["enc_dec_dict"]))
-    return {k: torch.from_numpy(np.array(v, np.float32))
-            for k, v in out.items()}
+    return _tensors(out)

@@ -1,7 +1,8 @@
 """Data of the port (the counterpart of the JAX package's data/builders.py
-:11-157 for `dataset="movi"` and `"synthetic_video"`): `build_dataset`
-returns the datasets a config names, `build_datamodule` batches them
-with `loader.DataModule`. The other datasets are not ported yet."""
+:11-157 for `dataset="movi"`, `"steve_movi"` and `"synthetic_video"`):
+`build_dataset` returns the datasets a config names, `build_datamodule`
+batches them with `loader.DataModule`. The other datasets are not ported
+yet."""
 
 
 def build_dataset(params, val_only=False):
@@ -9,9 +10,12 @@ def build_dataset(params, val_only=False):
     name = params.dataset
     if name == "synthetic_video":
         from .synthetic import synthetic_video_splits
-        train, val = synthetic_video_splits(params)
+        # the JAX builder's sizes and defaults (data/builders.py:29-43)
+        train, val = synthetic_video_splits(
+            params, getattr(params, "train_samples", 256),
+            getattr(params, "val_samples", 32))
         return val if val_only else (train, val)
-    if name == "movi":
+    if name in ("movi", "steve_movi"):
         from .movi import build_movi_dataset
         return build_movi_dataset(params, val_only=val_only)
     raise ValueError(f"dataset {name!r} is not ported yet")

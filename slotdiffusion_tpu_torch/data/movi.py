@@ -1,7 +1,11 @@
 """MOVi video datasets (an own copy of the JAX package's data/movi.py:
-33-205, the MOVi layout): frame-folder videos
+33-205): frame-folder videos
 `{data_root}/MOVi-{L}/{split}/{video}/{frame:06d}.jpg` with grayscale id
-masks `{frame:06d}_mask.png`.
+masks `{frame:06d}_mask.png`, or, in the STEVE-MOVi layout of MOVi-Solid
+and -Tex (`dataset="steve_movi"`), `{frame:08d}_image.png` with 10
+per-object binary masks `{frame:08d}_mask_{k:02d}.png`, merged by argmax
+over a background at id 0, and no validation split (the test split
+stands in).
 
 Clips per split: train, every valid start index; validation, strided
 non-overlapping clips; test, one clip a video. Each sample is
@@ -10,7 +14,7 @@ consecutive (with `load_mask`), "data_idx"}; `load_video` switches to
 whole videos. A split's folder list is cached (as JSON) under
 `SLOTDIFFUSION_CACHE`, by default `.cache/slotdiffusion_tpu_torch/` in the
 repo. A frame that cannot be read raises `SampleError`, so the loader
-tries another clip. The STEVE-MOVi layout is not ported yet.
+tries another clip.
 """
 
 import hashlib
@@ -33,14 +37,24 @@ def _cache_dir():
 
 
 class MOViDataset(Dataset):
+    # per-object binary masks a frame in the STEVE-MOVi layout
+    NUM_STEVE_MASKS = 10
+
     def __init__(self, level, data_root, resolution, split="train",
                  n_sample_frames=6, frame_offset=1, video_len=24,
-                 load_mask=False):
+                 load_mask=False, layout="movi"):
+        if layout not in ("movi", "steve_movi"):
+            raise ValueError(f"unknown MOVi layout {layout!r}")
         if split == "val":
             split = "validation"
+        if layout == "steve_movi" and split == "validation":
+            split = "test"
         if split not in ("train", "validation", "test"):
             raise ValueError(f"unknown MOVi split {split!r}")
-        self.level = level.upper()
+        # MOVi levels are letters (D, E), STEVE-MOVi's words (Solid, Tex)
+        self.level = level.upper() if layout == "movi" else \
+            level.capitalize()
+        self.layout = layout
         self.split = split
         self.data_root = osp.join(data_root, f"MOVi-{self.level}", split)
         self.transforms = BaseTransforms(resolution)
@@ -54,7 +68,8 @@ class MOViDataset(Dataset):
     def _index_clips(self):
         tag = hashlib.md5(osp.abspath(self.data_root).encode()).hexdigest()
         cache = osp.join(_cache_dir(), "splits", "MOVi",
-                         f"{self.level}-movi-{tag[:8]}", f"{self.split}.json")
+                         f"{self.level}-{self.layout}-{tag[:8]}",
+                         f"{self.split}.json")
         if osp.isfile(cache):
             self.files = load_obj(cache)
         else:
@@ -79,9 +94,25 @@ class MOViDataset(Dataset):
                               for i in range(self.frame_offset)]
         return valid
 
-    def _read_mask(self, path):
+    def _frame_path(self, folder, i):
+        if self.layout == "movi":
+            return osp.join(folder, f"{i:06d}.jpg")
+        return osp.join(folder, f"{i:08d}_image.png")
+
+    def _read_mask(self, folder, i):
         """One frame's id mask at the dataset's resolution: grayscale PNGs
-        natively, RGB-coded ids (flattened to ints) through PIL."""
+        natively, RGB-coded ids (flattened to ints) through PIL; in the
+        STEVE-MOVi layout the argmax of the 10 binary masks behind an
+        all-ones background."""
+        if self.layout == "steve_movi":
+            from PIL import Image
+            objs = [np.asarray(Image.open(
+                osp.join(folder, f"{i:08d}_mask_{k:02d}.png")).convert("L"))
+                for k in range(self.NUM_STEVE_MASKS)]
+            objs.insert(0, np.ones_like(objs[0]))
+            return self.transforms.process_mask(
+                np.stack(objs).argmax(0).astype(np.int32))
+        path = osp.join(folder, f"{i:06d}_mask.png")
         m = self.transforms.load_mask(path)
         if m is not None:
             return m
@@ -100,10 +131,9 @@ class MOViDataset(Dataset):
             i = start + n * self.frame_offset
             try:
                 frames.append(self.transforms.load_image(
-                    osp.join(folder, f"{i:06d}.jpg")))
+                    self._frame_path(folder, i)))
                 if self.load_mask:
-                    masks.append(self._read_mask(
-                        osp.join(folder, f"{i:06d}_mask.png")))
+                    masks.append(self._read_mask(folder, i))
             except (FileNotFoundError, OSError) as e:
                 raise SampleError(str(e))
         img = np.stack(frames).astype(np.float32)
@@ -134,8 +164,11 @@ class MOViDataset(Dataset):
 
 def build_movi_dataset(params, val_only=False):
     """-> the test split (`val_only`), or (train, validation); the train
-    split loads no masks."""
+    split loads no masks. `params.dataset` "steve_movi" picks the
+    STEVE-MOVi layout."""
     kw = dict(level=params.movi_level, data_root=params.data_root,
+              layout="steve_movi" if params.dataset == "steve_movi"
+              else "movi",
               resolution=params.resolution,
               n_sample_frames=params.n_sample_frames,
               frame_offset=getattr(params, "frame_offset", 1),

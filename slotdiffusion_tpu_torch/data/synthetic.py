@@ -2,8 +2,8 @@
 copy of the JAX package's data/synthetic.py:145-189
 `SyntheticVideoDataset`): squares of random colours drifting with constant
 velocity over a dark background, `img` in [-1, 1] as [T, H, W, 3] and
-the object ids as `masks` [T, H, W], every clip a function of
-(seed, index).
+the object ids as `masks` [T, H, W] (with `load_mask`), every clip a
+function of (seed, index).
 
 `SyntheticVideoData` batches them through `data.loader.DataModule`, in
 the order of the JAX package's loader: a permutation seeded by
@@ -18,13 +18,13 @@ from .loader import DataModule
 
 
 class SyntheticVideoDataset(Dataset):
-    max_objects = 4
-
     def __init__(self, resolution=(64, 64), num_samples=64,
-                 n_sample_frames=3, seed=0):
+                 n_sample_frames=3, max_objects=4, load_mask=True, seed=0):
         self.resolution = tuple(resolution)
         self.num_samples = num_samples
         self.n_frames = n_sample_frames
+        self.max_objects = max_objects
+        self.load_mask = load_mask
         self.seed = seed
 
     def __len__(self):
@@ -52,20 +52,25 @@ class SyntheticVideoDataset(Dataset):
                 mask[sel] = i + 1
             frames.append(np.clip(img, 0, 1))
             masks.append(mask)
-        return {
+        out = {
             "img": (np.stack(frames) * 2.0 - 1.0).astype(np.float32),
             "data_idx": np.int32(idx),
-            "masks": np.stack(masks),
         }
+        if self.load_mask:
+            out["masks"] = np.stack(masks)
+        return out
 
 
 def synthetic_video_splits(params, num_samples=256, val_samples=32,
                            seed=0):
     """The train split (seed `seed`) and, with `val_samples`, the val
     split (seed `seed + 1`, else None) at a config's resolution and clip
-    length. The defaults are the JAX builder's for "synthetic_video"."""
+    length, with its `max_objects` (4) and `load_mask` (True). The
+    defaults are the JAX builder's for "synthetic_video"."""
     kw = dict(resolution=tuple(params.resolution),
-              n_sample_frames=params.n_sample_frames)
+              n_sample_frames=params.n_sample_frames,
+              max_objects=getattr(params, "max_objects", 4),
+              load_mask=getattr(params, "load_mask", True))
     train = SyntheticVideoDataset(num_samples=num_samples, seed=seed, **kw)
     val = SyntheticVideoDataset(num_samples=val_samples, seed=seed + 1,
                                 **kw) if val_samples else None

@@ -1,8 +1,9 @@
 """Trainer configuration per model (mirrors the JAX package's
-methods/build.py:25-131 for SAViDiffusion): the `dm_decoder` LR group at
-`dec_lr`, the run's seed, and the segmentation metrics of each
-validation batch (`seg_metrics_fn`). The COCO/VOC `inst/` and `sem/` dual
-protocol is not ported yet."""
+methods/build.py:25-131 for SAViDiffusion and VQVAE): for SAViDiffusion
+the `dm_decoder` LR group at `dec_lr` and the segmentation metrics of
+each validation batch (`seg_metrics_fn`); for the stage-1 VQVAE one LR
+group and no metrics beyond its losses; the run's seed for both. The
+COCO/VOC `inst/` and `sem/` dual protocol is not ported yet."""
 
 import torch
 
@@ -38,6 +39,9 @@ def seg_metrics_fn(batch, out):
 
 def build_method(model, datamodule, params, ckp_path=None):
     """-> a `Trainer` for `model` as `params` configures it."""
+    if params.model == "VQVAE":
+        return Trainer(model, datamodule, params, ckp_path=ckp_path,
+                       seed=params.seed)
     if params.model != "SAViDiffusion":
         raise ValueError(f"training {params.model!r} is not ported yet")
     lr_groups = {"dm_decoder": params.dec_lr} \

@@ -13,17 +13,26 @@ def compute_dtype_of(params):
 
 
 def build_model(params, device="cuda"):
-    """Instantiate the model named by `params.model` (SAViDiffusion is the
-    only model of this slice) on `device`, in eval mode. Parameters are f32
-    whatever the compute dtype (`compute_dtype_of`), so a bf16 model loads
-    an f32 checkpoint and trains f32 master weights."""
-    from .slot_diffusion import SAViDiffusion
-    if params.model != "SAViDiffusion":
+    """Instantiate the model named by `params.model` (SAViDiffusion, or
+    the stage-1 VQVAE from `params.enc_dec_dict` and `params.vq_dict`)
+    on `device`, in eval mode. Parameters are f32 whatever the compute
+    dtype (`compute_dtype_of`), so a bf16 model loads an f32 checkpoint
+    and trains f32 master weights. A VQVAE reads its LPIPS weights from
+    `params.lpips_weights` when the config sets it (else from
+    `SLOTDIFFUSION_LPIPS_WEIGHTS`, ops/lpips.py)."""
+    dtype = compute_dtype_of(params)
+    if params.model == "VQVAE":
+        from .vqvae import VQVAE
+        model = VQVAE(params.enc_dec_dict, params.vq_dict, dtype,
+                      getattr(params, "lpips_weights", None))
+    elif params.model == "SAViDiffusion":
+        from .slot_diffusion import SAViDiffusion
+        model = SAViDiffusion(
+            resolution=tuple(params.resolution), slot_dict=params.slot_dict,
+            enc_dict=params.enc_dict, dec_dict=params.dec_dict,
+            pred_dict=params.pred_dict, compute_dtype=dtype)
+    else:
         raise ValueError(f"model {params.model!r} is not ported yet")
-    model = SAViDiffusion(
-        resolution=tuple(params.resolution), slot_dict=params.slot_dict,
-        enc_dict=params.enc_dict, dec_dict=params.dec_dict,
-        pred_dict=params.pred_dict, compute_dtype=compute_dtype_of(params))
     return model.to(device).eval()
 
 
@@ -107,13 +116,15 @@ def init_reference_(model, generator):
       (models/unet.py:210, 299, 617);
     - ones: norm scales (models/blocks.py:43-45, flax LayerNorm/GroupNorm);
     - N(0, 1): `init_latents` (models/savi.py:76-78);
-    - U(-1/n, 1/n): the VQ codebook of n entries (models/vqvae.py:206);
+    - U(-1/n, 1/n): the VQ codebook of n entries (models/vqvae.py:206),
+      in SAViDiffusion's frozen VQ-VAE and in a bare stage-1 VQVAE;
     - per-gate orthogonal [D, D] blocks: the GRU's recurrent weight
       (models/slot_attention.py:55-61);
     - `RESNET_CONV` for the GN-ResNet's convs, `CONV_BLOCK` for any other
       conv of the SA encoder (the plain-CNN branch);
     - lecun_normal (`LECUN_NORMAL`) for every other matrix and kernel:
-      dense layers, attention projections, the other convs.
+      dense layers, attention projections, the other convs (every conv
+      of a VQ-VAE).
     The values are drawn in float64 on the CPU and copied in."""
     from .resnet import ResNet
     from .unet import ResBlock, SpatialTransformer, UNetModel
@@ -128,8 +139,9 @@ def init_reference_(model, generator):
                  if isinstance(m, VectorQuantizer)}
     resnet = {id(p) for m in model.modules() if isinstance(m, ResNet)
               for p in m.parameters() if p.dim() == 4}
-    enc_convs = {id(p) for p in model.savi.encoder.parameters()
-                 if p.dim() == 4}
+    savi = getattr(model, "savi", None)  # a bare VQVAE has none
+    enc_convs = set() if savi is None else {
+        id(p) for p in savi.encoder.parameters() if p.dim() == 4}
     for name, p in model.named_parameters():
         if id(p) in zero:
             v = torch.zeros(p.shape)

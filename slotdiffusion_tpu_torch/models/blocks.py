@@ -29,6 +29,15 @@ def add_bias(y, bias, shape=(-1,)):
     return y if bias is None else y + bias.to(y.dtype).reshape(shape)
 
 
+def dropout(x, p, generator):
+    """Inverted dropout at rate `p` with its mask drawn from `generator`:
+    a kept value is x / (1 - p), in x's dtype (flax's `nn.Dropout`)."""
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep / (1.0 - p)
+
+
 def linear(x, weight, bias, compute_dtype):
     """x @ weight^T + bias in `compute_dtype` (flax `nn.Dense(dtype)`): the
     input and the f32 weight cast at use, the bias added after the

@@ -64,6 +64,14 @@ class SAViDiffusion(nn.Module):
         # decoder's config may ask for an EMA of `dm_decoder`
         self.use_ema = bool(dec_dict.get("use_ema", False))
 
+    # the subtree an EMA covers (the JAX `ema_filter_prefix`)
+    ema_prefix = "dm_decoder."
+
+    @property
+    def frozen_modules(self):
+        """What the trainer freezes: the stage-1 VQ-VAE."""
+        return (self.dm_decoder.vae,)
+
     def encode(self, img, prev_slots=None, train=False):
         """img [B, T, H, W, 3] -> slots [B, T, S, D], masks
         [B, T, S, H, W] (at the visual resolution when `train`)."""

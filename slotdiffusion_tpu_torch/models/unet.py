@@ -31,7 +31,7 @@ from torch import nn
 
 from ..ops.attention_kernel import fused_mha
 from .blocks import Conv2d, GroupNorm32, LayerNorm, Linear, add_bias, \
-    timestep_embedding
+    dropout, timestep_embedding
 
 
 def _attention(q, k, v, num_heads, backend="einsum", softmax="fast"):
@@ -169,11 +169,7 @@ class Dropout(nn.Module):
     def forward(self, x, generator=None):
         if not self.training or self.p == 0:
             return x
-        if generator is None:
-            raise ValueError("dropout in train mode needs a torch.Generator")
-        keep = torch.rand(x.shape, generator=generator, device=x.device) \
-            >= self.p
-        return x * keep / (1.0 - self.p)
+        return dropout(x, self.p, generator)
 
 
 def _resample(x, how):

@@ -1,12 +1,20 @@
-"""VQ-VAE first stage of the LDM (mirrors the JAX package's models/vqvae.py:
-54-247, 336-382): taming-style Encoder/Decoder, the L2 nearest-code
-VectorQuantizer and the z-scaled VQVAEWrapper. NCHW inside; the public
-methods take and return NHWC ([B, H, W, C] or [B, T, H, W, C]).
+"""VQ-VAE (mirrors the JAX package's models/vqvae.py:54-382): the
+taming-style Encoder/Decoder, the L2 nearest-code VectorQuantizer with
+the commitment loss and the straight-through estimator, the trainable
+stage-1 `VQVAE` with its losses, and the z-scaled `VQVAEWrapper` the LDM
+holds frozen. NCHW inside; the public methods take and return NHWC
+([B, H, W, C] or video [B, T, H, W, C], T folded into the batch).
 Parameter names follow the upstream VQ-VAE (encoder.down.L.block.i, ...).
 
 Every GroupNorm here has eps 1e-6 and runs the plain formula, as the JAX
 VQ-VAE does (it never enables the fused kernel); the SiLU after it is a
-separate op in the compute dtype, as there.
+separate op in the compute dtype, as there (`_silu`).
+
+Dropout (`enc_dec_dict["dropout"]`) sits in each ResnetBlock between the
+second GN+SiLU and the second conv, as in the JAX block, and runs only
+when a method is called with `train=True` (the JAX `train` flag; the
+frozen wrapper never passes it). Its masks come from the caller's
+`torch.Generator`.
 
 Under a bf16 `compute_dtype` (the JAX VQ-VAE's `dtype`): the blocks
 compute in bf16, the attention's logits and softmax in f32; the encoder's
@@ -19,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import Conv2d, GroupNorm32
+from ..ops import lpips
+from .blocks import Conv2d, GroupNorm32, dropout
 
 _GN_EPS = 1e-6
 
@@ -28,10 +37,22 @@ def _gn(ch):
     return GroupNorm32(ch, eps=_GN_EPS)
 
 
+def _silu(x):
+    """SiLU in x's dtype. Below f32 it rounds where `jax.nn.silu` does,
+    after each of its ops: exp(-x), 1 + e, 1 / (1 + e), x * s (one
+    rounding, as `F.silu` takes, differs from it in ~40 % of bf16
+    values)."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 class ResnetBlock(nn.Module):
-    def __init__(self, in_ch, out_ch, compute_dtype=torch.float32):
+    def __init__(self, in_ch, out_ch, dropout=0.0,
+                 compute_dtype=torch.float32):
         super().__init__()
         dt = dict(compute_dtype=compute_dtype)
+        self.dropout = dropout
         self.norm1 = _gn(in_ch)
         self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1, **dt)
         self.norm2 = _gn(out_ch)
@@ -39,9 +60,12 @@ class ResnetBlock(nn.Module):
         self.nin_shortcut = Conv2d(in_ch, out_ch, 1, **dt) \
             if in_ch != out_ch else None
 
-    def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+    def forward(self, x, train=False, generator=None):
+        h = self.conv1(_silu(self.norm1(x)))
+        h = _silu(self.norm2(h))
+        if train and self.dropout > 0:
+            h = dropout(h, self.dropout, generator)
+        h = self.conv2(h)
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -73,14 +97,19 @@ class AttnBlock(nn.Module):
 
 
 class _Mid(nn.Module):
-    def __init__(self, ch, compute_dtype):
-        super().__init__()
-        self.block_1 = ResnetBlock(ch, ch, compute_dtype)
-        self.attn_1 = AttnBlock(ch, compute_dtype)
-        self.block_2 = ResnetBlock(ch, ch, compute_dtype)
+    """ResnetBlock, attention (with `attn`), ResnetBlock."""
 
-    def forward(self, h):
-        return self.block_2(self.attn_1(self.block_1(h)))
+    def __init__(self, ch, dropout, attn, compute_dtype):
+        super().__init__()
+        self.block_1 = ResnetBlock(ch, ch, dropout, compute_dtype)
+        self.attn_1 = AttnBlock(ch, compute_dtype) if attn else None
+        self.block_2 = ResnetBlock(ch, ch, dropout, compute_dtype)
+
+    def forward(self, h, train, generator):
+        h = self.block_1(h, train, generator)
+        if self.attn_1 is not None:
+            h = self.attn_1(h)
+        return self.block_2(h, train, generator)
 
 
 class _Resample(nn.Module):
@@ -91,115 +120,153 @@ class _Resample(nn.Module):
 
 
 class _Level(nn.Module):
-    def __init__(self, blocks):
+    """One resolution: its ResnetBlocks, each followed by an AttnBlock
+    where the resolution is in `attn_resolutions`."""
+
+    def __init__(self, blocks, attns):
         super().__init__()
         self.block = nn.ModuleList(blocks)
-        self.attn = nn.ModuleList()  # attn_resolutions is empty upstream
+        self.attn = nn.ModuleList(attns)
+
+    def forward(self, h, train, generator):
+        for i, blk in enumerate(self.block):
+            h = blk(h, train, generator)
+            if len(self.attn):
+                h = self.attn[i](h)
+        return h
 
 
-def _check_dict(ed):
-    if ed.get("attn_resolutions") or ed.get("attn_type", "vanilla") != \
-            "vanilla" or ed.get("double_z", False):
-        raise ValueError("only the flagship VQ-VAE layout is ported")
+def _level(n_blocks, cin, cout, with_attn, dropout, compute_dtype):
+    blocks = [ResnetBlock(cin if i == 0 else cout, cout, dropout,
+                          compute_dtype) for i in range(n_blocks)]
+    attns = [AttnBlock(cout, compute_dtype)
+             for _ in range(n_blocks)] if with_attn else []
+    return _Level(blocks, attns)
+
+
+def _attn_of(ed):
+    """Whether the layout has attention: `attn_type` "vanilla" (the
+    default) or "none", as the JAX VQ-VAE reads it."""
+    kind = ed.get("attn_type", "vanilla")
+    if kind not in ("vanilla", "none"):
+        raise ValueError(f"attn_type {kind!r}: 'vanilla' or 'none'")
+    return kind == "vanilla"
 
 
 class Encoder(nn.Module):
+    """conv_in -> per ch_mult level: num_res_blocks ResnetBlocks (each
+    with attention where the resolution is in `attn_resolutions`), a
+    stride-2 conv but at the last -> mid -> GN/SiLU -> conv_out."""
+
     def __init__(self, ch, ch_mult, num_res_blocks, z_channels,
-                 in_channels=3, compute_dtype=torch.float32):
+                 in_channels=3, resolution=128, attn_resolutions=(),
+                 dropout=0.0, attn=True, compute_dtype=torch.float32):
         super().__init__()
         dt = dict(compute_dtype=compute_dtype)
         self.conv_in = Conv2d(in_channels, ch, 3, padding=1, **dt)
         self.down = nn.ModuleList()
-        cin = ch
+        cin, res = ch, resolution
         for level, mult in enumerate(ch_mult):
-            blocks = []
-            for _ in range(num_res_blocks):
-                blocks.append(ResnetBlock(cin, ch * mult, **dt))
-                cin = ch * mult
-            lvl = _Level(blocks)
+            lvl = _level(num_res_blocks, cin, ch * mult,
+                         attn and res in attn_resolutions, dropout,
+                         compute_dtype)
+            cin = ch * mult
             if level != len(ch_mult) - 1:
                 lvl.downsample = _Resample(cin, 2, 0, compute_dtype)
+                res //= 2
             self.down.append(lvl)
-        self.mid = _Mid(cin, compute_dtype)
+        self.mid = _Mid(cin, dropout, attn, compute_dtype)
         self.norm_out = _gn(cin)
         self.conv_out = Conv2d(cin, z_channels, 3, padding=1)  # f32
 
-    def forward(self, x):
+    def forward(self, x, train=False, generator=None):
         h = self.conv_in(x)
         for lvl in self.down:
-            for blk in lvl.block:
-                h = blk(h)
+            h = lvl(h, train, generator)
             if hasattr(lvl, "downsample"):
                 # asymmetric (0, 1) pad, stride-2 conv
                 h = lvl.downsample.conv(F.pad(h, (0, 1, 0, 1)))
-        return self.conv_out(F.silu(self.norm_out(self.mid(h))))
+        h = self.mid(h, train, generator)
+        return self.conv_out(_silu(self.norm_out(h)))
 
 
 class Decoder(nn.Module):
+    """conv_in -> mid -> per level from the deepest: num_res_blocks + 1
+    ResnetBlocks (attention as in the encoder), a nearest x2 upsample and
+    a conv but at level 0 -> GN/SiLU -> conv_out."""
+
     def __init__(self, ch, ch_mult, num_res_blocks, z_channels, out_ch,
-                 compute_dtype=torch.float32):
+                 resolution=128, attn_resolutions=(), dropout=0.0,
+                 attn=True, compute_dtype=torch.float32):
         super().__init__()
         dt = dict(compute_dtype=compute_dtype)
         cin = ch * ch_mult[-1]
         self.conv_in = Conv2d(z_channels, cin, 3, padding=1, **dt)
-        self.mid = _Mid(cin, compute_dtype)
+        self.mid = _Mid(cin, dropout, attn, compute_dtype)
         levels = [None] * len(ch_mult)
+        res = resolution // 2 ** (len(ch_mult) - 1)
         for level in reversed(range(len(ch_mult))):
-            blocks = []
-            for _ in range(num_res_blocks + 1):
-                blocks.append(ResnetBlock(cin, ch * ch_mult[level], **dt))
-                cin = ch * ch_mult[level]
-            lvl = _Level(blocks)
+            lvl = _level(num_res_blocks + 1, cin, ch * ch_mult[level],
+                         attn and res in attn_resolutions, dropout,
+                         compute_dtype)
+            cin = ch * ch_mult[level]
             if level != 0:
                 lvl.upsample = _Resample(cin, 1, 1, compute_dtype)
+                res *= 2
             levels[level] = lvl
         self.up = nn.ModuleList(levels)
         self.norm_out = _gn(cin)
         self.conv_out = Conv2d(cin, out_ch, 3, padding=1)  # f32
 
-    def forward(self, z):
-        h = self.mid(self.conv_in(z))
+    def forward(self, z, train=False, generator=None):
+        h = self.mid(self.conv_in(z), train, generator)
         for lvl in reversed(self.up):
-            for blk in lvl.block:
-                h = blk(h)
+            h = lvl(h, train, generator)
             if hasattr(lvl, "upsample"):
                 h = lvl.upsample.conv(F.interpolate(h, scale_factor=2.0,
                                                     mode="nearest"))
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(_silu(self.norm_out(h)))
 
 
 class VectorQuantizer(nn.Module):
-    """L2 nearest-code lookup as argmax(2 z e^T - |e|^2)."""
+    """L2 nearest-code lookup as argmax(2 z e^T - |e|^2) over channel-last
+    latents [..., e_dim], with the JAX quantizer's loss and gradients."""
 
-    def __init__(self, n_e, e_dim):
+    def __init__(self, n_e, e_dim, beta=0.25):
         super().__init__()
         self.e_dim = e_dim
+        self.beta = beta
         self.embedding = nn.Embedding(n_e, e_dim)
 
-    def quantize_only(self, z):
-        """z [..., e_dim] -> nearest codebook entries, same shape."""
+    def nearest_indices(self, flat):
+        """[P, e_dim] -> [P] indices of the nearest codes (f32 distances)."""
         e = self.embedding.weight
-        flat = z.reshape(-1, self.e_dim).float()
-        scores = 2.0 * (flat @ e.t()) - (e.float() ** 2).sum(-1)[None]
-        return e[scores.argmax(-1)].reshape(z.shape).to(z.dtype)
+        scores = 2.0 * (flat.float() @ e.float().t()) - \
+            (e.float() ** 2).sum(-1)[None]
+        return scores.argmax(-1)
 
+    def forward(self, z):
+        """z [..., e_dim] -> (z_q [..., e_dim] in z's dtype, the commitment
+        loss, indices [...]). The loss takes the legacy `beta` placement,
+        mean((sg(z_q) - z)^2) + beta * mean((z_q - sg(z))^2); z_q is the
+        straight-through z + sg(z_q - z), so z's gradient passes through."""
+        zf = z.float()
+        idx = self.nearest_indices(zf.reshape(-1, self.e_dim))
+        z_q = self.embedding.weight[idx].reshape(z.shape)
+        loss = torch.mean((z_q.detach() - zf) ** 2) + \
+            self.beta * torch.mean((z_q - zf.detach()) ** 2)
+        z_q = zf + (z_q - zf).detach()
+        return z_q.to(z.dtype), loss, idx.reshape(z.shape[:-1])
 
-class VQVAE(nn.Module):
-    def __init__(self, enc_dec_dict, vq_dict, compute_dtype=torch.float32):
-        super().__init__()
-        ed = enc_dec_dict
-        _check_dict(ed)
-        mult = tuple(ed["ch_mult"])
-        self.encoder = Encoder(ed["ch"], mult, ed["num_res_blocks"],
-                               ed["z_channels"], ed.get("in_channels", 3),
-                               compute_dtype)
-        self.decoder = Decoder(ed["ch"], mult, ed["num_res_blocks"],
-                               ed["z_channels"], ed["out_ch"], compute_dtype)
-        self.quantize = VectorQuantizer(vq_dict["n_embed"],
-                                        vq_dict["embed_dim"])
-        self.quant_conv = nn.Conv2d(ed["z_channels"], vq_dict["embed_dim"], 1)
-        self.post_quant_conv = nn.Conv2d(vq_dict["embed_dim"],
-                                         ed["z_channels"], 1)
+    def quantize_only(self, z):
+        """z [..., e_dim] -> nearest codebook entries, same shape (values
+        only: the LDM's `vq_denoised` correction)."""
+        idx = self.nearest_indices(z.reshape(-1, self.e_dim))
+        return self.embedding.weight[idx].reshape(z.shape).to(z.dtype)
+
+    def codebook_entry(self, indices):
+        """indices [...] -> codebook entries [..., e_dim]."""
+        return self.embedding.weight[indices]
 
 
 def _flat(x):
@@ -221,6 +288,91 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+class VQVAE(nn.Module):
+    """The stage-1 VQ-VAE with the JAX model's API: `encode`,
+    `encode_quantize`, `quantize_decode`, `decode`, `forward` and
+    `compute_losses`, each on NHWC images or videos. `train=True` runs
+    dropout with masks from `generator`. `lpips_weights` names the LPIPS
+    `.npz` of the perceptual term (default: `SLOTDIFFUSION_LPIPS_WEIGHTS`,
+    `ops/lpips.py`)."""
+
+    # the Trainer's contract: nothing frozen, no EMA asked for by the
+    # model; a run's `use_ema` covers every parameter, as the JAX trainer's
+    # shadow does for a model without `ema_filter_prefix`
+    use_ema = False
+    ema_prefix = ""
+    frozen_modules = ()
+
+    def __init__(self, enc_dec_dict, vq_dict, compute_dtype=torch.float32,
+                 lpips_weights=None):
+        super().__init__()
+        ed = enc_dec_dict
+        mult = tuple(ed["ch_mult"])
+        kw = dict(resolution=ed.get("resolution", 128),
+                  attn_resolutions=tuple(ed.get("attn_resolutions", ())),
+                  dropout=ed.get("dropout", 0.0), attn=_attn_of(ed),
+                  compute_dtype=compute_dtype)
+        self.encoder = Encoder(ed["ch"], mult, ed["num_res_blocks"],
+                               ed["z_channels"], ed.get("in_channels", 3),
+                               **kw)
+        self.decoder = Decoder(ed["ch"], mult, ed["num_res_blocks"],
+                               ed["z_channels"], ed["out_ch"], **kw)
+        self.quantize = VectorQuantizer(vq_dict["n_embed"],
+                                        vq_dict["embed_dim"],
+                                        vq_dict.get("beta", 0.25))
+        self.quant_conv = nn.Conv2d(ed["z_channels"], vq_dict["embed_dim"], 1)
+        self.post_quant_conv = nn.Conv2d(vq_dict["embed_dim"],
+                                         ed["z_channels"], 1)
+        self.percept_loss_w = float(vq_dict.get("percept_loss_w", 0.0))
+        self.lpips_weights = lpips_weights
+
+    def encode(self, x, train=False, generator=None):
+        """NHWC image(s) -> NHWC continuous latents (before quantizing)."""
+        x, bt = _flat(x)
+        h = self.quant_conv(self.encoder(_nchw(x.float()), train, generator))
+        return _unflat(_nhwc(h), bt)
+
+    def encode_quantize(self, x, train=False, generator=None):
+        """-> (z_q, quant loss, token ids [..., h, w])."""
+        h, bt = _flat(self.encode(x, train, generator))
+        z_q, loss, idx = self.quantize(h)
+        return _unflat(z_q, bt), loss, _unflat(idx, bt)
+
+    def quantize_decode(self, h, train=False, generator=None):
+        h, bt = _flat(h)
+        z_q, _, _ = self.quantize(h)
+        return _unflat(self._decode(z_q, train, generator), bt)
+
+    def decode(self, z_q, train=False, generator=None):
+        z_q, bt = _flat(z_q)
+        return _unflat(self._decode(z_q, train, generator), bt)
+
+    def _decode(self, z_q, train, generator):
+        return _nhwc(self.decoder(self.post_quant_conv(_nchw(z_q)), train,
+                                  generator))
+
+    def forward(self, data_dict, train=False, generator=None):
+        z_q, quant_loss, token_id = self.encode_quantize(
+            data_dict["img"], train, generator)
+        recon = self.decode(z_q, train, generator)
+        return {"recon": recon, "quant_loss": quant_loss,
+                "token_id": token_id, "z_q": z_q}
+
+    def compute_losses(self, data_dict, generator=None, train=True):
+        """-> (out, losses): L1 `recon_loss`, `quant_loss` and, when
+        `vq_dict["percept_loss_w"]` is set and LPIPS weights are present,
+        `percept_loss` (LPIPS per frame, averaged), as the JAX model's."""
+        out = self(data_dict, train, generator)
+        img = data_dict["img"].float()
+        losses = {"recon_loss": torch.mean(torch.abs(out["recon"] - img)),
+                  "quant_loss": out["quant_loss"]}
+        if self.percept_loss_w and lpips.lpips_available(self.lpips_weights):
+            losses["percept_loss"] = lpips.lpips_distance(
+                _flat(out["recon"])[0], _flat(img)[0],
+                self.lpips_weights).mean()
+        return out, losses
+
+
 class VQVAEWrapper(nn.Module):
     """Frozen first stage: latents are divided by `scale_factor` after
     encoding and multiplied back before quantizing or decoding."""
@@ -233,10 +385,7 @@ class VQVAEWrapper(nn.Module):
 
     def encode(self, x):
         """NHWC image(s) -> NHWC continuous latents."""
-        x, bt = _flat(x)
-        v = self.vqvae
-        h = _nhwc(v.quant_conv(v.encoder(_nchw(x.float()))))
-        return _unflat(h / self.scale_factor, bt)
+        return self.vqvae.encode(x) / self.scale_factor
 
     def quantize(self, z):
         """Snap NHWC latents to their nearest codes (scale-aware)."""
@@ -245,9 +394,6 @@ class VQVAEWrapper(nn.Module):
 
     def decode(self, z, quantize=True):
         """NHWC latents -> NHWC images; `quantize=True` snaps first."""
-        z, bt = _flat(z * self.scale_factor)
+        z = z * self.scale_factor
         v = self.vqvae
-        if quantize:
-            z = v.quantize.quantize_only(z)
-        x = v.decoder(v.post_quant_conv(_nchw(z)))
-        return _unflat(_nhwc(x), bt)
+        return v.decode(v.quantize.quantize_only(z) if quantize else z)

@@ -5,8 +5,9 @@ training/ema.py:26-70, the upstream LitEma):
     decay  = min(decay, (1 + n) / (10 + n))
     shadow = shadow - (1 - decay) * (shadow - param)
 
-once per optimizer step. The shadow covers the parameters of the model's
-`dm_decoder` (the only subtree the JAX trainer swaps in at eval);
+once per optimizer step. The shadow covers the parameters whose names
+start with `prefix`: by default the model's `dm_decoder` (the subtree
+the JAX trainer swaps in at eval for SAViDiffusion), "" for all of them;
 `swapped` puts the shadow in place of those parameters for the duration
 of a `with` block.
 """
@@ -20,15 +21,16 @@ PREFIX = "dm_decoder."
 
 
 class ExponentialMovingAverage:
-    def __init__(self, model, decay):
+    def __init__(self, model, decay, prefix=PREFIX):
         self.decay = decay
+        self.prefix = prefix
         self.num_updates = 0
         self.shadow = {n: p.detach().clone()
                        for n, p in self._tracked(model)}
 
     def _tracked(self, model):
         return [(n, p) for n, p in model.named_parameters()
-                if n.startswith(PREFIX)]
+                if n.startswith(self.prefix)]
 
     @torch.no_grad()
     def update(self, model):

@@ -1,5 +1,6 @@
 """The training loop of the port (mirrors the JAX package's
-training/trainer.py:118-338, 548-606, one process, one card).
+training/trainer.py:118-338, 548-606, one process, one card), for a
+SAViDiffusion or a stage-1 VQVAE.
 
 One step: the model's `compute_losses` on a batch, the weighted total of
 its `*_loss` entries (`{k}_w` weights from the config, 1.0 by default),
@@ -9,7 +10,8 @@ EMA tick after each update. One seeded `torch.Generator` on the model's
 device draws every diffusion timestep, noise and dropout mask of the run;
 its state goes into each checkpoint with the model, the optimizer, the
 EMA and the step, so a resumed run continues the same sequence (bit for
-bit on the CPU). The frozen VQ-VAE (`dm_decoder.vae`) takes no gradient
+bit on the CPU). What the model declares frozen (`frozen_modules`:
+SAViDiffusion's `dm_decoder.vae`, nothing of a VQVAE) takes no gradient
 and no update. Metrics go to stdout and `<ckp_path>/train_log.jsonl`.
 
 Under `use_bf16` the model computes in bf16 while its parameters, and
@@ -18,11 +20,12 @@ state, stay f32: the master weights of mixed precision.
 
 `validate` runs every `eval_interval` epochs and at the end of `fit`:
 each val batch's `compute_losses` in eval mode with the live parameters
-and, with an EMA, again with the EMA swapped into `dm_decoder`
-(`denoise_loss_ema`), both from one generator seeded from (seed + 1,
-step, batch index); then the host metrics (FG-ARI, mIoU, ...) of its
-outputs. The means are weighted by batch size and logged with the `val/`
-prefix.
+and, with an EMA, again with the EMA swapped in (`denoise_loss_ema`),
+both from one generator seeded from (seed + 1, step, batch index); then
+the host metrics (FG-ARI, mIoU, ...) of its outputs, where the method
+gives a function for them (a VQVAE: losses only, as in the JAX
+trainer). The means are weighted by batch size and logged with the
+`val/` prefix.
 """
 
 import json
@@ -57,7 +60,7 @@ class JSONLLogger:
 
 
 class Trainer:
-    """Trains `model` (a built SAViDiffusion on its device) on
+    """Trains `model` (a built SAViDiffusion or VQVAE on its device) on
     `datamodule` (a `data.loader.DataModule`) with the settings of
     `params`, and validates it on the datamodule's val loader (if any)
     with `host_metrics_fn(batch, out) -> {name: float}`. `step` counts
@@ -70,7 +73,8 @@ class Trainer:
         self.ckp_path = ckp_path
         self.device = next(model.parameters()).device
         graft_pretrained(model, params)
-        model.dm_decoder.vae.requires_grad_(False)
+        for module in model.frozen_modules:
+            module.requires_grad_(False)
         self.steps_per_epoch = len(datamodule)
         self.max_epochs = params.max_epochs
         k = max(int(params.grad_accum_steps), 1)
@@ -82,10 +86,11 @@ class Trainer:
             grad_accum_steps=k, lr_groups=lr_groups)
         # either switch turns the EMA on, as in the JAX trainer
         # (training/trainer.py:181-182): the model's (dec_dict["use_ema"])
-        # or the run's (params.use_ema)
+        # or the run's (params.use_ema); it covers the model's
+        # `ema_prefix` subtree (the JAX `ema_filter_prefix`)
         use_ema = model.use_ema or params.use_ema
-        self.ema = ExponentialMovingAverage(model, params.ema_decay) \
-            if use_ema else None
+        self.ema = ExponentialMovingAverage(
+            model, params.ema_decay, model.ema_prefix) if use_ema else None
         self.seed = int(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
@@ -167,7 +172,7 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch, batch_idx):
         """`compute_losses` on one val batch with the live parameters and,
-        with an EMA, with the EMA in `dm_decoder` (`*_ema`), both from the
+        with an EMA, with the EMA swapped in (`*_ema`), both from the
         same draws; the live parameters are restored exactly. Call it in
         eval mode. -> (outputs of the live pass, {loss: float})."""
         data = {"img": batch["img"].to(self.device, non_blocking=True)}
