@@ -117,7 +117,22 @@ Phases (one flushed line each, with elapsed seconds):
      bit-identically), which serves phase 4's requests and takes one
      training step at 4 clips, each with the counts set to 0 before and
      read after and all three model kernels launched;
- 10. one JSON line listing every kernel (times per serving request;
+ 10. every sampler of the diffusion decoder at full width through
+     `log_images` of 2 videos x 6 frames (random weights, seed 0), each
+     with the launch counts set to 0 before and read after (61 GN and
+     32 attention a UNet call through the model dtype's entries, 6 slot
+     attention): DPM-Solver++ multistep, singlestep_fixed and adaptive
+     (order 3), noise prediction, taylor and logSNR (20 steps), DDIM (200
+     steps) and the ancestral chain (1000) in f32; multistep and DDIM in
+     bf16; DPM (dynamic thresholding) and DDIM (clamp) of the flagship
+     UNet over 48x48 pixels, and its refusal (a raise) over 64x64, where
+     its GN groups exceed the kernel's. Each line: UNet calls, wall
+     seconds, CUDA-event ms, the kernel path against a plain-path twin
+     from the same x_T and noises (final VQ codes that agree, frame
+     differences; a run outside its gate is repeated from an x_T one
+     rounding away to tell a chaotic chain), and up to 20 of its UNet
+     calls replayed on their recorded inputs through the plain versions;
+ 11. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
      `res64_*`: slot attention at the 64x64 model's shape; the bf16 entry
      points of GN and attention as entries of their own, `"entry"` and
@@ -231,6 +246,61 @@ SEG_METRIC_TOL = 2e-3
 STAGE1_STEPS = 3
 STAGE1_CPU_FRAMES = 4
 STAGE2_CLIPS = 4
+# 10: every sampler of the decoder through `log_images` (2 videos x the
+# clip's frames): (name, model, `log_images` keywords, frames of the
+# plain-path twin or None for all 12). "f32" and "bf16" are the flagship
+# (latent), "pixel" its UNet over 64x64 pixels with no VQ-VAE. Two twins
+# are cut to the first frame of each video: ancestral's 1000 steps and the
+# pixel decoder's DDIM (the widths and steps never are)
+DPM = dict(use_dpm=True, steps=20, order=3)
+SAMPLER_RUNS = (
+    ("dpm++ multistep", "f32", dict(DPM, method="multistep"), None),
+    ("dpm++ singlestep_fixed", "f32", dict(DPM, method="singlestep_fixed"),
+     None),
+    ("dpm++ adaptive", "f32", dict(use_dpm=True, order=3,
+                                   method="adaptive"), None),
+    ("dpmsolver (noise prediction)", "f32",
+     dict(DPM, algorithm_type="dpmsolver"), None),
+    ("dpm++ taylor", "f32", dict(DPM, solver_type="taylor"), None),
+    ("dpm++ logSNR", "f32", dict(DPM, skip_type="logSNR"), None),
+    ("ddim", "f32", dict(use_dpm=False, use_ddim=True), None),
+    ("ancestral", "f32", dict(use_dpm=False), 2),
+    ("dpm++ multistep", "bf16", dict(DPM, method="multistep"), None),
+    ("ddim", "bf16", dict(use_dpm=False, use_ddim=True), None),
+    ("dpm++ (dynamic thresholding)", "pixel", dict(use_dpm=True), None),
+    ("ddim (clamp)", "pixel", dict(use_dpm=False, use_ddim=True), 2),
+)
+# 10: kernel path vs plain-path twin, the same x_T and per-step noises
+# (same_noise: one draw a step, whatever the batch). Latent decoders: the
+# share of latent positions whose final VQ code agrees must reach
+# CODE_AGREE (quantize-as-denoise at every model call: a rounding that
+# moves x0 across a code boundary moves the chain there), and frames
+# whose codes all agree decode within SAME_CODE_TOL of the frame scale
+# (the same plain VQ decode, batched otherwise). Pixel decoder: frames
+# within PIXEL_TOL of the frame scale. The values are the predictions
+# written in PERF.md before the phase first ran. That run showed
+# a chain whose update reads the model's eps directly (DDIM) losing every
+# code over 200 steps at these random weights, so a run outside its gate
+# is run once more through the kernels from an x_T moved by CONTROL_EPS
+# (relative): when that control is outside the gate too, the chain itself
+# is chaotic and the end-to-end numbers are reported, not gated; else the
+# run fails. Every run is also held call by call: up to CHECKED_CALLS of
+# its UNet calls, spread over the chain, replayed on their recorded
+# inputs through the plain versions, within PER_CALL_TOL of the output's
+# scale (f32: card vs CPU 2.7e-6 in phase 4; bf16: BF16_PATH_TOL, whose
+# measured value is 2.0e-2)
+CODE_AGREE = {"dpm": 0.99, "ddim": 0.9, "ancestral": 0.9, "bf16": 0.5}
+SAME_CODE_TOL = 1e-4
+PIXEL_TOL = {"dpm": 1e-3, "ddim": 1e-2}
+CONTROL_EPS = 2.0 ** -20
+CHECKED_CALLS = 20
+PER_CALL_TOL = {"f32": 1e-4, "bf16": 5e-2}
+GN_PER_UNET, ATTN_PER_UNET = 61, 32
+# the pixel decoder's side: the GN kernel holds groups of at most 32,768
+# values, and the flagship UNet's largest group is 12 channels (384 after
+# the skip concat, 32 groups) at full resolution: 12 x 48^2 = 27,648
+# fits, 12 x 64^2 = 49,152 does not, and there the wrapper must raise
+PIXEL_SIDE, PIXEL_REFUSED_SIDE = 48, 64
 
 
 def log(msg):
@@ -1142,7 +1212,7 @@ def evaluate(cfg, model, dev, gen, smi, phase):
         t0 = time.time()
         samples = model.log_images(
             {"img": img}, torch.Generator(device=dev).manual_seed(0),
-            same_noise=True)["samples"]
+            use_dpm=True, same_noise=True)["samples"]
         torch.cuda.synchronize()
         rec_s = time.time() - t0
         per_path["test_recon"] = ops.launch_counts()
@@ -1743,6 +1813,249 @@ def stage1(smi, dev, gen, phase="phase 9"):
     return per_path
 
 
+def pixel_config(cfg, side=PIXEL_SIDE):
+    """The flagship with a pixel-space decoder: its UNet over side x side
+    x 3 frames, no VQ-VAE (the JAX `_build_dm_decoder` then builds a
+    CondDDPM), clips of side x side."""
+    dec = {k: v for k, v in cfg.dec_dict.items() if k != "vae_dict"}
+    return cfg.copy(resolution=(side, side),
+                    dec_dict=dict(dec, resolution=(side, side)))
+
+
+@contextlib.contextmanager
+def unet_calls(dm, idx):
+    """Within the block, each call of `dm`'s UNet is counted and its
+    input and output at the frames `idx` recorded (copies on the device,
+    no sync). Yields the list of (x, t, context, out)."""
+    calls = []
+
+    def hook(_, args, out):
+        x, t, ctx = args[:3]
+        calls.append((x[idx].clone(), t[idx].clone(),
+                      None if ctx is None else ctx[idx].clone(),
+                      out[idx].clone()))
+    handle = dm.unet.register_forward_hook(hook)
+    try:
+        yield calls
+    finally:
+        handle.remove()
+
+
+@contextlib.contextmanager
+def sampled_latents(dm, out):
+    """Within the block, every latent the LDM `dm` decodes is appended to
+    `out` (the sampler's final x, before the VQ decode)."""
+    decode = dm.decode_latent
+    dm.decode_latent = lambda z: out.append(z) or decode(z)
+    try:
+        yield
+    finally:
+        del dm.decode_latent
+
+
+def sampler_gate(kind, kw):
+    if kind == "bf16":
+        return CODE_AGREE["bf16"]
+    if kw.get("use_dpm"):
+        return PIXEL_TOL["dpm"] if kind == "pixel" else CODE_AGREE["dpm"]
+    key = "ddim" if kw.get("use_ddim") else "ancestral"
+    return PIXEL_TOL[key] if kind == "pixel" else CODE_AGREE[key]
+
+
+def final_distance(dm, latent, a, b):
+    """Two final samples of the same frames: -> (share of latent
+    positions whose VQ code agrees, [frames] whether all of a frame's
+    codes agree) for an LDM, or (largest difference over the scale of
+    `b`, None) in pixels."""
+    if not latent:
+        return ((a - b).abs().max() / b.abs().max()).item(), None
+    same = (dm.vae.quantize(a) == dm.vae.quantize(b)).all(-1)
+    return same.float().mean().item(), same.flatten(1).all(1)
+
+
+def run_sampler(model, kind, name, kw, twin_frames, video, dev, phase):
+    """One `log_images` of `video` through the kernels with the launch
+    counts set to 0 just before and read just after (61 GN and 32
+    attention a UNet call through the model dtype's entries, 6 slot
+    attention), then the checks against the plain versions of GN and
+    attention: the end-to-end twin (the same sampler over the kernel
+    path's slots at all 12 frames or the first frame of each video, the
+    same generator seed) within `sampler_gate`, or, outside it, a chaotic
+    chain shown by the control (the kernel path from an x_T moved by
+    CONTROL_EPS, outside the gate too); and up to CHECKED_CALLS UNet calls
+    of the chain replayed through the plain versions within PER_CALL_TOL.
+    -> (launch counts, report dict, failure or None)."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.models.diffusion import LDM, noise_like
+    dm = model.dm_decoder
+    latent = isinstance(dm, LDM)
+    B, T = video.shape[:2]
+    idx = list(range(B * T)) if twin_frames is None else \
+        [i * T for i in range(twin_frames)]
+    z = []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.inference_mode(), unet_calls(dm, idx) as calls, \
+            (sampled_latents(dm, z) if latent else contextlib.nullcontext()):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        start.record()
+        out = model.log_images(
+            {"img": video}, torch.Generator(device=dev).manual_seed(5), **kw)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = ops.launch_counts()
+    n_calls = len(calls)
+    bf16 = kind == "bf16"
+    gn, attn = ("gn_silu_bf16", "attention_bf16") if bf16 else \
+        ("gn_silu", "attention")
+    want = {gn: GN_PER_UNET * n_calls, attn: ATTN_PER_UNET * n_calls,
+            "slot_attention": 6}
+    if any(counts[k] != v for k, v in want.items()) or n_calls == 0:
+        raise SystemExit(f"{phase}: {kind} {name}: {n_calls} UNet calls "
+                         f"launched {nonzero(counts)}, not {want}")
+    check_launches(counts, f"{phase}: {kind} {name}", bf16)
+    final = (z[0] if latent else out["samples"].flatten(0, 1))[idx]
+    cond = out["slots"].reshape(B * T, *out["slots"].shape[2:])[idx]
+    frames = out["samples"].flatten(0, 1)[idx].float()
+    # the end-to-end twin through the plain versions
+    with torch.inference_mode(), plain_versions(True):
+        t1 = time.time()
+        twin = dm.generate_imgs(torch.Generator(device=dev).manual_seed(5),
+                                cond=cond, same_noise=True, **kw)
+        torch.cuda.synchronize()
+        twin_wall = time.time() - t1
+        plain = (dm.decode_latent(twin) if latent else twin).float()
+        # the chain call by call: recorded inputs through the plain UNet
+        step = max(1, n_calls // CHECKED_CALLS)
+        per_call = max(((o - dm.unet(x, t, c)).abs().max() / o.abs().max()
+                        ).item() for x, t, c, o in calls[::step])
+    del calls
+    gate = sampler_gate(kind, kw)
+    scale = plain.abs().max().item()
+    err_all = (frames - plain).abs().max().item() / scale
+    with torch.inference_mode():
+        score, whole = final_distance(dm, latent, final, twin)
+    inside = score >= gate if latent else score <= gate
+    report = {"sampler": name, "model": kind, "unet_calls": n_calls,
+              "twin_frames": len(idx), "wall_s": wall,
+              "event_ms": start.elapsed_time(end), "twin_wall_s": twin_wall,
+              "launches": nonzero(counts), "per_call_err": per_call,
+              "frame_err_all": err_all}
+    if latent:
+        same_err = ((frames[whole] - plain[whole]).abs().max().item() /
+                    scale if whole.any() else 0.0)
+        inside = inside and same_err <= SAME_CODE_TOL
+        report.update(code_agree=score, frames_all_codes_equal=int(
+            whole.sum()), same_code_frame_err=same_err)
+        verdict = (f"codes agree at {score:.6f} (gate >= {gate}), "
+                   f"{int(whole.sum())} of {len(idx)} frames with every "
+                   f"code equal, their largest difference {same_err:.2e} "
+                   f"(tol {SAME_CODE_TOL:.0e}), all frames {err_all:.2e} of "
+                   f"the frame scale {scale:.3g}")
+    else:
+        verdict = (f"largest frame difference {score:.2e} of the frame "
+                   f"scale {scale:.3g} (tol {gate:.0e})")
+    chaotic = False
+    if not inside:
+        # the control: the kernel path again from an x_T one rounding away
+        with torch.inference_mode():
+            g = torch.Generator(device=dev).manual_seed(5)
+            x_T = noise_like(g, (len(idx), *dm.resolution, dm.channels),
+                             True, dev) * (1.0 + CONTROL_EPS)
+            again = dm.generate_imgs(g, cond=cond, same_noise=True,
+                                     x_T=x_T, **kw)
+            control, _ = final_distance(dm, latent, again, final)
+        chaotic = control < gate if latent else control > gate
+        report["control"] = control
+        verdict += (f"; outside: the kernel path from x_T x (1 + "
+                    f"{CONTROL_EPS:.1e}) against itself "
+                    f"{'agrees at' if latent else 'differs by'} "
+                    f"{control:.6g}: " + ("a chaotic chain, the end-to-end "
+                                         "numbers are not a gate" if chaotic
+                                         else "a stable chain"))
+    per_tol = PER_CALL_TOL["bf16" if bf16 else "f32"]
+    ok = (inside or chaotic) and per_call <= per_tol and \
+        bool(torch.isfinite(out["samples"]).all())
+    report["ok"] = ok
+    log(f"{phase}: {kind} {name}: {n_calls} UNet calls, {wall:.2f} s wall, "
+        f"{report['event_ms']:.1f} ms CUDA events, twin over {len(idx)} "
+        f"frames {twin_wall:.2f} s; launches {nonzero(counts)}; kernels vs "
+        f"plain: {verdict}; {len(range(0, n_calls, step))} calls replayed "
+        f"through the plain versions: largest difference {per_call:.2e} of "
+        f"the output scale (tol {per_tol:.0e}) {'ok' if ok else 'FAIL'}")
+    return counts, report, None if ok else f"{kind} {name}"
+
+
+def samplers(smi, dev, phase="phase 10"):
+    """Every sampler of the decoder at full flagship width (random
+    weights, seed 0) through `log_images` of 2 videos x 6 frames, each
+    against the plain versions (`run_sampler`): DPM-Solver(++) methods,
+    DDIM, ancestral, two of them in bf16, and the pixel-space decoder.
+    -> {path: launch counts}; raises SystemExit after the last run if any
+    failed."""
+    import gc
+
+    import torch
+    from slotdiffusion_tpu_torch import configs, ops
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    t0 = time.time()
+    base = configs.SAViLDMMoviE128()
+    cfgs = {"f32": base, "bf16": base.copy(use_bf16=True),
+            "pixel": pixel_config(base)}
+    per_path, reports, failed = {}, [], []
+    for kind in ("f32", "bf16", "pixel"):
+        cfg = cfgs[kind]
+        model = build_model(cfg, device=dev)
+        init_random_(model, torch.Generator().manual_seed(0))
+        video = serving_inputs(cfg, dev)[0]
+        log(f"{phase}: {kind} model: {cfg.resolution[0]}x"
+            f"{cfg.resolution[1]} clips, decoder "
+            f"{type(model.dm_decoder).__name__} over "
+            f"{cfg.dec_dict['resolution']} x {model.dm_decoder.channels}, "
+            f"T = {model.dm_decoder.num_timesteps}")
+        total = dict.fromkeys(ops.launch_counts(), 0)
+        for name, k, kw, twin in SAMPLER_RUNS:
+            if k != kind:
+                continue
+            counts, report, fault = run_sampler(model, kind, name, kw, twin,
+                                                video, dev, phase)
+            reports.append(report)
+            failed += [fault] if fault else []
+            total = {n: total[n] + counts[n] for n in total}
+        per_path[f"samplers_{kind}"] = total
+        if kind == "pixel":
+            refused_side = PIXEL_REFUSED_SIDE
+            x = torch.zeros(2, refused_side, refused_side, 3, device=dev)
+            try:
+                with torch.inference_mode():
+                    model.dm_decoder.denoise(
+                        x, torch.zeros(2, device=dev),
+                        torch.zeros(2, *model.savi.init_latents.shape[-2:],
+                                    device=dev))
+                refused = "ran"
+            except ValueError as e:
+                refused = f"raised: {e}"
+            log(f"{phase}: the pixel decoder's UNet over {refused_side}x"
+                f"{refused_side}: the GN kernel {refused}")
+            if refused == "ran":
+                failed.append(f"pixel {refused_side}x{refused_side} ran "
+                              "past the GN kernel's group limit")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"{phase}: {len(reports)} sampler runs in {time.time() - t0:.1f} s "
+        f"on {smi}; launches " + ", ".join(
+            f"{p} {nonzero(c)}" for p, c in per_path.items()))
+    log(f"{phase}: runs " + json.dumps(reports))
+    if failed:
+        raise SystemExit(f"{phase}: the kernel path disagrees with the "
+                         f"plain versions: {failed}")
+    return per_path
+
+
 def main():
     import gc
 
@@ -2054,7 +2367,10 @@ def main():
     # ---- 9. stage 1, and the flagship on its checkpoint ----------------
     per_path.update(stage1(smi, dev, gen))
 
-    # ---- 10. report -----------------------------------------------------
+    # ---- 10. every sampler of the decoder --------------------------------
+    per_path.update(samplers(smi, dev))
+
+    # ---- 11. report -----------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():

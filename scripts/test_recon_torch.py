@@ -62,8 +62,8 @@ def main(argv=None):
         for i, batch in enumerate(loader):
             img = batch["img"].to(device)
             gen = torch.Generator(device=device).manual_seed(i)
-            samples = model.log_images({"img": img}, gen, same_noise=True)[
-                "samples"]
+            samples = model.log_images({"img": img}, gen, use_dpm=True,
+                                       same_noise=True)["samples"]
             x = (samples * 0.5 + 0.5).clamp(0, 1).flatten(0, 1)
             y = (img * 0.5 + 0.5).clamp(0, 1).flatten(0, 1)
             results = {"mse": M.mse_metric(x, y), "psnr": M.psnr_metric(x, y),

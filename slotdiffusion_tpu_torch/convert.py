@@ -326,14 +326,30 @@ def convert_savi_diffusion(params, cfg) -> Dict[str, torch.Tensor]:
         savi["slot_attention"]))
     put("savi.predictor", convert_transformer_predictor(
         savi["predictor"], cfg.pred_dict.get("pred_num_layers", 2)))
-    ud = cfg.dec_dict["unet_dict"]
-    put("dm_decoder.unet", convert_unet(
-        params["dm_decoder"]["unet"], ud["num_res_blocks"],
-        ud["channel_mult"], ud["attention_resolutions"],
-        ud.get("transformer_depth", 1), ud.get("resblock_updown", False),
-        ud.get("conv_resample", True)))
-    if cfg.dec_dict.get("vae_dict"):
-        put("dm_decoder.vae.vqvae", convert_vqvae(
-            params["dm_decoder"]["vae"]["vqvae"],
-            cfg.dec_dict["vae_dict"]["enc_dec_dict"]))
+    put("dm_decoder", convert_diffusion(params["dm_decoder"], cfg.dec_dict))
     return _tensors(out)
+
+
+def convert_diffusion(params, dec_dict) -> Dict[str, np.ndarray]:
+    """flax CondDDPM / DDPM / LDM params -> the port decoder's names: the
+    UNet (under "concat" its conv_in already takes the context's
+    channels), and the VQ-VAE when `dec_dict` has a `vae_dict` (a
+    pixel-space decoder has none)."""
+    ud = dec_dict["unet_dict"]
+    out = {f"unet.{k}": v for k, v in convert_unet(
+        params["unet"], ud["num_res_blocks"], ud["channel_mult"],
+        ud["attention_resolutions"], ud.get("transformer_depth", 1),
+        ud.get("resblock_updown", False),
+        ud.get("conv_resample", True)).items()}
+    if dec_dict.get("vae_dict"):
+        out.update({f"vae.vqvae.{k}": v for k, v in convert_vqvae(
+            params["vae"]["vqvae"],
+            dec_dict["vae_dict"]["enc_dec_dict"]).items()})
+    return out
+
+
+def convert_diffusion_state_dict(params, dec_dict) -> Dict[str,
+                                                           torch.Tensor]:
+    """A bare JAX diffusion decoder's params -> the port decoder's
+    state_dict (f32 tensors), for a strict `load_state_dict`."""
+    return _tensors(convert_diffusion(params, dec_dict))

@@ -1,17 +1,19 @@
 """SAViDiffusion: SAVi with masked slot attention + a slot-conditioned
-LDM over the B*T frames (mirrors the JAX package's models/
+diffusion decoder (an LDM, or a pixel-space CondDDPM when the config has
+no VQ-VAE) over the B*T frames (mirrors the JAX package's models/
 slot_diffusion.py:30-64, 160-245): the encoder, the training loss
 (`compute_losses`) and the slot-conditioned reconstruction
-(`log_images`). `compute_dtype` (bf16 under `use_bf16`) reaches SAVi, the
-UNet and the VQ-VAE, as the JAX model passes its `dtype` down
-(models/slot_diffusion.py:38-61, 97-109 of the JAX package): slots come
-out in it, masks, latents and images in f32."""
+(`log_images`, through any sampler of the decoder). `compute_dtype`
+(bf16 under `use_bf16`) reaches SAVi, the UNet and the VQ-VAE, as the
+JAX model passes its `dtype` down (models/slot_diffusion.py:38-61,
+97-109 of the JAX package): slots come out in it, masks, latents and
+images in f32."""
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .diffusion import LDM
+from .diffusion import LDM, CondDDPM
 from .savi import SAVi
 
 
@@ -25,16 +27,16 @@ def _upsample_masks(masks, vis_res, out_res):
 
 
 def _build_dm_decoder(dec_dict, compute_dtype):
-    """The latent-diffusion decoder; pixel-space decoders are not ported."""
+    """An LDM when `dec_dict` has a `vae_dict`, else a pixel-space
+    CondDDPM."""
     dd = dict(dec_dict)
-    if not dd.get("vae_dict"):
-        raise ValueError("only the latent (VQ-VAE) decoder is ported")
-    return LDM(resolution=tuple(dd["resolution"]),
-               unet_dict=dd["unet_dict"],
-               diffusion_dict=dd.get("diffusion_dict", {}),
-               vae_dict=dd["vae_dict"],
-               conditioning_key=dd.get("conditioning_key", "crossattn"),
-               compute_dtype=compute_dtype)
+    kw = dict(resolution=tuple(dd["resolution"]), unet_dict=dd["unet_dict"],
+              diffusion_dict=dd.get("diffusion_dict", {}),
+              conditioning_key=dd.get("conditioning_key", "crossattn"),
+              compute_dtype=compute_dtype)
+    if dd.get("vae_dict"):
+        return LDM(vae_dict=dd["vae_dict"], **kw)
+    return CondDDPM(**kw)
 
 
 def encode_video(savi, resolution, img, prev_slots=None, train=False):
@@ -69,8 +71,9 @@ class SAViDiffusion(nn.Module):
 
     @property
     def frozen_modules(self):
-        """What the trainer freezes: the stage-1 VQ-VAE."""
-        return (self.dm_decoder.vae,)
+        """What the trainer freezes: the stage-1 VQ-VAE of an LDM."""
+        return (self.dm_decoder.vae,) if isinstance(self.dm_decoder, LDM) \
+            else ()
 
     def encode(self, img, prev_slots=None, train=False):
         """img [B, T, H, W, 3] -> slots [B, T, S, D], masks
@@ -100,15 +103,18 @@ class SAViDiffusion(nn.Module):
         return out, losses
 
     def log_images(self, data_dict, generator=None, use_dpm=True,
-                   same_noise=True, x_T=None):
-        """Slot-conditioned video reconstruction: encode, DPM-Solver++ over
-        the B*T frames (one noise sample shared by default), VQ decode."""
+                   same_noise=True, **kwargs):
+        """Slot-conditioned video reconstruction: encode, sample the B*T
+        frames (DPM-Solver++ and one noise sample shared by default;
+        `kwargs` go to `generate_imgs`: use_ddim, x_T, noise, a sampler's
+        options), then the LDM's VQ decode."""
         out = self(data_dict)
         B, T = data_dict["img"].shape[:2]
         cond = out["slots"].reshape(B * T, self.num_slots, self.slot_size)
         samples = self.dm_decoder.generate_imgs(
             generator, cond=cond, use_dpm=use_dpm, same_noise=same_noise,
-            x_T=x_T)
-        samples = self.dm_decoder.decode_latent(samples)
+            **kwargs)
+        if isinstance(self.dm_decoder, LDM):
+            samples = self.dm_decoder.decode_latent(samples)
         return {"samples": samples.reshape(B, T, *samples.shape[1:]),
                 "masks": out["masks"], "slots": out["slots"]}

@@ -98,9 +98,11 @@ def _net(path, mtime, device):
         return LPIPS({k: data[k] for k in data.files}).to(device)
 
 
-def load_lpips(path=None, device="cpu"):
+def load_lpips(path=None, device="cuda"):
     """The frozen net of the `.npz` at `path` (default: the environment's),
-    on `device`; cached per file (and its modification time) and device."""
+    on `device` (the card unless the caller asks for the CPU, as every
+    entry point of the port); cached per file (and its modification time)
+    and device."""
     p = weights_path(path)
     if not os.path.isfile(p):
         raise FileNotFoundError(

@@ -134,6 +134,9 @@ class _Sample(nn.Module):
     @classmethod
     def of(cls, model):
         dm = model.dm_decoder
+        if not hasattr(dm, "vae"):
+            raise ValueError("the sample surface serves a latent (LDM) "
+                             "decoder; this one samples pixels")
         latent = (*dm.resolution, dm.channels)
         sampler = {"betas": dm.betas.tolist(), "steps": dm.dpm_steps,
                    "order": 3, "model_type": dm.pred_target,

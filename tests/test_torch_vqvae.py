@@ -312,7 +312,7 @@ def test_lpips_matches_jax(lpips_npz, tmp_path):
         np.testing.assert_allclose(t2n(got), want, rtol=1e-5)
     assert lpips.lpips_available() and not lpips.lpips_available(
         str(tmp_path / "absent.npz"))
-    assert not list(lpips.load_lpips(mine).parameters())
+    assert not list(lpips.load_lpips(mine, "cpu").parameters())
     got.sum().backward()
     assert xt.grad.abs().max() > 0
 

@@ -77,11 +77,11 @@ def random_params(shapes, seed=0):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def build_pair(use_pallas=True, seed=0, use_bf16=False):
+def build_pair(use_pallas=True, seed=0, use_bf16=False, cfg=None):
     """-> (cfg, jax model, jax variables, port model on the CPU), both
     holding the same seeded (f32) weights and computing in bf16 under
-    `use_bf16`."""
-    cfg = tiny_config(use_pallas, use_bf16)
+    `use_bf16`; `cfg` replaces the tiny config."""
+    cfg = tiny_config(use_pallas, use_bf16) if cfg is None else cfg
     jmodel = build_jax_model(jax_params_of(cfg))
     rngs = {n: jax.random.PRNGKey(i) for i, n in enumerate(
         ("params", "diffusion", "dropout"))}
