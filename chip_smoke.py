@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`slotdiffusion_tpu_torch`) on one CUDA
 card: build the kernels, hold each against its plain version, serve and
-train the flagship SAViDiffusion at full width, and report.
+train the flagship SAViDiffusion and the image models (SADiffusion, SA)
+at full width, and report.
 
     python3 chip_smoke.py
 
@@ -132,9 +133,37 @@ Phases (one flushed line each, with elapsed seconds):
      differences; a run outside its gate is repeated from an x_T one
      rounding away to tell a chaotic chain), and up to 20 of its UNet
      calls replayed on their recorded inputs through the plain versions;
- 11. one JSON line listing every kernel (times per serving request;
+ 11. the image family at full width (`SALDMCLEVRTex128`: SADiffusion,
+     11 slots x 3 iterations over 32x32 ResNet features, the flagship's
+     LDM; random weights, seed 0): slot attention at the image shape (B =
+     8, N = 1024, S = 11, D = 192, M = 384) against its plain version,
+     timed, its plan and bit-identity, and GN and attention at the image
+     serving shapes; `encode` of 8 images of 128x128, `sample` (20
+     DPM-Solver++ steps, VQ decode) and `denoise`, eagerly and from CUDA
+     graphs (bit for bit, the same launches), each with the counts set to
+     0 before and read after (1 slot attention an `encode`, 61 GN and 32
+     attention a UNet call); one encode and one denoise against the CPU;
+     the three kernels and their gradients at a training step's shapes;
+     `build_method` -> `Trainer.fit(max_steps=3)` on synthetic 128x128
+     images at the config's 64 a step if they fit (else 32, 16): finite
+     losses, every kernel in every step, every trainable parameter
+     outside the VQ-VAE a non-zero gradient and moved; `Trainer.validate`
+     over 2 batches of 16 images with masks through the kernels and the
+     plain versions (phase 6's gates for 11 slots); 3 steps more from
+     `init_reference_` (the training script's init: finite losses, every
+     kernel in every step, the first loss the noise's mean square, as the
+     zero output conv predicts 0); in bf16 one graphed `sample` against
+     the eager one and one training step; then the SA baseline
+     (`SACLEVRTex128`): one encode + reconstruction of the 8 images
+     against the plain path, slot attention's no-mask return against its
+     plain version at that shape and at the training step's, and 3
+     training steps at 64 images (else 32, 16), slot attention in every
+     step; wall seconds and peak memory beside the card's name and power
+     limit;
+ 12. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
-     `res64_*`: slot attention at the 64x64 model's shape; the bf16 entry
+     `res64_*`: slot attention at the 64x64 model's shape; `img_*`: slot
+     attention at the image shape, per image `encode`; the bf16 entry
      points of GN and attention as entries of their own, `"entry"` and
      `"dtype": "bf16"` marking them, with the f32 entry's times beside),
      then the card's name and power limit, then the result line.
@@ -302,6 +331,33 @@ GN_PER_UNET, ATTN_PER_UNET = 61, 32
 # fits, 12 x 64^2 = 49,152 does not, and there the wrapper must raise
 PIXEL_SIDE, PIXEL_REFUSED_SIDE = 48, 64
 
+# 11: the image family. SADiffusion (`SALDMCLEVRTex128`) serves IMG_SERVE
+# images of 128x128; trains IMG_STEPS steps at the first of
+# IMG_TRAIN_BATCHES that fits (the config's 64, then cuts); validates
+# IMG_EVAL_BATCHES batches of IMG_EVAL_BATCH images. SA (`SACLEVRTex128`)
+# trains IMG_STEPS steps the same way. Validation's kernel-vs-plain gates
+# are phase 6's, restated for 11 slots: at random weights a pixel's 11
+# masks sit near 1/11 each, and slot attention's error (TOL, bf16 k/v
+# rounded one ulp apart) can swap two masks within ARGMAX_TIE of each
+# other, as with 15; away from such ties the argmax must agree, and the
+# exact share over all pixels must reach ARGMAX_EXACT
+IMG_SERVE = 8
+IMG_TRAIN_BATCHES = (64, 32, 16)
+IMG_STEPS = 3
+IMG_EVAL_BATCH, IMG_EVAL_BATCHES = 16, 2
+IMG_SLOTS = 11
+# 11: kernel path vs plain path on the card (SA's encode + reconstruction),
+# relative to each output's largest magnitude: slot attention's bf16 k/v
+# may round one ulp apart (TOL), which the GRU and MLP carry to the slots
+# and the decoder to the image, as phase 4's encode (1e-2)
+IMG_PATH_TOL = 1e-2
+# 11: the first training step from `init_reference_`, whose zero UNet
+# output conv predicts eps = 0: its loss is the mean square of the
+# Gaussian noise, 1 in expectation with a standard deviation of
+# sqrt(2 / n), 0.0032 over 64 images' 32x32x3 latents (0.0064 at 16);
+# 0.05 is 8 of those at 16 images
+REF_INIT_LOSS_TOL = 0.05
+
 
 def log(msg):
     print(f"[{time.time() - T0:8.2f}s] {msg}", flush=True)
@@ -361,6 +417,7 @@ def record_shapes(model):
     """Forward-pre hooks on `model`'s kernel modules that count its kernel
     calls by shape; -> ({kernel: {shape key: calls}}, hook handles)."""
     from slotdiffusion_tpu_torch.models.blocks import GroupNorm32
+    from slotdiffusion_tpu_torch.models.slot_attention import SlotAttention
     from slotdiffusion_tpu_torch.models.unet import CrossAttention
     shapes = {name: {} for name in MODEL_KERNELS}
 
@@ -382,12 +439,12 @@ def record_shapes(model):
                                  args[1].shape[1],
                                  mod.project_k.out_features,
                                  mod.mlp[1].out_features,
-                                 mod.num_iterations))
+                                 mod.num_iterations, mod.return_last_attn))
 
     handles = [m.register_forward_pre_hook(fn) for m in model.modules()
                for cls, fn in ((GroupNorm32, gn_hook),
                                (CrossAttention, attn_hook),
-                               (type(model.savi.slot_attention), sa_hook))
+                               (SlotAttention, sa_hook))
                if isinstance(m, cls)]
     return shapes, handles
 
@@ -448,19 +505,21 @@ def kernel_cases(shapes, sa_mod, gen, dev):
                            tf32_ops=3 * 4.0 * Bq * nq * nk * hd))
     p = {key: val.detach().contiguous()
          for key, val in sa_mod.kernel_weights().items()}
-    for (Bs, N, S, D, M, iters), calls in sorted(
+    for (Bs, N, S, D, M, iters, last), calls in sorted(
             shapes["slot_attention"].items()):
         ks = torch.randn(Bs, N, D, generator=gen, device=dev)
         vs = torch.randn(Bs, N, D, generator=gen, device=dev)
         s0 = torch.randn(Bs, S, D, generator=gen, device=dev)
         kw = dict(num_iterations=iters, eps=sa_mod.eps,
-                  return_last_attn=True)
-        nbytes = (2 * Bs * N * D * 2 + 2 * Bs * S * D * 4 + Bs * S * N * 4 +
-                  4 * (D * D + 6 * D * D + 2 * D * M))
+                  return_last_attn=last)
+        # the last iteration's masks are written only when returned
+        nbytes = (2 * Bs * N * D * 2 + 2 * Bs * S * D * 4 +
+                  last * Bs * S * N * 4 + 4 * (D * D + 6 * D * D + 2 * D * M))
         mm = 2.0 * Bs * iters * S
         plan = slot_attention_kernel.launch_plan(Bs, N, S, D, M)
         yield ("slot_attention", calls,
-               f"B={Bs} N={N} S={S} D={D} iters={iters} plan {plan} "
+               f"B={Bs} N={N} S={S} D={D} iters={iters} "
+               f"{'with' if last else 'without'} masks plan {plan} "
                f"({slot_attention_kernel.active_clusters(plan)} such "
                "clusters at once on this card)",
                lambda: slot_attention_kernel.sa_iterations(ks, vs, s0, p,
@@ -576,12 +635,12 @@ def same_bits(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def check_kernels(shapes, sa_mod, gen, dev, phase):
+def check_kernels(shapes, sa_mod, gen, dev, phase, timing=True):
     """Every model kernel against its plain version at every shape in
-    `shapes`, timed; slot attention and GN also called twice on the same
-    inputs, which must give the same bits (neither sums with atomics).
-    -> {kernel: totals over those calls}. Raises SystemExit if any
-    disagrees."""
+    `shapes`, timed if `timing`; slot attention and GN also called twice
+    on the same inputs, which must give the same bits (neither sums with
+    atomics). -> {kernel: totals over those calls} ({} without `timing`).
+    Raises SystemExit if any disagrees."""
     results, failed = {}, []
     for name, calls, label, kern, plain, lib, terms in kernel_cases(
             shapes, sa_mod, gen, dev):
@@ -592,9 +651,17 @@ def check_kernels(shapes, sa_mod, gen, dev, phase):
                 f"{'are bit-identical' if same else 'DIFFER'}")
             if not same:
                 failed.append(f"{name} {label} not deterministic")
-        record(results, failed, phase, name, calls, label,
-               max_err(out, plain()), TOL[name], timed(kern),
-               timed(plain), None if lib is None else timed(lib), terms)
+        err = max_err(out, plain())
+        if timing:
+            record(results, failed, phase, name, calls, label, err,
+                   TOL[name], timed(kern), timed(plain),
+                   None if lib is None else timed(lib), terms)
+            continue
+        ok = err <= TOL[name]
+        log(f"{phase}: {name} {label} x{calls}: max_abs_err {err:.3e} (tol "
+            f"{TOL[name]:.1e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{name} {label}")
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failed}")
@@ -616,7 +683,7 @@ def model_grad_cases(shapes, sa_mod, gen, dev):
     (gshape, gact, geps, gG) = max(shapes["gn_silu"],
                                    key=lambda key: key[0][1])
     C = gshape[1]
-    (Bs, N, S, D, M, iters) = max(shapes["slot_attention"])
+    (Bs, N, S, D, M, iters, _) = max(shapes["slot_attention"])
     (Bq, nq, nk, heads) = max(shapes["attention"])
     hd = heads * attention_kernel.HEAD_DIM
     sa_keys = slot_attention_kernel.SA_WEIGHT_KEYS
@@ -732,8 +799,10 @@ class StepReport:
         ops.reset_launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
         self.steps.append(dict(record, launches=counts))
-        log(f"{self.phase}: step {step}: denoise_loss "
-            f"{record['train/denoise_loss']:.5f}, grad norm "
+        loss = next(k for k in record if k.endswith("_loss") and
+                    k != "train/total_loss")
+        log(f"{self.phase}: step {step}: {loss.removeprefix('train/')} "
+            f"{record[loss]:.5f}, grad norm "
             f"{record.get('train/grad_norm', float('nan')):.4g}, lr "
             f"{record.get('lr', float('nan')):.3g}, "
             f"{record['step_seconds']:.3f} s (host clock), max "
@@ -878,56 +947,17 @@ def train(cfg, model, dev, gen, phase, f32_step_seconds=None):
     import tempfile
 
     import torch
-    from slotdiffusion_tpu_torch import ops
     from slotdiffusion_tpu_torch.data.synthetic import SyntheticVideoData
     from slotdiffusion_tpu_torch.methods.build import build_method
 
     T, (H, W) = cfg.n_sample_frames, cfg.resolution
-    gib = 2.0 ** 30
-    total_mem = torch.cuda.get_device_properties(0).total_memory
-    param_bytes = sum(p.numel() * 4 for p in model.parameters()
-                      if p.requires_grad)
-
-    def probe(bs):
-        """Peak bytes of one forward + backward at `bs` clips; `shapes`
-        then holds its kernel calls."""
-        for calls in shapes.values():
-            calls.clear()
-        model.train()
-        torch.cuda.reset_peak_memory_stats()
-        img = torch.rand(bs, T, H, W, 3, device=dev) * 2 - 1
-        g = torch.Generator(device=dev).manual_seed(0)
-        _, losses = model.compute_losses({"img": img}, g)
-        losses["denoise_loss"].backward()
-        model.zero_grad(set_to_none=True)
-        torch.cuda.synchronize()
-        return torch.cuda.max_memory_allocated()
-
     model.dm_decoder.vae.requires_grad_(False)
     shapes, handles = record_shapes(model)
-    batch = None
-    for bs in TRAIN_BATCHES:
-        try:
-            peak = probe(bs)
-        except torch.cuda.OutOfMemoryError:
-            peak = None
-        model.zero_grad(set_to_none=True)
-        gc.collect()
-        torch.cuda.empty_cache()
-        # Adam adds two moments per trainable parameter to the peak
-        fits = peak is not None and \
-            peak + 2 * param_bytes + 2 * gib < total_mem
-        log(f"{phase}: {bs} clips a step: peak "
-            f"{'OOM' if peak is None else f'{peak / gib:.2f} GiB'} + Adam "
-            f"{2 * param_bytes / gib:.2f} GiB of {total_mem / gib:.1f} GiB"
-            f" -> {'fits' if fits else 'does not fit'}")
-        if fits:
-            batch = bs
-            break
+    batch, _ = batch_that_fits(
+        model, lambda bs: torch.rand(bs, T, H, W, 3, device=dev) * 2 - 1,
+        TRAIN_BATCHES, phase, shapes, unit="clips")
     for hk in handles:
         hk.remove()
-    if batch is None:
-        raise SystemExit("no training batch fits the card")
     cut = "" if batch == cfg.train_batch_size else \
         f" (cut from the config's {cfg.train_batch_size})"
     log(f"{phase}: training at {batch} clips x {T} frames a step{cut}")
@@ -948,72 +978,21 @@ def train(cfg, model, dev, gen, phase, f32_step_seconds=None):
     # config's 0.1 of an epoch would write it after every step here)
     tcfg = cfg.copy(print_iter=1, save_interval=1.0)
     data = SyntheticVideoData(tcfg, batch, num_samples=4 * batch, seed=0)
-    got_grad = {}
-
-    def note_grad(name):
-        def hook(p):
-            seen = (p.grad != 0).any()
-            got_grad[name] = got_grad[name] | seen if name in got_grad \
-                else seen
-        return hook
-
-    trainable = [(n, p) for n, p in model.named_parameters()
-                 if p.requires_grad]
-    hooks = [p.register_post_accumulate_grad_hook(note_grad(n))
-             for n, p in trainable]
-    start = {n: p.detach().clone() for n, p in trainable}
-
-    totals = dict.fromkeys(ops.launch_counts(), 0)
+    trainable = [p for p in model.parameters() if p.requires_grad]
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = build_method(model, data, tcfg,
-                               ckp_path=os.path.join(tmp, "run"))
-        trainer.logger = report = StepReport(phase)
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        t0 = time.time()
-        trainer.fit(max_steps=TRAIN_STEPS)
-        fit_s = time.time() - t0
-        steps = [st["step_seconds"] for st in report.steps]
-        log(f"{phase}: Trainer.fit(max_steps={TRAIN_STEPS}) took "
-            f"{fit_s:.1f}s (host clock, ckpt_last included), steps " +
-            " ".join(f"{x:.3f}" for x in steps) + " s" + (
-                " (f32, phase 5: " + " ".join(
-                    f"{x:.3f}" for x in f32_step_seconds) + " s)"
-                if f32_step_seconds else "") + ", max allocated "
-            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
-        for hk in hooks:
-            hk.remove()
-        for st in report.steps:
-            for k, n in st["launches"].items():
-                totals[k] += n
-        losses = [st["train/denoise_loss"] for st in report.steps]
-        if len(losses) != TRAIN_STEPS or not all(
-                map(math.isfinite, losses)):
-            raise SystemExit(f"training losses {losses}")
-        for st in report.steps:
-            check_launches(st["launches"], f"{phase}: a training step",
-                           cfg.use_bf16)
-        no_grad = [n for n, _ in trainable
-                   if n not in got_grad or not bool(got_grad[n])]
-        if no_grad:
-            raise SystemExit(f"{len(no_grad)} trainable parameters got no "
-                             f"gradient, e.g. {no_grad[:5]}")
-        still = [n for n, p in trainable if torch.equal(p, start[n])]
-        if still:
-            raise SystemExit(f"{len(still)} parameters did not move, e.g. "
-                             f"{still[:5]}")
+        trainer, report, totals, steps, _ = fit_checked(
+            model, tcfg, data, phase, TRAIN_STEPS, cfg.use_bf16,
+            ckp_path=os.path.join(tmp, "run"), unit="clips",
+            f32_secs=f32_step_seconds)
         # master weights and Adam's moments stay f32 in either dtype
         moments = [v for st in trainer.optimizer.adam.state.values()
                    for v in st.values() if torch.is_tensor(v) and v.dim()]
-        if any(p.dtype != torch.float32 for _, p in trainable) or \
+        if any(p.dtype != torch.float32 for p in trainable) or \
                 not moments or \
                 any(v.dtype != torch.float32 for v in moments):
             raise SystemExit("a parameter or an Adam moment is not f32")
-        log(f"{phase}: {len(trainable)} trainable tensors outside the "
-            f"VQ-VAE all got non-zero gradients and moved; they and "
-            f"Adam's moments are f32")
+        log(f"{phase}: the trainable tensors and Adam's moments are f32")
         del moments
-        del start
         ckpt = os.path.join(tmp, "run", "ckpt_last.pt")
         del trainer
         gc.collect()
@@ -1026,7 +1005,7 @@ def train(cfg, model, dev, gen, phase, f32_step_seconds=None):
             raise SystemExit(f"resume from {ckpt} failed: {last}")
         for k, n in report.steps[-1]["launches"].items():
             totals[k] += n
-        size = os.path.getsize(ckpt) / gib
+        size = os.path.getsize(ckpt) / 2.0 ** 30
         log(f"{phase}: resumed from ckpt_last ({size:.2f} GiB) at step "
             f"{TRAIN_STEPS}, took step {resumed.step}")
         del resumed
@@ -1046,6 +1025,119 @@ def train(cfg, model, dev, gen, phase, f32_step_seconds=None):
     return totals, train_results, steps
 
 
+def validate_against_plain(ecfg, model, data, dev, gen, smi, phase, what,
+                           plain=True):
+    """`Trainer.validate` of `model` on `data`'s val set with the settings
+    `ecfg` (the EMA on: its shadow moved by 1e-3 relative, seeded, so that
+    the EMA pass computes something else), through the kernels: every
+    loss and metric present and finite, ARI in [-1, 1], the kernels of
+    the model's dtype launched, the live weights bit-identical after it.
+    With `plain`, the same batches and draws through the plain versions
+    (slot attention's bf16 twin): the argmax over the slots (axis -3 of
+    the masks, a video's or an image's) must agree wherever the plain
+    path's two largest masks are more than ARGMAX_TIE apart and at
+    ARGMAX_EXACT of all pixels, the masks within TOL, each metric within
+    SEG_METRIC_TOL and each loss within LOSS_RTOL. -> the kernels'
+    launches. Raises SystemExit otherwise."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.methods.build import (build_method,
+                                                       seg_metrics_fn)
+    from slotdiffusion_tpu_torch.models import is_video
+    bf16 = ecfg.use_bf16
+    trainer = build_method(model, data, ecfg)
+    with torch.no_grad():
+        for sh in trainer.ema.shadow.values():
+            sh.mul_(1 + 1e-3 * torch.randn(sh.shape, generator=gen,
+                                           device=dev))
+    captured = []
+
+    def capture(batch, out):
+        captured.append(out["masks"].clone())
+        return seg_metrics_fn(batch, out)
+
+    trainer.host_metrics_fn = capture
+    live = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    res_k = trainer.validate()
+    torch.cuda.synchronize()
+    val_s = time.time() - t0
+    counts = ops.launch_counts()
+    n_batches = len(captured)
+    log(f"{phase}: Trainer.validate over {what}, EMA on: {val_s:.3f} s wall "
+        f"({val_s / n_batches:.3f} s a batch, host metrics included) on "
+        f"{smi}; launches {counts}")
+    log(f"{phase}: " + ", ".join(f"{k} {v:.6f}" for k, v in res_k.items()))
+    want = {f"val/{k}" for k in ("denoise_loss", "denoise_loss_ema", "ari",
+                                 "fari", "miou", "fmiou", "mbo")}
+    if set(res_k) != want or not all(map(math.isfinite, res_k.values())):
+        raise SystemExit(f"validate gave {res_k}")
+    if not all(-1.0 <= res_k[k] <= 1.0 for k in ("val/ari", "val/fari")):
+        raise SystemExit(f"ARI outside [-1, 1]: {res_k}")
+    check_launches(counts, f"{phase}: validate", bf16)
+    moved = [k for k, v in model.state_dict().items()
+             if not torch.equal(v, live[k])]
+    if moved:
+        raise SystemExit(f"validate left {len(moved)} tensors changed, "
+                         f"e.g. {moved[:3]}")
+    log(f"{phase}: the live state_dict is bit-identical after validate "
+        "(the EMA swap restored it)")
+    if not plain:
+        return counts
+
+    kernel_masks, captured[:] = list(captured), []
+    with plain_versions(f32_slot_attention=False):
+        res_p = trainer.validate()
+    plain_masks = list(captured)
+    # per frame: a video's masks [B, T, S, H, W], an image's [B, S, H, W]
+    frames = kernel_masks[0].shape[1] if is_video(type(model).__name__) \
+        else 1
+    same_t = torch.zeros(frames, device=dev)
+    n_px = n_tie = n_miss = 0
+    for km, pm in zip(kernel_masks, plain_masks):
+        same = km.argmax(-3) == pm.argmax(-3)
+        top2 = pm.topk(2, dim=-3).values
+        clear = top2.select(-3, 0) - top2.select(-3, 1) > ARGMAX_TIE
+        same_t += same.reshape(same.shape[0], frames, -1).float().sum((0, 2))
+        n_px += same.numel()
+        n_tie += (~clear).sum().item()
+        n_miss += (clear & ~same).sum().item()
+    same_t /= n_px // frames
+    exact = same_t.mean().item()
+    mdiff = max((a - b).abs().max().item()
+                for a, b in zip(kernel_masks, plain_masks))
+    slots = kernel_masks[0].shape[-3]
+    ok = exact >= ARGMAX_EXACT and n_miss == 0 and \
+        mdiff <= TOL["slot_attention"]
+    log(f"{phase}: kernels vs plain versions: the argmax of {slots} slots "
+        f"agrees at {exact:.6f} (>= {ARGMAX_EXACT}) of the {n_px} pixels" +
+        (" (per frame " + " ".join(f"{a:.6f}" for a in same_t.tolist()) +
+         ")" if frames > 1 else "") + f"; {n_tie} pixels "
+        f"({n_tie / n_px:.6f}) have their two largest plain masks within "
+        f"{ARGMAX_TIE:g} and are left out as ties; of the other "
+        f"{n_px - n_tie}, {n_miss} disagree (must be 0); largest mask "
+        f"difference {mdiff:.3e} (tol {TOL['slot_attention']:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    failed = [] if ok else ["argmax agreement"]
+    for k in sorted(res_k):
+        diff = abs(res_k[k] - res_p[k])
+        if "loss" in k:
+            tol, what = LOSS_RTOL * abs(res_p[k]), "relative 1e-3"
+        else:
+            tol, what = SEG_METRIC_TOL, f"{SEG_METRIC_TOL:g}"
+        good = diff <= tol
+        log(f"{phase}: {k} kernels {res_k[k]:.6f} plain {res_p[k]:.6f} "
+            f"diff {diff:.3e} (tol {what}) {'ok' if good else 'FAIL'}")
+        if not good:
+            failed.append(k)
+    if failed:
+        raise SystemExit(f"the eval path's kernels disagree with the plain "
+                         f"versions: {failed}")
+    return counts
+
+
 def evaluate(cfg, model, dev, gen, smi, phase):
     """Phases 6 and 7: the evaluation path of the built flagship `model`;
     -> ({path: {kernel: launches}}, {kernel: totals} of slot attention at
@@ -1058,8 +1150,7 @@ def evaluate(cfg, model, dev, gen, smi, phase):
     from slotdiffusion_tpu_torch import ops
     from slotdiffusion_tpu_torch.data.synthetic import (SyntheticVideoData,
                                                         SyntheticVideoDataset)
-    from slotdiffusion_tpu_torch.methods.build import (build_method,
-                                                       seg_metrics_fn)
+    from slotdiffusion_tpu_torch.methods.build import seg_metrics_fn
     from slotdiffusion_tpu_torch.methods.inference import chunked_video_apply
     from slotdiffusion_tpu_torch.models import init_random_
     from slotdiffusion_tpu_torch.models.slot_attention import SlotAttention
@@ -1070,102 +1161,15 @@ def evaluate(cfg, model, dev, gen, smi, phase):
     ecfg = cfg.copy(use_ema=True, val_batch_size=B)
     data = SyntheticVideoData(ecfg, B, num_samples=B, seed=0,
                               val_samples=EVAL_BATCHES * B)
-    trainer = build_method(model, data, ecfg)
-    # the shadow starts as a copy of the live weights: move it (seeded,
-    # 1e-3 relative) so that the EMA pass computes something else
-    with torch.no_grad():
-        for s in trainer.ema.shadow.values():
-            s.mul_(1 + 1e-3 * torch.randn(s.shape, generator=gen,
-                                          device=dev))
-    captured = []
-
-    def capture(batch, out):
-        captured.append(out["masks"].clone())
-        return seg_metrics_fn(batch, out)
-
-    trainer.host_metrics_fn = capture
-    live = {k: v.clone() for k, v in model.state_dict().items()}
-
-    # 1. Trainer.validate through the kernels
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.time()
-    res_k = trainer.validate()
-    torch.cuda.synchronize()
-    val_s = time.time() - t0
     key = "bf16_validate" if cfg.use_bf16 else "validate"
-    per_path[key] = ops.launch_counts()
-    log(f"{phase}: Trainer.validate over {EVAL_BATCHES} batches of {B} "
-        f"synthetic {cfg.resolution[0]}x{cfg.resolution[1]} clips x {T} "
-        f"frames, EMA on: {val_s:.3f} s wall ({val_s / EVAL_BATCHES:.3f} s "
-        f"a batch, host metrics included) on {smi}; launches "
-        f"{per_path[key]}")
-    log(f"{phase}: " + ", ".join(f"{k} {v:.6f}"
-                                  for k, v in res_k.items()))
-    want = {f"val/{k}" for k in ("denoise_loss", "denoise_loss_ema", "ari",
-                                 "fari", "miou", "fmiou", "mbo")}
-    if set(res_k) != want or not all(map(math.isfinite, res_k.values())):
-        raise SystemExit(f"validate gave {res_k}")
-    if not all(-1.0 <= res_k[k] <= 1.0 for k in ("val/ari", "val/fari")):
-        raise SystemExit(f"ARI outside [-1, 1]: {res_k}")
-    check_launches(per_path[key], f"{phase}: validate", cfg.use_bf16)
-    moved = [k for k, v in model.state_dict().items()
-             if not torch.equal(v, live[k])]
-    if moved:
-        raise SystemExit(f"validate left {len(moved)} tensors changed, "
-                         f"e.g. {moved[:3]}")
-    log(f"{phase}: the live state_dict is bit-identical after validate "
-        "(the EMA swap restored it)")
+    per_path[key] = validate_against_plain(
+        ecfg, model, data, dev, gen, smi, phase,
+        f"{EVAL_BATCHES} batches of {B} synthetic {cfg.resolution[0]}x"
+        f"{cfg.resolution[1]} clips x {T} frames",
+        plain=not cfg.use_bf16)
     if cfg.use_bf16:
         return per_path, {}
-
-    # 2. the same batches (and draws) through the plain versions
-    kernel_masks, captured[:] = list(captured), []
-    with plain_versions(f32_slot_attention=False):
-        res_p = trainer.validate()
-    plain_masks = list(captured)
-    # the argmax must agree wherever the plain path's two largest masks
-    # are more than ARGMAX_TIE apart
-    same_t = torch.zeros(T, device=dev)
-    n_px = n_tie = n_miss = 0
-    for km, pm in zip(kernel_masks, plain_masks):
-        same = km.argmax(2) == pm.argmax(2)
-        top2 = pm.topk(2, dim=2).values
-        clear = top2[:, :, 0] - top2[:, :, 1] > ARGMAX_TIE
-        same_t += same.float().sum((0, 2, 3))
-        n_px += same.numel()
-        n_tie += (~clear).sum().item()
-        n_miss += (clear & ~same).sum().item()
-    same_t /= n_px // T
-    exact = same_t.mean().item()
-    mdiff = max((a - b).abs().max().item()
-                for a, b in zip(kernel_masks, plain_masks))
-    ok = exact >= ARGMAX_EXACT and n_miss == 0 and \
-        mdiff <= TOL["slot_attention"]
-    log(f"phase 6: kernels vs plain versions: the argmax slot agrees at "
-        f"{exact:.6f} (>= {ARGMAX_EXACT}) of the {n_px} pixels (per frame " +
-        " ".join(f"{a:.6f}" for a in same_t.tolist()) + f"); {n_tie} "
-        f"pixels ({n_tie / n_px:.6f}) have their two largest plain masks "
-        f"within {ARGMAX_TIE:g} and are left out as ties; of the other "
-        f"{n_px - n_tie}, {n_miss} disagree (must be 0); largest mask "
-        f"difference {mdiff:.3e} (tol {TOL['slot_attention']:.0e}) "
-        f"{'ok' if ok else 'FAIL'}")
-    failed = [] if ok else ["argmax agreement"]
-    for k in sorted(res_k):
-        diff = abs(res_k[k] - res_p[k])
-        if "loss" in k:
-            tol, what = LOSS_RTOL * abs(res_p[k]), "relative 1e-3"
-        else:
-            tol, what = SEG_METRIC_TOL, f"{SEG_METRIC_TOL:g}"
-        good = diff <= tol
-        log(f"phase 6: {k} kernels {res_k[k]:.6f} plain {res_p[k]:.6f} "
-            f"diff {diff:.3e} (tol {what}) {'ok' if good else 'FAIL'}")
-        if not good:
-            failed.append(k)
-    if failed:
-        raise SystemExit(f"the eval path's kernels disagree with the plain "
-                         f"versions: {failed}")
-    del trainer, data, live, kernel_masks, plain_masks, captured
+    del data
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1236,7 +1240,7 @@ def evaluate(cfg, model, dev, gen, smi, phase):
     init_random_(sa64, torch.Generator().manual_seed(3))
     res64 = check_kernels(
         {"gn_silu": {}, "attention": {},
-         "slot_attention": {(EVAL_BATCH, 4096, 6, 64, 128, 2): 1}},
+         "slot_attention": {(EVAL_BATCH, 4096, 6, 64, 128, 2, True): 1}},
         sa64, gen, dev, "phase 6 (res64 shape)")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2056,6 +2060,404 @@ def samplers(smi, dev, phase="phase 10"):
     return per_path
 
 
+def image_inputs(cfg, dev):
+    """The image requests' inputs, from a seeded generator: IMG_SERVE
+    images, a noisy latent per image and its timestep."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(11)
+    H, W = cfg.resolution
+    h, w = cfg.dec_dict["resolution"]
+    return (torch.rand(IMG_SERVE, H, W, 3, generator=g, device=dev) * 2 - 1,
+            torch.randn(IMG_SERVE, h, w, 3, generator=g, device=dev),
+            torch.full((IMG_SERVE,), 500.0, device=dev))
+
+
+def batch_that_fits(model, make_img, batches, phase, shapes=None,
+                    unit="images"):
+    """The first of `batches` whose forward + backward on `make_img(bs)`
+    (and Adam's two moments a trainable parameter) fit the card, with its
+    peak bytes; `shapes` (from `record_shapes`) then holds that probe's
+    kernel calls. Raises SystemExit if none fits."""
+    import gc
+
+    import torch
+    gib = 2.0 ** 30
+    total = torch.cuda.get_device_properties(0).total_memory
+    adam = 2 * sum(p.numel() * 4 for p in model.parameters()
+                   if p.requires_grad)
+    for bs in batches:
+        if shapes is not None:
+            for calls in shapes.values():
+                calls.clear()
+        model.train()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            g = torch.Generator(device=next(model.parameters()).device
+                                ).manual_seed(0)
+            _, losses = model.compute_losses({"img": make_img(bs)}, g)
+            sum(losses.values()).backward()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        except torch.cuda.OutOfMemoryError:
+            peak = None
+        model.zero_grad(set_to_none=True)
+        losses = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        fits = peak is not None and peak + adam + 2 * gib < total
+        log(f"{phase}: {bs} {unit} a step: peak "
+            f"{'OOM' if peak is None else f'{peak / gib:.2f} GiB'} + Adam "
+            f"{adam / gib:.2f} GiB of {total / gib:.1f} GiB -> "
+            f"{'fits' if fits else 'does not fit'}")
+        if fits:
+            return bs, peak
+    raise SystemExit(f"{phase}: no training batch fits the card")
+
+
+def fit_checked(model, tcfg, data, phase, steps, bf16=False, need=None,
+                ckp_path=None, unit="images", f32_secs=None, smi=None,
+                every_param=True):
+    """`build_method` -> `Trainer.fit(max_steps=steps)` on `data` with the
+    settings `tcfg`, each step's launch counts read and reset
+    (`StepReport`): finite losses, every kernel of `need` (default: the
+    dtype's three) launched in every step, and with `every_param` every
+    trainable parameter a non-zero gradient and, over more than one step,
+    moved (the warmup's first update has LR 0). -> (the trainer, its
+    report, {kernel: launches} over the steps, the host seconds of each
+    step, the peak GiB)."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.methods.build import build_method
+    trainable = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
+    got = {}
+
+    def note(name):
+        def hook(p):
+            seen = (p.grad != 0).any()
+            got[name] = got[name] | seen if name in got else seen
+        return hook
+
+    hooks = [p.register_post_accumulate_grad_hook(note(n))
+             for n, p in trainable]
+    start = {n: p.detach().clone() for n, p in trainable}
+    trainer = build_method(model, data, tcfg, ckp_path=ckp_path)
+    trainer.logger = report = StepReport(phase)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    trainer.fit(max_steps=steps)
+    fit_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
+    for hk in hooks:
+        hk.remove()
+    secs = [st["step_seconds"] for st in report.steps]
+    losses = [st["train/total_loss"] for st in report.steps]
+    log(f"{phase}: Trainer.fit(max_steps={steps}) at {data.batch_size} "
+        f"{unit} a step took {fit_s:.1f}s (host clock"
+        f"{', ckpt_last included' if ckp_path else ''}), steps " +
+        " ".join(f"{x:.3f}" for x in secs) + " s" +
+        (" (f32: " + " ".join(f"{x:.3f}" for x in f32_secs) + " s)"
+         if f32_secs else "") + f", max allocated {peak:.2f} GiB" +
+        (f" [{smi}]" if smi else ""))
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"{phase}: training losses {losses}")
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    for st in report.steps:
+        check_launches(st["launches"], f"{phase}: a training step", bf16,
+                       need)
+        for k, n in st["launches"].items():
+            totals[k] += n
+    if not every_param:
+        return trainer, report, totals, secs, peak
+    no_grad = [n for n, _ in trainable if n not in got or not bool(got[n])]
+    still = [n for n, p in trainable if torch.equal(p, start[n])] \
+        if steps > 1 else []
+    if no_grad or still:
+        raise SystemExit(f"{phase}: {len(no_grad)} trainable parameters got "
+                         f"no gradient ({no_grad[:5]}), {len(still)} did "
+                         f"not move ({still[:5]})")
+    log(f"{phase}: {len(trainable)} trainable tensors all got non-zero "
+        "gradients" + (" and moved" if steps > 1 else ""))
+    return trainer, report, totals, secs, peak
+
+
+def image_data(cfg, batch, steps):
+    """`steps` batches of `batch` synthetic images at `cfg`'s resolution,
+    the training settings for `fit_checked` (a log line every step, no
+    checkpoint, no loader workers)."""
+    from slotdiffusion_tpu_torch.data.loader import DataModule
+    from slotdiffusion_tpu_torch.data.synthetic import SyntheticImageDataset
+    tcfg = cfg.copy(print_iter=1, save_interval=100.0, num_workers=0)
+    return tcfg, DataModule(SyntheticImageDataset(
+        cfg.resolution, steps * batch, seed=0), None, batch, seed=0)
+
+
+def image_validate(cfg, model, dev, gen, smi, phase):
+    """`validate_against_plain` of the image `model` over IMG_EVAL_BATCHES
+    batches of IMG_EVAL_BATCH synthetic images with masks. -> the
+    kernels' launches."""
+    from slotdiffusion_tpu_torch.data.loader import DataModule
+    from slotdiffusion_tpu_torch.data.synthetic import SyntheticImageDataset
+    B = IMG_EVAL_BATCH
+    data = DataModule(SyntheticImageDataset(cfg.resolution, B, seed=0),
+                      SyntheticImageDataset(cfg.resolution,
+                                            IMG_EVAL_BATCHES * B, seed=1),
+                      B, B, seed=0)
+    return validate_against_plain(
+        cfg.copy(use_ema=True, val_batch_size=B, num_workers=0), model, data,
+        dev, gen, smi, phase,
+        f"{IMG_EVAL_BATCHES} batches of {B} synthetic {cfg.resolution[0]}x"
+        f"{cfg.resolution[1]} images")
+
+
+def image_requests(model, inputs, phase, smi):
+    """`encode`, `sample` (20 DPM-Solver++ steps, VQ decode) and
+    `denoise` of the image `model`, eagerly and from CUDA graphs, each
+    with the launch counts set to 0 just before it and read just after:
+    encode exactly 1 slot attention, every UNet call exactly GN_PER_UNET
+    GN and ATTN_PER_UNET attention through the model dtype's entries;
+    the graphed request bit-identical to the eager one with the same
+    launches. -> ({path: {kernel: launches}}, slots)."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.serving import build_serving_fn
+    img, x_t, t_model = inputs
+    bf16 = model.compute_dtype == torch.bfloat16
+    gn, attn = ("gn_silu_bf16", "attention_bf16") if bf16 else \
+        ("gn_silu", "attention")
+    calls = [0]
+    hk = model.dm_decoder.unet.register_forward_pre_hook(
+        lambda *_: calls.__setitem__(0, calls[0] + 1))
+    B, S = img.shape[0], model.num_slots
+    per_path, outs, failed = {}, {}, []
+    slots = None
+    for graphed in (False, True):
+        fns = {s: build_serving_fn(model, s, graphed=graphed)
+               for s in ("encode", "sample", "denoise")}
+        for name, fn in (("encode", lambda: fns["encode"](img)),
+                         ("sample", lambda: fns["sample"](0, slots)),
+                         ("denoise", lambda: fns["denoise"](x_t, t_model,
+                                                            slots))):
+            if graphed:
+                fn()  # the capture
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            calls[0] = 0
+            t0 = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            counts = ops.launch_counts()
+            if not graphed:
+                n = calls[0]
+                want = {"slot_attention": 1 if name == "encode" else 0,
+                        gn: GN_PER_UNET * n, attn: ATTN_PER_UNET * n}
+                want = dict(dict.fromkeys(counts, 0), **want)
+                if name == "encode":
+                    slots = out[0]
+                    msum = (out[1].sum(1) - 1).abs().max().item()
+                    if out[0].shape != (B, S, model.slot_size) or \
+                            out[1].shape != (B, S, *model.resolution) or \
+                            msum > 1e-4:
+                        failed.append(f"encode {tuple(out[0].shape)} "
+                                      f"{tuple(out[1].shape)} {msum:.1e}")
+                outs[name] = out
+                verdict = f"{n} UNet calls"
+            else:
+                want = per_path[name]
+                verdict = "vs eager " + compare(f"graphed {name}", out,
+                                                outs[name], failed)
+            if counts != want or not all(torch.isfinite(o.float()).all()
+                                         for o in outputs(out)):
+                failed.append(f"{'graphed ' * graphed}{name} launches "
+                              f"{nonzero(counts)} (want {nonzero(want)}) "
+                              "or non-finite output")
+            per_path[f"{'graphed_' * graphed}{name}"] = counts
+            log(f"{phase}: {'graphed' if graphed else 'eager'} {name} of "
+                f"{B} images in {secs:.3f} s (host clock) [{smi}]: "
+                f"{verdict}; launches {nonzero(counts)}")
+    hk.remove()
+    if failed:
+        raise SystemExit(f"{phase}: image serving failed: {failed}")
+    return per_path, slots
+
+
+def images(smi, dev, gen, phase="phase 11"):
+    """Phase 11: the image family at full width. -> ({path: {kernel:
+    launches}}, {kernel: totals} of slot attention at the image serving
+    shape)."""
+    import gc
+
+    import torch
+    from slotdiffusion_tpu_torch import configs, ops
+    from slotdiffusion_tpu_torch.models import (build_model, init_random_,
+                                                init_reference_)
+    from slotdiffusion_tpu_torch.serving import build_serving_fn
+    t_phase = time.time()
+    paths = {}
+    cfg = configs.SALDMCLEVRTex128()
+    model = build_model(cfg, device=dev)
+    init_random_(model, torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{phase}: built SADiffusion (SALDMCLEVRTex128, 128x128, "
+        f"{IMG_SLOTS} slots x 3 iterations), {n_params / 1e6:.1f}M "
+        "parameters, random weights (seed 0)")
+    inputs = image_inputs(cfg, dev)
+    img, x_t, t_model = inputs
+
+    # slot attention at the image shape, timed; GN and attention at the
+    # image serving shapes, checked
+    shapes, handles = record_shapes(model)
+    with torch.inference_mode():
+        s0, _ = build_serving_fn(model, "encode", graphed=False)(img)
+        build_serving_fn(model, "denoise", graphed=False)(x_t, t_model, s0)
+    torch.cuda.synchronize()
+    for hk in handles:
+        hk.remove()
+    sa_mod = model.slot_attention
+    img_sa = check_kernels({"gn_silu": {}, "attention": {},
+                            "slot_attention": shapes["slot_attention"]},
+                           sa_mod, gen, dev, f"{phase} (image shape)")
+    check_kernels(dict(shapes, slot_attention={}), sa_mod, gen, dev,
+                  f"{phase} (image serving shapes)", timing=False)
+
+    # serving, eager and graphed
+    served, slots = image_requests(model, inputs, phase, smi)
+    paths.update({f"image_{k}": v for k, v in served.items()})
+    # one encode and one denoise against the same model on the CPU
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        d_gpu = build_serving_fn(model, "denoise", graphed=False)(
+            x_t[:1], t_model[:1], slots[:1]).cpu()
+        d_cpu = build_serving_fn(cpu, "denoise")(
+            x_t[:1].cpu(), t_model[:1].cpu(), slots[:1].cpu())
+        s_gpu, m_gpu = build_serving_fn(model, "encode", graphed=False)(
+            img[:1])
+        s_cpu, m_cpu = build_serving_fn(cpu, "encode")(img[:1].cpu())
+    del cpu
+    for name, a, b, tol in (("denoise", d_gpu, d_cpu, 1e-3),
+                            ("encode slots", s_gpu.cpu(), s_cpu, 1e-2),
+                            ("encode masks", m_gpu.cpu(), m_cpu, 1e-2)):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        log(f"{phase}: {name} card vs CPU plain path: max rel err "
+            f"{rel:.2e} (tol {tol:.0e})")
+        if not rel <= tol:
+            raise SystemExit(f"{phase}: {name}: the card disagrees with the "
+                             "CPU")
+
+    # training at the step's shapes
+    model.dm_decoder.vae.requires_grad_(False)
+    shapes, handles = record_shapes(model)
+    H, W = cfg.resolution
+    make_img = lambda bs: torch.rand(bs, H, W, 3, device=dev) * 2 - 1
+    batch, _ = batch_that_fits(model, make_img, IMG_TRAIN_BATCHES, phase,
+                               shapes)
+    for hk in handles:
+        hk.remove()
+    check_kernels(shapes, sa_mod, gen, dev, f"{phase} (training shapes)",
+                  timing=False)
+    check_grads(model_grad_cases(shapes, sa_mod, gen, dev), gen, dev, phase)
+    paths["image_training"] = fit_checked(
+        model, *image_data(cfg, batch, IMG_STEPS), phase, IMG_STEPS,
+        smi=smi)[2]
+    paths["image_validate"] = image_validate(cfg, model, dev, gen, smi,
+                                             phase)
+    # the init `scripts/train_torch.py` starts from; its zero layers hold
+    # the gradients of the layers behind them at 0 until they have moved,
+    # so the every-parameter gate is the random init's run above
+    init_reference_(model, torch.Generator().manual_seed(0))
+    _, report, paths["image_training_reference_init"], _, _ = fit_checked(
+        model, *image_data(cfg, batch, IMG_STEPS),
+        f"{phase} (init_reference_)", IMG_STEPS, smi=smi, every_param=False)
+    first = report.steps[0]["train/total_loss"]
+    log(f"{phase} (init_reference_): first loss {first:.6f}, the noise's "
+        f"mean square (1 +- {REF_INIT_LOSS_TOL})")
+    if not abs(first - 1.0) <= REF_INIT_LOSS_TOL:
+        raise SystemExit(f"{phase}: the first loss from init_reference_ is "
+                         f"{first}, not the noise's mean square")
+    del model, sa_mod, slots, s0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16: one graphed sample and one training step
+    cfg16 = cfg.copy(use_bf16=True)
+    model = build_model(cfg16, device=dev)
+    init_random_(model, torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        slots16, _ = build_serving_fn(model, "encode", graphed=False)(img)
+        graphed = build_serving_fn(model, "sample")
+        eager = build_serving_fn(model, "sample", graphed=False)
+        want = eager(0, slots16)
+        graphed(0, slots16)  # the capture
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        got = graphed(0, slots16)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        counts = ops.launch_counts()
+    fails = []
+    verdict = compare("bf16 graphed sample", got, want, fails)
+    log(f"{phase}: bf16 graphed sample of {IMG_SERVE} images in {secs:.3f} "
+        f"s (host clock) [{smi}]: vs eager {verdict}; launches "
+        f"{nonzero(counts)}")
+    check_launches(counts, f"{phase}: bf16 graphed sample", True,
+                   BF16_KERNELS[:2])
+    if fails or counts["gn_silu_bf16"] % GN_PER_UNET or \
+            counts["attention_bf16"] % ATTN_PER_UNET:
+        raise SystemExit(f"{phase}: bf16 graphed sample failed: {fails}, "
+                         f"{counts}")
+    paths["image_bf16_graphed_sample"] = counts
+    model.dm_decoder.vae.requires_grad_(False)
+    paths["image_bf16_training"] = fit_checked(
+        model, *image_data(cfg16, batch, 1), f"{phase} (bf16)", 1,
+        bf16=True, smi=smi)[2]
+    del model, graphed, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the SA baseline
+    sa_cfg = configs.SACLEVRTex128()
+    model = build_model(sa_cfg, device=dev)
+    init_random_(model, torch.Generator().manual_seed(0))
+    serve_shapes, handles = record_shapes(model)
+    with torch.inference_mode():
+        out_k = model({"img": img})
+    for hk in handles:
+        hk.remove()
+    with torch.inference_mode(), plain_versions(f32_slot_attention=False):
+        out_p = model({"img": img})
+    for k in ("slots", "recon_img"):
+        rel = ((out_k[k].float() - out_p[k].float()).abs().max() /
+               out_p[k].float().abs().max()).item()
+        log(f"{phase}: SA {k} of {IMG_SERVE} images, kernels vs plain path: "
+            f"max rel err {rel:.2e} (tol {IMG_PATH_TOL:.0e})")
+        if not rel <= IMG_PATH_TOL:
+            raise SystemExit(f"{phase}: SA {k}: the kernel path disagrees")
+    del out_k, out_p
+    shapes, handles = record_shapes(model)
+    sa_batch, _ = batch_that_fits(model, make_img, IMG_TRAIN_BATCHES,
+                                  f"{phase} (SA)", shapes)
+    for hk in handles:
+        hk.remove()
+    # slot attention's no-mask return at SA's serving and training shapes
+    for name, calls in serve_shapes.items():
+        shapes[name].update(calls)
+    check_kernels(shapes, model.slot_attention, gen, dev,
+                  f"{phase} (SA shapes)", timing=False)
+    paths["sa_training"] = fit_checked(
+        model, *image_data(sa_cfg, sa_batch, IMG_STEPS), f"{phase} (SA)",
+        IMG_STEPS, need=("slot_attention",), smi=smi)[2]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{phase}: done in {time.time() - t_phase:.1f} s [{smi}]")
+    return paths, img_sa
+
+
 def main():
     import gc
 
@@ -2099,7 +2501,7 @@ def main():
 
     # ---- the flagship model, and the kernel shapes its serving path uses --
     cfg = configs.SAViLDMMoviE128()
-    model = build_model(cfg, device="cuda")
+    model = build_model(cfg, device=dev)
     init_random_(model, torch.Generator().manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
     log(f"built SAViDiffusion (MOVi-E 128x128), {n_params / 1e6:.1f}M "
@@ -2329,7 +2731,7 @@ def main():
 
     # ---- 7. the flagship in bf16: phases 4-6 again ------------------------
     cfg16 = cfg.copy(use_bf16=True)
-    model = build_model(cfg16, device="cuda")
+    model = build_model(cfg16, device=dev)
     init_random_(model, torch.Generator().manual_seed(0))
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise SystemExit("the bf16 model's parameters are not all f32")
@@ -2370,7 +2772,11 @@ def main():
     # ---- 10. every sampler of the decoder --------------------------------
     per_path.update(samplers(smi, dev))
 
-    # ---- 11. report -----------------------------------------------------
+    # ---- 11. the image family ---------------------------------------------
+    img_paths, img_sa = images(smi, dev, gen)
+    per_path.update(img_paths)
+
+    # ---- 12. report -----------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():
@@ -2408,6 +2814,18 @@ def main():
                 "res64_bound_ms": max(res64[name]["t_bytes"],
                                       res64[name]["t_ops"]),
                 "res64_max_abs_err": res64[name]["err"]}),
+            **({} if name not in img_sa else {
+                # one call per image `encode` (phase 11: B = 8, N = 1024,
+                # S = 11, D = 192, M = 384, 3 iterations)
+                "img_ms": img_sa[name]["ms"],
+                "img_event_ms": img_sa[name]["event"],
+                "img_plain_ms": img_sa[name]["plain"],
+                "img_bound_ms": max(img_sa[name]["t_bytes"],
+                                    img_sa[name]["t_ops"]),
+                "img_bound_by": ("bytes" if img_sa[name]["t_bytes"] >=
+                                 img_sa[name]["t_ops"] else "operations"),
+                "img_max_abs_err": img_sa[name]["err"],
+                "img_launches_per_encode": img_paths["image_encode"][name]}),
             **extra,
         })
     for name, r in bf16_serve.items():

@@ -4,6 +4,8 @@ counterpart of scripts/export_model.py).
     python scripts/export_model_torch.py --params SAViLDMMoviE128 \
         [--weight <port .pt>] --what encode|sample|denoise --bs 2 \
         --out exports/encode.pt2 [--check] [--bf16] [--cpu]
+    python scripts/export_model_torch.py --params SALDMCLEVRTex128 \
+        --what encode --bs 8 --out exports/img_encode.pt2   # images
 
 The artifact reloads with `torch` and the port's `ops` package alone (no
 model class, no config), on the device it was exported for:
@@ -11,6 +13,7 @@ model class, no config), on the device it was exported for:
     from slotdiffusion_tpu_torch.serving import load_artifact
     call, header = load_artifact("exports/encode.pt2")
     slots, masks = call(video)          # [B, T, H, W, 3] float32
+    slots, masks = call(images)         # an image model's: [B, H, W, 3]
 
 It runs on the CUDA card unless `--cpu` is given, and exits with an error
 when there is no card and no `--cpu`. Without `--weight` it exports random
@@ -38,7 +41,7 @@ def main(argv=None):
     parser.add_argument("--what", default="encode",
                         choices=("encode", "sample", "denoise"))
     parser.add_argument("--bs", type=int, default=2,
-                        help="videos a request")
+                        help="videos (or images) a request")
     parser.add_argument("--out", required=True)
     parser.add_argument("--bf16", action="store_true",
                         help="the model in bf16 (use_bf16)")
@@ -65,9 +68,9 @@ def main(argv=None):
         init_random_(model, torch.Generator().manual_seed(0))
         print("WARNING: no --weight, exporting random weights (seed 0)",
               flush=True)
-    shape = (args.bs, params.n_sample_frames, *params.resolution, 3)
-    fn, example = serving.build_serving_fn(model, args.what, shape,
-                                           graphed=False)
+    fn, example = serving.build_serving_fn(
+        model, args.what, serving.data_shape(params, args.bs),
+        graphed=False)
     t = time.perf_counter()
     header = serving.save_artifact(
         args.out, fn, example,

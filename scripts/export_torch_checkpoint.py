@@ -6,6 +6,10 @@ read: {"model": state_dict, "config": name, "source": path, "ema": bool}.
 
     # the repo's trained SAViDiffusion, with the EMA of dm_decoder
     python scripts/export_torch_checkpoint.py
+    # the repo's trained image models: SA, and SADiffusion (its EMA of
+    # dm_decoder swapped in)
+    python scripts/export_torch_checkpoint.py --model sa
+    python scripts/export_torch_checkpoint.py --model sa_ldm
     # a stand-alone stage-1 VQ-VAE run (default: vqvae_synthetic_params-
     # res64's ckpt_last), for the port's VQVAE configs and for
     # train_torch.py --vqvae_ckp_path
@@ -27,26 +31,39 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+# (JAX config, checkpoint, output) of each trained model in the repo
 DEFAULTS = {
-    False: ("configs/savi_ldm_movi_file-res64.py",
-            "checkpoint/savi_ldm_movi_file-res64/ckpt_final",
-            "checkpoint/torch_savi_ldm_movi_file-res64/model.pt"),
-    True: ("configs/vqvae_synthetic_params-res64.py",
-           "checkpoint/vqvae_synthetic_params-res64/ckpt_last",
-           "checkpoint/torch_vqvae_synthetic_params-res64/vqvae.pt"),
+    "savi_ldm": ("configs/savi_ldm_movi_file-res64.py",
+                 "checkpoint/savi_ldm_movi_file-res64/ckpt_final",
+                 "checkpoint/torch_savi_ldm_movi_file-res64/model.pt"),
+    "vqvae": ("configs/vqvae_synthetic_params-res64.py",
+              "checkpoint/vqvae_synthetic_params-res64/ckpt_last",
+              "checkpoint/torch_vqvae_synthetic_params-res64/vqvae.pt"),
+    "sa": ("configs/sa_synthetic_long-res64.py",
+           "checkpoint/sa_synthetic_long-res64/ckpt_final",
+           "checkpoint/torch_sa_synthetic_long-res64/model.pt"),
+    "sa_ldm": ("configs/sa_ldm_synthetic_long-res64.py",
+               "checkpoint/sa_ldm_synthetic_long-res64/ckpt_final",
+               "checkpoint/torch_sa_ldm_synthetic_long-res64/model.pt"),
 }
-# the port's config of each JAX VQ-VAE config file
-VQVAE_CONFIGS = {"vqvae_synthetic_params-res64": "VQVAESynthetic64",
-                 "vqvae_synthetic_lpips-res64": "VQVAESyntheticLPIPS64"}
+# the port's config of each JAX config file
+PORT_CONFIGS = {"savi_ldm_movi_file-res64": "SAViLDMMoviFile64",
+                "vqvae_synthetic_params-res64": "VQVAESynthetic64",
+                "vqvae_synthetic_lpips-res64": "VQVAESyntheticLPIPS64",
+                "sa_synthetic_long-res64": "SASyntheticLong64",
+                "sa_ldm_synthetic_long-res64": "SALDMSyntheticLong64"}
 
 
 def export(params_path, weight, out, config=None, use_ema=True,
            vqvae=False):
     """Restore `weight` (built by the JAX config `params_path`), convert
-    it and write `out`; -> the written dict. With `vqvae` the checkpoint
-    is a stand-alone VQVAE run (its tree's root is the VQVAE) and
-    `config` is the port's name of that run's config (default: the
-    `VQVAE_CONFIGS` entry of the JAX file, else its file name)."""
+    it (SAViDiffusion, SADiffusion, SA) and write `out`; -> the written
+    dict. `config` is the port's name of the model's config (default:
+    the `PORT_CONFIGS` entry of the JAX file, else SAViLDMMoviFile64).
+    With `vqvae` the checkpoint is a stand-alone VQVAE run (its tree's
+    root is the VQVAE), and the default name is the JAX file's when
+    `PORT_CONFIGS` has none. `use_ema` swaps in the checkpoint's EMA of
+    dm_decoder, where the model keeps one."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
@@ -55,7 +72,7 @@ def export(params_path, weight, out, config=None, use_ema=True,
     from slotdiffusion_tpu.training.checkpoint import load_model_params
     from slotdiffusion_tpu.utils import load_params
     from slotdiffusion_tpu_torch import configs
-    from slotdiffusion_tpu_torch.convert import (convert_savi_diffusion,
+    from slotdiffusion_tpu_torch.convert import (convert_model,
                                                  convert_vqvae_state_dict)
     from slotdiffusion_tpu_torch.training.checkpoint import save_checkpoint
 
@@ -63,14 +80,16 @@ def export(params_path, weight, out, config=None, use_ema=True,
     model = build_model(jparams)
     variables = load_model_params(model, weight, jparams, use_ema=use_ema)
     tree = jax.tree_util.tree_map(np.asarray, variables["params"])
+    stem = os.path.splitext(os.path.basename(params_path))[0]
     if vqvae:
         sd = convert_vqvae_state_dict(tree, jparams.enc_dec_dict)
-        stem = os.path.splitext(os.path.basename(params_path))[0]
-        name = config or VQVAE_CONFIGS.get(stem, stem)
+        name = config or PORT_CONFIGS.get(stem, stem)
         use_ema = False
     else:
-        name = config or "SAViLDMMoviFile64"
-        sd = convert_savi_diffusion(tree, configs.get_config(name))
+        name = config or PORT_CONFIGS.get(stem, "SAViLDMMoviFile64")
+        cfg = configs.get_config(name)
+        sd = convert_model(tree, cfg)
+        use_ema = use_ema and bool(cfg.dec_dict.get("use_ema", False))
     state = {"model": sd, "config": name, "source": weight,
              "ema": bool(use_ema)}
     save_checkpoint(out, state)
@@ -79,26 +98,31 @@ def export(params_path, weight, out, config=None, use_ema=True,
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", default="savi_ldm",
+                        choices=sorted(DEFAULTS),
+                        help="whose defaults (JAX config, checkpoint, "
+                             "output) to take")
     parser.add_argument("--vqvae", action="store_true",
-                        help="export the stage-1 VQ-VAE alone")
+                        help="export the stage-1 VQ-VAE alone (the "
+                             "defaults of --model vqvae)")
     parser.add_argument("--params", default="",
                         help="the JAX config file the checkpoint trained")
     parser.add_argument("--weight", default="",
                         help="the orbax checkpoint directory")
     parser.add_argument("--config", default=None,
                         help="the port's config of the model (default: "
-                             "SAViLDMMoviFile64, or with --vqvae the "
-                             "port's name of the JAX config)")
+                             "the port's name of the JAX config)")
     parser.add_argument("--out", default="", help="the .pt to write")
     parser.add_argument("--no_ema", action="store_true",
                         help="keep the raw dm_decoder, not its EMA")
     args = parser.parse_args(argv)
-    params_path, weight, out = DEFAULTS[args.vqvae]
+    what = "vqvae" if args.vqvae else args.model
+    params_path, weight, out = DEFAULTS[what]
     params_path = args.params or os.path.join(REPO, params_path)
     weight = args.weight or os.path.join(REPO, weight)
     out = args.out or os.path.join(REPO, out)
     state = export(params_path, weight, out, args.config,
-                   use_ema=not args.no_ema, vqvae=args.vqvae)
+                   use_ema=not args.no_ema, vqvae=what == "vqvae")
     n = sum(v.numel() for v in state["model"].values())
     print(f"wrote {out}: {len(state['model'])} tensors, {n} parameters, "
           f"config {state['config']}, ema {state['ema']}, from {weight}",

@@ -6,6 +6,10 @@ counterpart of scripts/serve_model.py, with the same protocol).
     python scripts/serve_model_torch.py --artifact exports/encode.pt2 \
         --port 8787 [--cpu]
 
+The artifact may be a video model's (SAViDiffusion: clips [B, T, H, W,
+3]) or an image model's (SADiffusion: images [B, H, W, 3]); the server
+reads the shapes from its header.
+
 Protocol (numpy .npz both ways):
 
     GET  /health   -> {"status": "ok", "surface": ..., "device": ...,
@@ -16,7 +20,7 @@ Protocol (numpy .npz both ways):
 Client:
 
     import io, urllib.request, numpy as np
-    buf = io.BytesIO(); np.savez(buf, arg0=video)
+    buf = io.BytesIO(); np.savez(buf, arg0=video)   # or images
     req = urllib.request.Request("http://host:8787/predict",
                                  buf.getvalue(), method="POST")
     out = np.load(io.BytesIO(urllib.request.urlopen(req).read()))

@@ -1,12 +1,15 @@
 """Reconstruction evaluation of the PyTorch port (the counterpart of
-scripts/test_recon.py): encode each val clip to slots, decode them with
-DPM-Solver++ (one noise sample shared over a clip's frames,
-`same_noise`) and the VQ-VAE, and report MSE (summed per frame), PSNR and
-SSIM against the input frames.
+scripts/test_recon.py): encode each val clip or image to slots, decode
+them (a diffusion model: DPM-Solver++, one noise sample shared over the
+batch, `same_noise` as the JAX script passes it, then the VQ-VAE; SA: its
+spatial broadcast decoder), and report MSE (summed per frame), PSNR and
+SSIM against the inputs.
 
     python scripts/test_recon_torch.py --params SAViLDMMoviFile64 \
         --weight checkpoint/torch_savi_ldm_movi_file-res64/model.pt \
         --data_root data_local/movi_file --bs 8
+    python scripts/test_recon_torch.py --params SALDMSyntheticLong64 \
+        --weight checkpoint/torch_sa_ldm_synthetic_long-res64/model.pt
 
 Batch i samples from a generator seeded with i. LPIPS, FID and FVD are
 not computed: the weights of their networks are not in the repo. `--cpu`
@@ -62,10 +65,13 @@ def main(argv=None):
         for i, batch in enumerate(loader):
             img = batch["img"].to(device)
             gen = torch.Generator(device=device).manual_seed(i)
-            samples = model.log_images({"img": img}, gen, use_dpm=True,
-                                       same_noise=True)["samples"]
-            x = (samples * 0.5 + 0.5).clamp(0, 1).flatten(0, 1)
-            y = (img * 0.5 + 0.5).clamp(0, 1).flatten(0, 1)
+            if params.model in ("SADiffusion", "SAViDiffusion"):
+                samples = model.log_images({"img": img}, gen, use_dpm=True,
+                                           same_noise=True)["samples"]
+            else:
+                samples = model({"img": img})["recon_img"]
+            x = (samples * 0.5 + 0.5).clamp(0, 1).reshape(-1, *img.shape[-3:])
+            y = (img * 0.5 + 0.5).clamp(0, 1).reshape(-1, *img.shape[-3:])
             results = {"mse": M.mse_metric(x, y), "psnr": M.psnr_metric(x, y),
                        "ssim": M.ssim_metric(x, y)}
             for k, v in results.items():

@@ -6,10 +6,15 @@ FG-mIoU and mBO, T folded into H for a video.
     python scripts/test_seg_torch.py --params SAViLDMMoviFile64 \
         --weight checkpoint/torch_savi_ldm_movi_file-res64/model.pt \
         --data_root data_local/movi_file --split val --seq_len 2 -1
+    python scripts/test_seg_torch.py --params SASyntheticLong64 \
+        --weight checkpoint/torch_sa_synthetic_long-res64/model.pt \
+        --split val                                 # images [B, N, H, W]
 
-`--seq_len` sweeps clip lengths; -1 is the whole video, which runs in
-chunks of the training clip length with the slots carried over
-(`methods/inference.py:chunked_video_apply`). `--cpu` runs on the CPU.
+For a video model `--seq_len` sweeps clip lengths; -1 is the whole
+video, which runs in chunks of the training clip length with the slots
+carried over (`methods/inference.py:chunked_video_apply`). An image model
+(SA: its decoder's masks; SADiffusion: slot attention's, upsampled) takes
+each batch whole. `--cpu` runs on the CPU.
 """
 
 import argparse
@@ -22,7 +27,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def evaluate(params, args, model, device, seq_len, clip_len):
     """One sweep value; -> {metric: mean}. `clip_len` is the training
-    clip length, captured before the sweep changes `n_sample_frames`."""
+    clip length, captured before the sweep changes `n_sample_frames`
+    (None for an image model)."""
     import torch
 
     from slotdiffusion_tpu_torch.data import build_dataset
@@ -33,7 +39,8 @@ def evaluate(params, args, model, device, seq_len, clip_len):
     from slotdiffusion_tpu_torch.utils import AverageMeter
 
     full_video = seq_len <= 0
-    params.n_sample_frames = clip_len if full_video else seq_len
+    if clip_len is not None:
+        params.n_sample_frames = clip_len if full_video else seq_len
     params.load_mask = True
     val_set = build_dataset(params, val_only=(args.split == "test"))
     if isinstance(val_set, tuple):
@@ -48,7 +55,7 @@ def evaluate(params, args, model, device, seq_len, clip_len):
     with torch.inference_mode():
         for i, batch in enumerate(loader):
             img = batch["img"].to(device)
-            if img.shape[1] > clip_len:
+            if clip_len is not None and img.shape[1] > clip_len:
                 out = chunked_video_apply(
                     lambda x, prev: model({"img": x}, prev_slots=prev),
                     img, clip_len, keys=("slots", "masks"))
@@ -86,8 +93,11 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from slotdiffusion_tpu_torch.methods.build import eval_setup, workers
+    from slotdiffusion_tpu_torch.models import is_video
     params, model, device = eval_setup(args.params, args.weight, args.cpu,
                                        args.data_root)
+    if not is_video(params.model):  # an image model: no clips to sweep
+        return [evaluate(params, args, model, device, -1, None)]
     clip_len = params.n_sample_frames
     return [evaluate(params, args, model, device, s, clip_len)
             for s in args.seq_len]

@@ -1,5 +1,6 @@
-"""Train the PyTorch port's SAViDiffusion or its stage-1 VQ-VAE (the
-counterpart of scripts/train.py for `slotdiffusion_tpu_torch`).
+"""Train the PyTorch port's SAViDiffusion, its image models (SADiffusion
+and the SA baseline) or their stage-1 VQ-VAEs (the counterpart of
+scripts/train.py for `slotdiffusion_tpu_torch`).
 
     # stage 1, then stage 2 on its checkpoint, on the card
     python scripts/train_torch.py --params VQVAEMoviE128 \
@@ -12,13 +13,22 @@ counterpart of scripts/train.py for `slotdiffusion_tpu_torch`).
     python scripts/train_torch.py --cpu --params VQVAESynthetic64 \
         --max_steps 3                                        # stage 1, CPU
     python scripts/train_torch.py --bf16 ...                 # bf16 compute
+    python scripts/train_torch.py --params SALDMCLEVRTex128 \
+        --data_root data/CLEVRTex \
+        --vqvae_ckp_path checkpoint/torch_VQVAECLEVRTex128/ckpt_last.pt
+    python scripts/train_torch.py --cpu --params SASyntheticLong64 \
+        --max_steps 3                                        # SA, CPU
 
 `--params` names a port config (`slotdiffusion_tpu_torch.configs`): the
 flagship `SAViLDMMoviE128` (SAViDiffusion, MOVi-E 128x128, 32 clips a
 step), its siblings, `SAViLDMMoviFile64` (the repo's trained 64x64
 model), or a stage-1 VQ-VAE: `VQVAEMoviE128` (the flagship's, 64
 frames a step) and its siblings, `VQVAESynthetic64` and
-`VQVAESyntheticLPIPS64` (the repo's trained 64x64 ones). A VQ-VAE's
+`VQVAESyntheticLPIPS64` (the repo's trained 64x64 ones); the image
+family: `SALDMCLEVRTex128`, `SALDMCelebA128` (SADiffusion, 64 images a
+step), their stage 1 `VQVAECLEVRTex128`, `VQVAECelebA128`, the SA
+baseline `SACLEVRTex128`, `SACelebA128`, and the repo's trained 64x64
+`SASyntheticLong64` and `SALDMSyntheticLong64`. A VQ-VAE's
 `ckpt_last.pt` is a file that a SAViDiffusion run takes as
 `--vqvae_ckp_path` as it is. Its perceptual term is live when LPIPS
 weights are given (`--lpips_weights`, or `SLOTDIFFUSION_LPIPS_WEIGHTS`;
@@ -28,14 +38,17 @@ own init (`init_reference_`, seeded; said on stdout) and trains against
 the frozen stage-1 VQ-VAE that `--vqvae_ckp_path` names (a port-format
 checkpoint). Without that path, `SAViLDMMoviFile64` takes the repo's
 trained VQ-VAE as `scripts/export_torch_checkpoint.py --vqvae` exports
-it, the flagship refuses to start, and `--tiny` (the flagship's structure
-at narrow widths, 2 clips of 16x16 a step) keeps a random VQ-VAE.
+it (so does `SALDMSyntheticLong64`, whose JAX run trained against the
+same VQ-VAE), the other diffusion configs refuse to start, and `--tiny`
+(the flagship's structure at narrow widths, 2 clips of 16x16 a step)
+keeps a random VQ-VAE. SA has none.
 
 With `--data_root` the clips come from a MOVi-layout tree
 (`scripts/gen_movi_tree.py`; the STEVE-MOVi layout for the MOVi-Solid and
--Tex configs), else from the synthetic clips at the
-config's resolution (a config whose dataset is `synthetic_video` takes
-its own split sizes). Validation (losses; FG-ARI, mIoU, mBO for
+-Tex configs), and an image config's images from its CLEVRTex or CelebA
+tree; else from synthetic clips or images at the config's resolution (a
+config whose dataset is `synthetic_video` or `synthetic` takes its own
+split sizes). Validation (losses; FG-ARI, mIoU, mBO for
 SAViDiffusion) runs every
 `eval_interval` epochs and at the end. Checkpoints and the JSONL log go
 to `--ckp_path` (default `checkpoint/torch_<run>/`, where the run is
@@ -57,9 +70,11 @@ sys.path.insert(0, REPO)
 # default run directories that predate `--params`
 RUN_NAMES = {"SAViLDMMoviE128": "savi_ldm_movie"}
 # what `scripts/export_torch_checkpoint.py --vqvae` writes: the VQ-VAE of
-# the repo's trained SAViLDMMoviFile64
+# the repo's trained SAViLDMMoviFile64 and SALDMSyntheticLong64
 EXPORTED_VQVAE = os.path.join(
     REPO, "checkpoint/torch_vqvae_synthetic_params-res64/vqvae.pt")
+TAKES_EXPORTED_VQVAE = ("SAViLDMMoviFile64", "SALDMSyntheticLong64")
+IMAGE_DATASETS = ("synthetic", "clevrtex", "celeba")
 
 
 def main(argv=None):
@@ -106,6 +121,7 @@ def main(argv=None):
         configs.get_config(args.params)
     cfg = cfg.copy(seed=args.seed, use_bf16=args.bf16 or cfg.use_bf16)
     stage1 = cfg.model == "VQVAE"
+    ldm = cfg.model in ("SAViDiffusion", "SADiffusion")
     if stage1:
         if args.vqvae_ckp_path:
             raise SystemExit("a stage-1 VQ-VAE takes no --vqvae_ckp_path")
@@ -119,7 +135,9 @@ def main(argv=None):
                        "SLOTDIFFUSION_LPIPS_WEIGHTS)")
         print(f"the perceptual (LPIPS) term is {percept}", flush=True)
     vqvae = args.vqvae_ckp_path
-    if not vqvae and args.params == "SAViLDMMoviFile64" and not args.tiny:
+    if vqvae and not ldm:
+        raise SystemExit(f"{cfg.model} takes no --vqvae_ckp_path")
+    if not vqvae and args.params in TAKES_EXPORTED_VQVAE and not args.tiny:
         if not os.path.isfile(EXPORTED_VQVAE):
             raise SystemExit(
                 f"{EXPORTED_VQVAE} is missing: export the repo's trained "
@@ -130,10 +148,10 @@ def main(argv=None):
         print(f"the frozen VQ-VAE: {vqvae}", flush=True)
         vae = dict(cfg.dec_dict["vae_dict"], vqvae_ckp_path=vqvae)
         cfg = cfg.copy(dec_dict=dict(cfg.dec_dict, vae_dict=vae))
-    elif not args.tiny and not stage1:
+    elif not args.tiny and ldm:
         raise SystemExit("the LDM trains against a frozen stage-1 VQ-VAE: "
                          "pass --vqvae_ckp_path")
-    elif not stage1:
+    elif ldm:
         print("the VQ-VAE is random (no --vqvae_ckp_path; the repo's "
               "trained one, for --params SAViLDMMoviFile64, comes from "
               "scripts/export_torch_checkpoint.py --vqvae)", flush=True)
@@ -142,13 +160,20 @@ def main(argv=None):
     init_reference_(model, torch.Generator().manual_seed(args.seed))
     print(f"initialized from the JAX model's reference init "
           f"(init_reference_, seed {args.seed})", flush=True)
-    if args.data_root:
+    images = cfg.dataset in IMAGE_DATASETS
+    if args.data_root and images:
+        data = build_datamodule(cfg.copy(data_root=args.data_root))
+    elif args.data_root:
         # a MOVi tree, in the STEVE-MOVi layout for the configs that name it
         layout = "steve_movi" if cfg.dataset == "steve_movi" else "movi"
         data = build_datamodule(cfg.copy(data_root=args.data_root,
                                          dataset=layout))
-    elif cfg.dataset == "synthetic_video":
+    elif cfg.dataset in ("synthetic_video", "synthetic"):
         data = build_datamodule(cfg)
+    elif images:
+        data = build_datamodule(cfg.copy(dataset="synthetic",
+                                         train_samples=256,
+                                         val_samples=2 * batch))
     else:
         data = SyntheticVideoData(cfg, batch, seed=args.seed,
                                   val_samples=2 * batch)
@@ -156,7 +181,8 @@ def main(argv=None):
     trainer = build_method(model, data, cfg, ckp_path=ckp_path)
     print(f"training {name} ({cfg.model}) on {device} in "
           f"{'bf16' if cfg.use_bf16 else 'f32'}: {len(data)} steps per "
-          f"epoch of {batch} clips, checkpoints in {ckp_path}", flush=True)
+          f"epoch of {batch} {'images' if images else 'clips'}, "
+          f"checkpoints in {ckp_path}", flush=True)
     trainer.fit(max_steps=args.max_steps if args.max_steps > 0 else None,
                 resume_from=args.resume or None)
     return 0

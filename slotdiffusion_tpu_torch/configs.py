@@ -3,7 +3,11 @@
 repo's trained 64x64 SAViDiffusion (`SAViLDMMoviFile64`), and the
 stage-1 VQ-VAEs: the flagship's (`VQVAEMoviE128`) and its siblings, and
 the repo's two trained 64x64 ones (`VQVAESynthetic64`,
-`VQVAESyntheticLPIPS64`).
+`VQVAESyntheticLPIPS64`). The image family: SADiffusion on CLEVRTex and
+CelebA at 128x128 (`SALDMCLEVRTex128`, `SALDMCelebA128`) with their
+stage-1 VQ-VAEs (`VQVAECLEVRTex128`, `VQVAECelebA128`), the SA baseline
+on both (`SACLEVRTex128`, `SACelebA128`), and the repo's two trained
+64x64 image models (`SASyntheticLong64`, `SALDMSyntheticLong64`).
 
 An own copy of the settings of the JAX package's `configs_base.py:17-140,
 274-330` and `configs/video_based/savi_ldm/savi_ldm_movie_params-res128.py`
@@ -350,11 +354,213 @@ class VQVAESyntheticLPIPS64(VQVAESynthetic64):
     percept_loss_w = 1.0
 
 
+def slot_dict_for(num_slots, slot_size, num_iterations, use_pallas=True):
+    """slot_dict_for of the JAX `configs_base.py:133-139`: an MLP twice the
+    slot size; with the port's kernel knob."""
+    return dict(num_slots=num_slots, slot_size=slot_size,
+                slot_mlp_size=2 * slot_size, num_iterations=num_iterations,
+                use_pallas=use_pallas)
+
+
+class _ImageCommon(BaseParams):
+    """What every image config shares: the JAX `_Common`
+    (configs_base.py:142-149) and the port trainer's defaults."""
+    seed = 0
+    min_lr = 0.0
+    grad_accum_steps = 1
+    use_ema = False
+    ema_decay = 0.9999
+    print_iter = 50
+    use_bf16 = False
+    num_workers = 8
+    resolution = (128, 128)
+    max_obj = -1          # CLEVRTex: no object-count filter
+
+
+class SACLEVRTex128(_ImageCommon):
+    """The SA baseline on CLEVRTex at 128x128 (an own copy of the JAX
+    package's `configs/img_based/sa/sa_clevrtex_params-res128.py` over
+    `SAImgBase`, configs_base.py:156-177): 11 slots of 192, 3 iterations,
+    the GN-ResNet18 encoder, the spatial broadcast decoder (192 -> 128 x
+    4 from 8x8, 5x5 deconvs), the MSE reconstruction loss; Adam at 4e-4,
+    2.5 % warmup, no clipping, 64 images a step, 200 epochs. Its slot
+    attention runs the kernel (`use_pallas=True`, the no-mask return)."""
+    max_epochs = 200
+    save_interval = 2
+    eval_interval = 5
+    lr = 4e-4
+    clip_grad = -1.0
+    warmup_steps_pct = 0.025
+    load_mask = True
+    train_batch_size = 64
+    val_batch_size = 128
+    dataset = "clevrtex"
+    data_root = "./data/CLEVRTex"
+    model = "SA"
+    slot_dict = slot_dict_for(11, 192, 3)
+    enc_dict = dict(SAViLDMMoviE128.enc_dict)
+    dec_dict = dict(dec_channels=(192, 128, 128, 128, 128),
+                    dec_resolution=(8, 8), dec_ks=5, dec_norm="")
+    img_recon_loss_w = 1.0
+
+
+class SACelebA128(SACLEVRTex128):
+    """`configs/img_based/sa/sa_celeba_params-res128.py`: 4 slots, no
+    masks, 100 epochs."""
+    max_epochs = 100
+    dataset = "celeba"
+    data_root = "./data/CelebA"
+    load_mask = False
+    slot_dict = slot_dict_for(4, 192, 3)
+
+
+class SALDMCLEVRTex128(_ImageCommon):
+    """SADiffusion on CLEVRTex at 128x128 (an own copy of the JAX
+    package's `configs/img_based/sa_ldm/sa_ldm_clevrtex_params-res128.py`
+    over `SALDMImgBase`, configs_base.py:180-202): 11 slots of 192, 3
+    iterations, the GN-ResNet18 encoder, the flagship's LDM decoder over
+    32x32x3 latents; Adam at 1e-4, the dm_decoder at 2e-4, 5 % warmup,
+    clipping at 1.0, 64 images a step, 400 epochs. The three kernel knobs
+    as in the flagship. The JAX config names an orbax stage-1 VQ-VAE; the
+    port's leaves `vqvae_ckp_path` unset (a random VQ-VAE), and a run
+    takes a port-format file (`VQVAECLEVRTex128`'s ckpt_last.pt,
+    `scripts/train_torch.py --vqvae_ckp_path`)."""
+    max_epochs = 400
+    save_interval = 2
+    eval_interval = 4
+    lr = 1e-4
+    dec_lr = 2e-4
+    clip_grad = 1.0
+    warmup_steps_pct = 0.05
+    load_mask = True
+    train_batch_size = 64
+    val_batch_size = 128
+    dataset = "clevrtex"
+    data_root = "./data/CLEVRTex"
+    model = "SADiffusion"
+    slot_dict = slot_dict_for(11, 192, 3)
+    enc_dict = dict(SAViLDMMoviE128.enc_dict)
+    dec_dict = ldm_dec_dict((128, 128), 192)
+    denoise_loss_w = 1.0
+
+
+class SALDMCelebA128(SALDMCLEVRTex128):
+    """`configs/img_based/sa_ldm/sa_ldm_celeba_params-res128.py`: 4 slots,
+    no masks, 200 epochs, a checkpoint every half epoch, validation every
+    2."""
+    max_epochs = 200
+    save_interval = 0.5
+    eval_interval = 2
+    dataset = "celeba"
+    data_root = "./data/CelebA"
+    load_mask = False
+    slot_dict = slot_dict_for(4, 192, 3)
+
+
+class VQVAECLEVRTex128(VQVAEMoviE128):
+    """SADiffusion's stage 1 on CLEVRTex
+    (`configs/img_based/sa_ldm/vqvae_clevrtex_params-res128.py` over
+    `VQVAEImgBase`, configs_base.py:250-268): the flagship's VQ-VAE on
+    single images, 100 epochs, a checkpoint every half epoch, validation
+    every 4."""
+    max_epochs = 100
+    eval_interval = 4
+    dataset = "clevrtex"
+    data_root = "./data/CLEVRTex"
+    max_obj = -1
+
+
+class VQVAECelebA128(VQVAECLEVRTex128):
+    """`configs/img_based/sa_ldm/vqvae_celeba_params-res128.py`."""
+    dataset = "celeba"
+    data_root = "./data/CelebA"
+
+
+class SASyntheticLong64(_ImageCommon):
+    """The repo's trained SA: an own copy of the JAX package's
+    `configs/sa_synthetic_long-res64.py` over its base
+    `configs/sa_synthetic_params-res64.py`, whose checkpoint
+    `checkpoint/sa_synthetic_long-res64/ckpt_final` the export script
+    carries into the port. 64x64 synthetic images (512 train, 32 val), 16
+    a step, 320 epochs; 6 slots of 128, 3 iterations; the plain CNN
+    encoder (3 -> 64 x 4, 5x5, no norm); the decoder 128 -> 64 x 4 from
+    8x8; Adam at 4e-4, clipping at 0.05. The JAX config runs no Pallas
+    kernel: `use_pallas="auto"` (the f32 formula), as `SAViLDMMoviFile64`."""
+    max_epochs = 320
+    save_interval = 16.0
+    eval_interval = 8
+    print_iter = 64
+    lr = 4e-4
+    clip_grad = 0.05
+    warmup_steps_pct = 0.05
+    dataset = "synthetic"
+    data_root = ""
+    train_samples = 512
+    val_samples = 32
+    max_objects = 4
+    load_mask = True
+    train_batch_size = 16
+    val_batch_size = 16
+    num_workers = 2
+    model = "SA"
+    resolution = (64, 64)
+    slot_dict = dict(num_slots=6, slot_size=128, slot_mlp_size=256,
+                     num_iterations=3, use_pallas="auto")
+    enc_dict = dict(enc_channels=(3, 64, 64, 64, 64), enc_ks=5,
+                    enc_out_channels=128, enc_norm="")
+    dec_dict = dict(dec_channels=(128, 64, 64, 64, 64),
+                    dec_resolution=(8, 8), dec_ks=5, dec_norm="")
+    img_recon_loss_w = 1.0
+
+
+class SALDMSyntheticLong64(_ImageCommon):
+    """The repo's trained SADiffusion: an own copy of the JAX package's
+    `configs/sa_ldm_synthetic_long-res64.py` over
+    `configs/sa_ldm_synthetic_params-res64.py`, whose checkpoint
+    `checkpoint/sa_ldm_synthetic_long-res64/ckpt_final` the export script
+    carries into the port. 64x64 synthetic images (512 train, 32 val), 8
+    a step, 192 epochs; 6 slots of 64, 2 iterations; the plain CNN
+    encoder (3 -> 32 x 3); the 64x64 LDM of `SAViLDMMoviFile64` (a UNet
+    of 32 channels, 200 timesteps, an EMA of the decoder, the VQ-VAE of
+    512 codes). Its knobs keep the JAX config's computation, as
+    `SAViLDMMoviFile64`'s: `use_pallas="auto"`, `fused_gn=False`,
+    `attn_backend="einsum"`."""
+    max_epochs = 192
+    save_interval = 16.0
+    eval_interval = 8
+    print_iter = 64
+    lr = 1e-4
+    dec_lr = 2e-4
+    clip_grad = 0.05
+    warmup_steps_pct = 0.05
+    dataset = "synthetic"
+    data_root = ""
+    train_samples = 512
+    val_samples = 32
+    max_objects = 4
+    load_mask = True
+    train_batch_size = 8
+    val_batch_size = 8
+    num_workers = 2
+    model = "SADiffusion"
+    resolution = (64, 64)
+    slot_dict = slot_dict_for(6, 64, 2, use_pallas="auto")
+    enc_dict = dict(enc_channels=(3, 32, 32, 32), enc_ks=5,
+                    enc_out_channels=64, enc_norm="")
+    dec_dict = dict(
+        SAViLDMMoviFile64.dec_dict,
+        diffusion_dict=dict(SAViLDMMoviFile64.dec_dict["diffusion_dict"],
+                            log_every_t=50))
+    denoise_loss_w = 1.0
+
+
 CONFIGS = {c.__name__: c for c in (
     SAViLDMMoviE128, SAViLDMMoviFile64, SAViLDMMoviD128,
     SAViLDMMoviSolid128, SAViLDMMoviTex128, VQVAEMoviE128, VQVAEMoviD128,
     VQVAEMoviSolid128, VQVAEMoviTex128, VQVAESynthetic64,
-    VQVAESyntheticLPIPS64)}
+    VQVAESyntheticLPIPS64, SACLEVRTex128, SACelebA128, SALDMCLEVRTex128,
+    SALDMCelebA128, VQVAECLEVRTex128, VQVAECelebA128, SASyntheticLong64,
+    SALDMSyntheticLong64)}
 
 
 def get_config(name):

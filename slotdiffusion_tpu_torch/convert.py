@@ -4,11 +4,15 @@ Takes the flax param tree of a JAX-package model as nested dicts
 of numpy arrays (e.g. `jax.tree_util.tree_map(np.asarray, params)`) and
 returns `{name: torch.Tensor}` for `load_state_dict`. The walks are copies
 of the ones the JAX package's `models/torch_export.py` uses for
+`export_torch_sa` (:225), `export_torch_sa_diffusion` (:260) and
 `export_torch_savi_diffusion` (:287-318); the port's modules carry the
 upstream names those walks emit, so only the prefixes differ.
 
-Layout rules: conv [kh, kw, C, F] -> [F, C, kh, kw]; dense [in, out] ->
-[out, in]; norm scale/bias -> weight/bias.
+Layout rules: conv [kh, kw, C, F] -> [F, C, kh, kw]; transposed conv
+[kh, kw, C, F] -> [C, F, kh, kw] flipped in both spatial axes (flax's
+ConvTranspose convolves the dilated input with the kernel as it is,
+torch's with the kernel flipped: `_inv_deconv`, torch_export.py:189);
+dense [in, out] -> [out, in]; norm scale/bias -> weight/bias.
 """
 
 from typing import Dict, Sequence
@@ -25,6 +29,12 @@ def _conv(out, prefix, sub, bias=True):
     out[f"{prefix}.weight"] = np.transpose(_np(sub["kernel"]), (3, 2, 0, 1))
     if bias:
         out[f"{prefix}.bias"] = _np(sub["bias"])
+
+
+def _deconv(out, prefix, sub):
+    k = np.transpose(_np(sub["kernel"]), (2, 3, 0, 1))
+    out[f"{prefix}.weight"] = k[:, :, ::-1, ::-1]
+    out[f"{prefix}.bias"] = _np(sub["bias"])
 
 
 def _linear(out, prefix, sub):
@@ -174,6 +184,15 @@ def convert_resnet(params, stage_sizes, use_layer4=False):
     return out
 
 
+def _conv_norm(out, prefix, sub, norm):
+    """The norm of a ConvNormAct / DeconvNormAct: GroupNorm32_0 or
+    LayerNorm_0, or none."""
+    if norm in ("gn", "group_norm", "groupnorm"):
+        _norm(out, prefix, sub["GroupNorm32_0"])
+    elif norm:
+        _layernorm(out, prefix, sub["LayerNorm_0"])
+
+
 def convert_plain_cnn(params, num_layers, norm=""):
     """flax SAEncoder plain-CNN layers -> port `encoder.{i}` names (the
     JAX package's torch_export.py:_inv_sa_encoder_side walk): each
@@ -183,10 +202,7 @@ def convert_plain_cnn(params, num_layers, norm=""):
     for i in range(num_layers):
         sub = params[f"ConvNormAct_{i}"]
         _conv(out, f"{i}.0", sub["Conv_0"])
-        if norm in ("gn", "group_norm", "groupnorm"):
-            _norm(out, f"{i}.1", sub["GroupNorm32_0"])
-        elif norm:
-            _layernorm(out, f"{i}.1", sub["LayerNorm_0"])
+        _conv_norm(out, f"{i}.1", sub, norm)
     return out
 
 
@@ -209,6 +225,64 @@ def convert_sa_encoder(params, enc_dict):
     _linear(out, "encoder_out_layer.1", params["Dense_0"])
     _linear(out, "encoder_out_layer.3", params["Dense_1"])
     return out
+
+
+def convert_spatial_broadcast_decoder(params, dec_dict):
+    """flax SpatialBroadcastDecoder -> port names (the JAX package's
+    torch_export.py:export_torch_sa decoder walk): the position
+    embedding, one DeconvNormAct a layer, the 1x1 conv."""
+    n = len(dec_dict["dec_channels"]) - 1
+    out: Dict[str, np.ndarray] = {}
+    _linear(out, "decoder_pos_embedding.dense",
+            params["SoftPositionEmbed_0"]["Dense_0"])
+    for i in range(n):
+        sub = params[f"DeconvNormAct_{i}"]
+        _deconv(out, f"decoder.{i}.0", sub["ConvTranspose_0"])
+        _conv_norm(out, f"decoder.{i}.1", sub, dec_dict.get("dec_norm", ""))
+    _conv(out, f"decoder.{n}", params["Conv_0"])
+    return out
+
+
+def _slot_encoder(out, params, enc_dict):
+    """The encode side an image model shares: `init_latents`, the
+    SAEncoder and slot attention."""
+    out["init_latents"] = _np(params["init_latents"])
+    out.update({f"encoder.{k}": v for k, v in convert_sa_encoder(
+        params["encoder"], enc_dict).items()})
+    out.update({f"slot_attention.{k}": v for k, v in convert_slot_attention(
+        params["slot_attention"]).items()})
+
+
+def convert_sa(params, cfg) -> Dict[str, torch.Tensor]:
+    """flax SA params -> port SA state_dict, for the config `cfg`."""
+    out: Dict[str, np.ndarray] = {}
+    _slot_encoder(out, params, cfg.enc_dict)
+    out.update({f"decoder.{k}": v for k, v in
+                convert_spatial_broadcast_decoder(
+                    params["decoder"], cfg.dec_dict).items()})
+    return _tensors(out)
+
+
+def convert_sa_diffusion(params, cfg) -> Dict[str, torch.Tensor]:
+    """flax SADiffusion params -> port SADiffusion state_dict, for the
+    config `cfg`."""
+    out: Dict[str, np.ndarray] = {}
+    _slot_encoder(out, params, cfg.enc_dict)
+    out.update({f"dm_decoder.{k}": v for k, v in convert_diffusion(
+        params["dm_decoder"], cfg.dec_dict).items()})
+    return _tensors(out)
+
+
+def convert_model(params, cfg) -> Dict[str, torch.Tensor]:
+    """flax params of the model `cfg.model` names -> the port's
+    state_dict."""
+    fn = {"SA": convert_sa, "SADiffusion": convert_sa_diffusion,
+          "SAViDiffusion": convert_savi_diffusion}.get(cfg.model)
+    if fn is None:
+        if cfg.model == "VQVAE":
+            return convert_vqvae_state_dict(params, cfg.enc_dec_dict)
+        raise ValueError(f"model {cfg.model!r} is not ported yet")
+    return fn(params, cfg)
 
 
 def convert_transformer_predictor(params, num_layers):

@@ -1,8 +1,8 @@
 """Data of the port (the counterpart of the JAX package's data/builders.py
-:11-157 for `dataset="movi"`, `"steve_movi"` and `"synthetic_video"`):
-`build_dataset` returns the datasets a config names, `build_datamodule`
-batches them with `loader.DataModule`. The other datasets are not ported
-yet."""
+:11-157 for `dataset="movi"`, `"steve_movi"`, `"synthetic_video"`,
+`"synthetic"`, `"clevrtex"` and `"celeba"`): `build_dataset` returns the
+datasets a config names, `build_datamodule` batches them with
+`loader.DataModule`. The other datasets are not ported yet."""
 
 
 def build_dataset(params, val_only=False):
@@ -15,6 +15,16 @@ def build_dataset(params, val_only=False):
             params, getattr(params, "train_samples", 256),
             getattr(params, "val_samples", 32))
         return val if val_only else (train, val)
+    if name == "synthetic":
+        from .synthetic import synthetic_image_splits
+        train, val = synthetic_image_splits(params)
+        return val if val_only else (train, val)
+    if name == "clevrtex":
+        from .clevrtex import build_clevrtex_dataset
+        return build_clevrtex_dataset(params, val_only=val_only)
+    if name == "celeba":
+        from .celeba import build_celeba_dataset
+        return build_celeba_dataset(params, val_only=val_only)
     if name in ("movi", "steve_movi"):
         from .movi import build_movi_dataset
         return build_movi_dataset(params, val_only=val_only)

@@ -18,22 +18,14 @@ tries another clip.
 """
 
 import hashlib
-import os
 import os.path as osp
 
 import numpy as np
 from torch.utils.data import Dataset
 
-from ..utils import dump_obj, glob_all, load_obj
+from ..utils import cache_dir, dump_obj, glob_all, load_obj
 from .loader import SampleError
 from .transforms import BaseTransforms, suppress_mask_idx
-
-_REPO = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
-
-
-def _cache_dir():
-    return os.environ.get("SLOTDIFFUSION_CACHE", osp.join(
-        _REPO, ".cache", "slotdiffusion_tpu_torch"))
 
 
 class MOViDataset(Dataset):
@@ -67,7 +59,7 @@ class MOViDataset(Dataset):
 
     def _index_clips(self):
         tag = hashlib.md5(osp.abspath(self.data_root).encode()).hexdigest()
-        cache = osp.join(_cache_dir(), "splits", "MOVi",
+        cache = osp.join(cache_dir(), "splits", "MOVi",
                          f"{self.level}-{self.layout}-{tag[:8]}",
                          f"{self.split}.json")
         if osp.isfile(cache):

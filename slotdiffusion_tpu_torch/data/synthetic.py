@@ -1,9 +1,11 @@
-"""Synthetic video clips for training without data on disk (an own numpy
-copy of the JAX package's data/synthetic.py:145-189
-`SyntheticVideoDataset`): squares of random colours drifting with constant
-velocity over a dark background, `img` in [-1, 1] as [T, H, W, 3] and
-the object ids as `masks` [T, H, W] (with `load_mask`), every clip a
-function of (seed, index).
+"""Synthetic images and video clips for training without data on disk
+(own numpy copies of the JAX package's data/synthetic.py:18-72
+`SyntheticImageDataset` and :145-189 `SyntheticVideoDataset`): squares
+and discs of random colours over a gradient background (images), or
+squares drifting with constant velocity over a dark background (clips);
+`img` in [-1, 1] as [H, W, 3] or [T, H, W, 3] and the object ids as
+`masks` [H, W] or [T, H, W] (with `load_mask`), every sample a function
+of (seed, index), bit-identical to the JAX dataset's.
 
 `SyntheticVideoData` batches them through `data.loader.DataModule`, in
 the order of the JAX package's loader: a permutation seeded by
@@ -15,6 +17,74 @@ import numpy as np
 from torch.utils.data import Dataset
 
 from .loader import DataModule
+
+
+def _render_scene(rng, resolution, max_objects=4):
+    """A gradient background and 1..`max_objects` coloured squares or
+    discs; -> (img float32 [H, W, 3] in [0, 1], mask int32 [H, W])."""
+    H, W = resolution
+    gy = np.linspace(0, 1, H)[:, None]
+    gx = np.linspace(0, 1, W)[None, :]
+    bg_color = rng.rand(3) * 0.4
+    img = np.zeros((H, W, 3), np.float32)
+    for c in range(3):
+        img[..., c] = bg_color[c] + 0.2 * (gy * rng.rand() + gx * rng.rand())
+    mask = np.zeros((H, W), np.int32)
+    n_obj = rng.randint(1, max_objects + 1)
+    ys, xs = np.mgrid[0:H, 0:W]
+    for i in range(n_obj):
+        color = 0.4 + 0.6 * rng.rand(3)
+        size = rng.randint(max(H // 8, 3), max(H // 3, 5))
+        cy = rng.randint(0, H)
+        cx = rng.randint(0, W)
+        if rng.rand() < 0.5:  # square
+            sel = (np.abs(ys - cy) < size // 2) & (np.abs(xs - cx) < size // 2)
+        else:  # disc
+            sel = (ys - cy) ** 2 + (xs - cx) ** 2 < (size // 2) ** 2
+        img[sel] = color
+        mask[sel] = i + 1
+    return np.clip(img, 0.0, 1.0), mask
+
+
+class SyntheticImageDataset(Dataset):
+    """{"img": float32 [H, W, 3] in [-1, 1], "masks": int32 [H, W] (with
+    `load_mask`), "data_idx"}, the CLEVRTex sample's layout."""
+
+    def __init__(self, resolution=(64, 64), num_samples=128, max_objects=4,
+                 load_mask=True, seed=0):
+        self.resolution = tuple(resolution)
+        self.num_samples = num_samples
+        self.max_objects = max_objects
+        self.load_mask = load_mask
+        self.seed = seed
+
+    def __len__(self):
+        return self.num_samples
+
+    def __getitem__(self, idx):
+        rng = np.random.RandomState(self.seed * 100003 + idx)
+        img, mask = _render_scene(rng, self.resolution, self.max_objects)
+        out = {"img": (img * 2.0 - 1.0).astype(np.float32),
+               "data_idx": np.int32(idx)}
+        if self.load_mask:
+            out["masks"] = mask
+        return out
+
+
+def synthetic_image_splits(params):
+    """The JAX builder's "synthetic" splits (data/builders.py:14-28): train
+    (seed 0, `train_samples`, 512 by default) and val (seed 1,
+    `val_samples`, 64) at the config's resolution, with its `max_objects`
+    (4) and `load_mask` (True)."""
+    kw = dict(resolution=tuple(params.resolution),
+              max_objects=getattr(params, "max_objects", 4),
+              load_mask=getattr(params, "load_mask", True))
+    return (SyntheticImageDataset(
+                num_samples=getattr(params, "train_samples", 512), seed=0,
+                **kw),
+            SyntheticImageDataset(
+                num_samples=getattr(params, "val_samples", 64), seed=1,
+                **kw))
 
 
 class SyntheticVideoDataset(Dataset):

@@ -1,9 +1,12 @@
 """Trainer configuration per model (mirrors the JAX package's
-methods/build.py:25-131 for SAViDiffusion and VQVAE): for SAViDiffusion
-the `dm_decoder` LR group at `dec_lr` and the segmentation metrics of
-each validation batch (`seg_metrics_fn`); for the stage-1 VQVAE one LR
-group and no metrics beyond its losses; the run's seed for both. The
-COCO/VOC `inst/` and `sem/` dual protocol is not ported yet."""
+methods/build.py:25-131 for SAViDiffusion, SADiffusion, SA and VQVAE):
+for the diffusion models the `dm_decoder` LR group at `dec_lr`; for the
+slot models the segmentation metrics of each validation batch
+(`seg_metrics_fn`; SA's from its decoder's masks); for the stage-1
+VQVAE one LR group and no metrics beyond its losses; the run's seed for
+all. Each loss is weighted by the config's `<loss>_w` (the trainer's
+lookup: SA's `img_recon_loss_w`). The COCO/VOC `inst/` and `sem/` dual
+protocol is not ported yet."""
 
 import torch
 
@@ -42,10 +45,10 @@ def build_method(model, datamodule, params, ckp_path=None):
     if params.model == "VQVAE":
         return Trainer(model, datamodule, params, ckp_path=ckp_path,
                        seed=params.seed)
-    if params.model != "SAViDiffusion":
+    if params.model not in ("SAViDiffusion", "SADiffusion", "SA"):
         raise ValueError(f"training {params.model!r} is not ported yet")
-    lr_groups = {"dm_decoder": params.dec_lr} \
-        if params.dec_lr != params.lr else None
+    dec_lr = getattr(params, "dec_lr", params.lr)  # SA: no dm_decoder
+    lr_groups = {"dm_decoder": dec_lr} if dec_lr != params.lr else None
     return Trainer(model, datamodule, params, ckp_path=ckp_path,
                    lr_groups=lr_groups, seed=params.seed,
                    host_metrics_fn=seg_metrics_fn)

@@ -12,14 +12,22 @@ def compute_dtype_of(params):
     return torch.bfloat16 if params.use_bf16 else torch.float32
 
 
+def is_video(name):
+    """Whether the model `name` (a config's `model`, or the class name of
+    what `build_model` made of it) takes clips [B, T, H, W, 3] rather than
+    images [B, H, W, 3] (as the JAX scripts/export_model.py:62-66 tells
+    them apart)."""
+    return name.startswith(("SAVi", "STEVE"))
+
+
 def build_model(params, device="cuda"):
-    """Instantiate the model named by `params.model` (SAViDiffusion, or
-    the stage-1 VQVAE from `params.enc_dec_dict` and `params.vq_dict`)
-    on `device`, in eval mode. Parameters are f32 whatever the compute
-    dtype (`compute_dtype_of`), so a bf16 model loads an f32 checkpoint
-    and trains f32 master weights. A VQVAE reads its LPIPS weights from
-    `params.lpips_weights` when the config sets it (else from
-    `SLOTDIFFUSION_LPIPS_WEIGHTS`, ops/lpips.py)."""
+    """Instantiate the model named by `params.model` (SAViDiffusion,
+    SADiffusion, SA, or the stage-1 VQVAE from `params.enc_dec_dict` and
+    `params.vq_dict`) on `device`, in eval mode. Parameters are f32
+    whatever the compute dtype (`compute_dtype_of`), so a bf16 model
+    loads an f32 checkpoint and trains f32 master weights. A VQVAE reads
+    its LPIPS weights from `params.lpips_weights` when the config sets it
+    (else from `SLOTDIFFUSION_LPIPS_WEIGHTS`, ops/lpips.py)."""
     dtype = compute_dtype_of(params)
     if params.model == "VQVAE":
         from .vqvae import VQVAE
@@ -31,6 +39,17 @@ def build_model(params, device="cuda"):
             resolution=tuple(params.resolution), slot_dict=params.slot_dict,
             enc_dict=params.enc_dict, dec_dict=params.dec_dict,
             pred_dict=params.pred_dict, compute_dtype=dtype)
+    elif params.model == "SADiffusion":
+        from .slot_diffusion import SADiffusion
+        model = SADiffusion(
+            resolution=tuple(params.resolution), slot_dict=params.slot_dict,
+            enc_dict=params.enc_dict, dec_dict=params.dec_dict,
+            compute_dtype=dtype)
+    elif params.model == "SA":
+        from .sa import SA
+        model = SA(resolution=tuple(params.resolution),
+                   slot_dict=params.slot_dict, enc_dict=params.enc_dict,
+                   dec_dict=params.dec_dict, compute_dtype=dtype)
     else:
         raise ValueError(f"model {params.model!r} is not ported yet")
     return model.to(device).eval()
@@ -58,27 +77,30 @@ def init_random_(model, generator):
     return model
 
 
-# The flax initializers the JAX package's SAViDiffusion uses, as
+# The flax initializers the JAX package's models use, as
 # (scale, mode, distribution) of `variance_scaling`
 LECUN_NORMAL = (1.0, "fan_in", "truncated_normal")  # flax's default kernels
 RESNET_CONV = (2.0, "fan_out", "truncated_normal")  # models/resnet.py:21
 CONV_BLOCK = (1.0 / 3.0, "fan_in", "uniform")       # models/blocks.py:26
 
 
-def _fans(shape):
+def _fans(shape, transposed=False):
     """(fan_in, fan_out) of a port weight counted in the JAX layout: a
     linear [out, in] is flax's [in, out], a conv [F, C, kh, kw] is flax's
-    [kh, kw, C, F], so fan_in = C*kh*kw and fan_out = F*kh*kw."""
+    [kh, kw, C, F], so fan_in = C*kh*kw and fan_out = F*kh*kw; a
+    transposed conv's [C, F, kh, kw] (`transposed`) is flax's
+    ConvTranspose [kh, kw, C, F]."""
     receptive = math.prod(shape[2:])
-    return shape[1] * receptive, shape[0] * receptive
+    fan_in, fan_out = shape[1] * receptive, shape[0] * receptive
+    return (fan_out, fan_in) if transposed else (fan_in, fan_out)
 
 
-def _variance_scaling(shape, init, generator):
+def _variance_scaling(shape, init, generator, transposed=False):
     """flax's `variance_scaling(scale, mode, distribution)`: variance
     scale / fan; the truncated normal is cut at +-2 and rescaled by
     1 / 0.87962566 (its std on [-2, 2]) so its std is sqrt(scale / fan)."""
     scale, mode, distribution = init
-    fan_in, fan_out = _fans(shape)
+    fan_in, fan_out = _fans(shape, transposed)
     std = math.sqrt(scale / (fan_in if mode == "fan_in" else fan_out))
     if distribution == "uniform":
         u = torch.rand(shape, generator=generator, dtype=torch.float64)
@@ -115,18 +137,23 @@ def init_reference_(model, generator):
       SpatialTransformer's proj_out and the UNet's output conv
       (models/unet.py:210, 299, 617);
     - ones: norm scales (models/blocks.py:43-45, flax LayerNorm/GroupNorm);
-    - N(0, 1): `init_latents` (models/savi.py:76-78);
+    - N(0, 1): `init_latents` (models/savi.py:76-78, models/sa.py:153,
+      models/slot_diffusion.py:88);
     - U(-1/n, 1/n): the VQ codebook of n entries (models/vqvae.py:206),
       in SAViDiffusion's frozen VQ-VAE and in a bare stage-1 VQVAE;
     - per-gate orthogonal [D, D] blocks: the GRU's recurrent weight
       (models/slot_attention.py:55-61);
     - `RESNET_CONV` for the GN-ResNet's convs, `CONV_BLOCK` for any other
-      conv of the SA encoder (the plain-CNN branch);
+      conv of the SA encoder (the plain-CNN branch) and for the spatial
+      broadcast decoder's transposed convs (models/blocks.py:225, fans of
+      flax's [kh, kw, C, F] layout);
     - lecun_normal (`LECUN_NORMAL`) for every other matrix and kernel:
       dense layers, attention projections, the other convs (every conv
       of a VQ-VAE).
     The values are drawn in float64 on the CPU and copied in."""
+    from .blocks import ConvTranspose2d
     from .resnet import ResNet
+    from .sa import SAEncoder
     from .unet import ResBlock, SpatialTransformer, UNetModel
     from .vqvae import VectorQuantizer
     zero = {id(m.out_layers[-1].weight) for m in model.modules()
@@ -139,9 +166,10 @@ def init_reference_(model, generator):
                  if isinstance(m, VectorQuantizer)}
     resnet = {id(p) for m in model.modules() if isinstance(m, ResNet)
               for p in m.parameters() if p.dim() == 4}
-    savi = getattr(model, "savi", None)  # a bare VQVAE has none
-    enc_convs = set() if savi is None else {
-        id(p) for p in savi.encoder.parameters() if p.dim() == 4}
+    enc_convs = {id(p) for m in model.modules() if isinstance(m, SAEncoder)
+                 for p in m.parameters() if p.dim() == 4}
+    deconvs = {id(m.weight) for m in model.modules()
+               if isinstance(m, ConvTranspose2d)}
     for name, p in model.named_parameters():
         if id(p) in zero:
             v = torch.zeros(p.shape)
@@ -160,6 +188,9 @@ def init_reference_(model, generator):
             v = _variance_scaling(p.shape, RESNET_CONV, generator)
         elif id(p) in enc_convs:
             v = _variance_scaling(p.shape, CONV_BLOCK, generator)
+        elif id(p) in deconvs:
+            v = _variance_scaling(p.shape, CONV_BLOCK, generator,
+                                  transposed=True)
         else:
             v = _variance_scaling(p.shape, LECUN_NORMAL, generator)
         p.copy_(v.to(p.dtype))

@@ -1,5 +1,5 @@
 """Shared building blocks, NCHW (mirrors the JAX package's models/blocks.py:
-31-193, 237-313).
+31-313).
 
 Compute dtype, flax's way (`use_bf16`): parameters stay f32 under the
 same names, and each layer casts its input and its weights to its
@@ -75,6 +75,23 @@ class Conv2d(nn.Conv2d):
             return super().forward(x.float())
         return add_bias(self._conv_forward(x.to(dt), self.weight.to(dt),
                                            None), self.bias, (-1, 1, 1))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """`nn.ConvTranspose2d` computing in `compute_dtype`, as `Conv2d`."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x.float())
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
+                               self.stride, self.padding,
+                               self.output_padding)
+        return add_bias(y, self.bias, (-1, 1, 1))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -233,3 +250,24 @@ class ConvNormAct(nn.Sequential):
         (t, b), (l, r) = (same_padding(n, k, s) for n, k, s in zip(
             x.shape[2:], conv.kernel_size, conv.stride))
         return self[2](self[1](conv(F.pad(x, (l, r, t, b)))))
+
+
+class DeconvNormAct(nn.Sequential):
+    """ConvTranspose2d -> norm -> activation, NCHW, in `compute_dtype`
+    (the JAX package's DeconvNormAct): `ConvTranspose2d(k, s,
+    padding=k // 2, output_padding=s - 1)`, so the output is exactly `s`
+    times the input, with the JAX module's asymmetric crop: a transposed
+    convolution padded (k - 1 - k // 2) before and that plus s - 1 after
+    (flax's "SAME" split would shift the pixels by one at stride 2).
+    Modules `0` (deconv), `1` (norm or Identity), `2` (activation or
+    Identity), as upstream's `deconv_norm_act` names them."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=5, stride=2,
+                 norm="", act="relu", compute_dtype=torch.float32):
+        super().__init__(
+            ConvTranspose2d(in_channels, out_channels, kernel_size, stride,
+                            padding=kernel_size // 2,
+                            output_padding=stride - 1,
+                            compute_dtype=compute_dtype),
+            get_norm(norm, out_channels, compute_dtype) or nn.Identity(),
+            get_act(act) or nn.Identity())

@@ -8,31 +8,16 @@ attention on the previous frame's slots.
 """
 
 import torch
-from torch import nn
 
 from .predictor import build_predictor
-from .sa import SAEncoder
-from .slot_attention import SlotAttention
+from .sa import SlotEncoding
 
 
-class SAVi(nn.Module):
+class SAVi(SlotEncoding):
     def __init__(self, resolution, slot_dict, enc_dict, pred_dict, eps=1e-6,
                  compute_dtype=torch.float32):
-        super().__init__()
-        self.num_slots = slot_dict["num_slots"]
-        self.slot_size = slot_dict["slot_size"]
-        self.init_latents = nn.Parameter(
-            torch.zeros(1, self.num_slots, self.slot_size))
-        self.compute_dtype = compute_dtype
-        self.encoder = SAEncoder(enc_dict, resolution, compute_dtype)
-        self.slot_attention = SlotAttention(
-            in_features=enc_dict["enc_out_channels"],
-            num_iterations=slot_dict["num_iterations"],
-            slot_size=self.slot_size,
-            mlp_hidden_size=slot_dict["slot_mlp_size"], eps=eps,
-            return_last_attn=True,
-            use_pallas=slot_dict.get("use_pallas", "auto"),
-            compute_dtype=compute_dtype)
+        super().__init__(resolution, slot_dict, enc_dict, eps,
+                         return_last_attn=True, compute_dtype=compute_dtype)
         self.predictor = build_predictor(pred_dict, self.slot_size,
                                          compute_dtype)
 
@@ -46,8 +31,7 @@ class SAVi(nn.Module):
         prev = prev_slots
         for t in range(T):
             if prev is None:
-                init = self.init_latents.to(self.compute_dtype).expand(
-                    B, -1, -1)
+                init = self.init_slots(B)
             else:
                 init = self.predictor(prev)
             prev, mask = self.slot_attention(feats[:, t], init)

@@ -1,14 +1,18 @@
 """Serving surfaces of the port: live callables, one CUDA graph per
 surface and input shape, and exported artifacts (mirrors the JAX
-package's serving.py:35-137).
+package's serving.py:35-137), for the video model (SAViDiffusion) and the
+image model (SADiffusion):
 
 - ``encode``  img [B, T, H, W, 3] -> (slots [B, T, S, D],
-  masks [B, T, S, H, W]);
+  masks [B, T, S, H, W]); an image [B, H, W, 3] -> (slots [B, S, D],
+  masks [B, S, H, W]);
 - ``sample``  (seed, slots [B, T, S, D]) -> imgs [B, T, H, W, 3]: the
-  DPM-Solver++ chain over the B*T frames, then VQ decode;
+  DPM-Solver++ chain over the B*T frames, then VQ decode; image slots
+  [B, S, D] -> imgs [B, H, W, 3];
 - ``denoise`` (x_t [B*T, h, w, C], t [B*T], slots) -> the UNet output.
 
-Each surface is a module that holds only the submodules it runs (SAVi for
+Each surface is a module that holds only the submodules it runs (SAVi,
+or the image model's encoder, slot attention and `init_latents`, for
 `encode`, the UNet for `denoise`, the LDM for `sample`). On a CUDA device
 `build_serving_fn` replays it from one `torch.cuda.CUDAGraph` per input
 shapes and dtypes (`CudaGraphed`), the port's counterpart of the JAX
@@ -53,8 +57,9 @@ from torch import nn
 import numpy as np
 
 from . import ops
+from .models import is_video
 from .models.diffusion import denoise_nhwc
-from .models.slot_diffusion import encode_video
+from .models.slot_diffusion import encode_image, encode_video
 from .ops.dpm_solver import SAMPLER, sample_denoiser
 
 MAGIC = "slotdiffusion-tpu-torch-export-v1"
@@ -80,11 +85,20 @@ def draw_noise(seed, shape, device):
 class _Encode(nn.Module):
     def __init__(self, model):
         super().__init__()
-        self.savi = model.savi
         self.resolution = tuple(model.resolution)
+        self.video = is_video(type(model).__name__)
+        if self.video:
+            self.savi = model.savi
+        else:
+            self.encoder = model.encoder
+            self.slot_attention = model.slot_attention
+            self.init_latents = model.init_latents
+            self.compute_dtype = model.compute_dtype
 
     def forward(self, img):
-        return encode_video(self.savi, self.resolution, img)
+        if self.video:
+            return encode_video(self.savi, self.resolution, img)
+        return encode_image(self, self.resolution, img)
 
 
 class _Denoise(nn.Module):
@@ -248,9 +262,20 @@ class Surface:
             return self.program(*self.program_args(*args))
 
 
+def data_shape(params, batch):
+    """A request's input shape for the config `params`: `batch` videos
+    [B, T, H, W, 3] of a video model, `batch` images [B, H, W, 3] of an
+    image model (the JAX scripts/export_model.py:62-66)."""
+    shape = (batch, *params.resolution, 3)
+    if is_video(params.model):
+        return (batch, params.n_sample_frames, *shape[1:])
+    return shape
+
+
 def example_args(model, what, data_shape):
     """Zero arguments of one `what` request on video of `data_shape`
-    [B, T, H, W, 3] (the JAX `build_serving_fn`'s): encode (img,); sample
+    [B, T, H, W, 3], or images [B, H, W, 3] (the JAX
+    `build_serving_fn`'s): encode (img,); sample
     (seed, slots); denoise (x_t, t, slots), t f32 (the sampler's model
     time is fractional). Slots are f32, as a client sends them."""
     f32 = torch.float32
@@ -267,9 +292,10 @@ def example_args(model, what, data_shape):
 
 
 def build_serving_fn(model, what, data_shape=None, graphed=None):
-    """-> a `Surface` for `what` of a built SAViDiffusion `model`, on the
-    model's device; with `data_shape` (the video shape [B, T, H, W, 3]),
-    -> (surface, `example_args`). `graphed` (default: on a CUDA device)
+    """-> a `Surface` for `what` of a built SAViDiffusion or SADiffusion
+    `model`, on the model's device; with `data_shape` (the video shape
+    [B, T, H, W, 3], or the images' [B, H, W, 3]), -> (surface,
+    `example_args`). `graphed` (default: on a CUDA device)
     replays CUDA graphs; `graphed=False` runs eagerly."""
     device = next(model.parameters()).device
     graphed = device.type == "cuda" if graphed is None else graphed

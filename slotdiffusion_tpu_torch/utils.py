@@ -1,12 +1,22 @@
 """Host-side helpers of the port (own copies of the JAX package's
 utils/misc.py:17-75): the running mean of a metric, pickle/JSON files,
-sorted globs."""
+sorted globs, the datasets' cache directory."""
 
 import glob
 import json
 import math
 import os
 import pickle
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def cache_dir():
+    """Where the datasets cache their file lists: `SLOTDIFFUSION_CACHE`,
+    by default `.cache/slotdiffusion_tpu_torch/` in the repo."""
+    return os.environ.get("SLOTDIFFUSION_CACHE", os.path.join(
+        _REPO, ".cache", "slotdiffusion_tpu_torch"))
 
 
 class AverageMeter:

@@ -10,8 +10,9 @@ import numpy as np
 from slotdiffusion_tpu.models import build_model as build_jax_model
 from slotdiffusion_tpu.utils import BaseParams
 from slotdiffusion_tpu_torch import configs
-from slotdiffusion_tpu_torch.convert import convert_savi_diffusion
+from slotdiffusion_tpu_torch.convert import convert_model
 from slotdiffusion_tpu_torch.models import build_model as build_torch_model
+from slotdiffusion_tpu_torch.models import is_video
 
 RES = (16, 16)          # image; latents and ResNet features are 4x4
 SLOTS, SLOT_SIZE = 3, 32
@@ -38,11 +39,13 @@ def jax_params_of(cfg):
     p = BaseParams()
     for k in ("model", "resolution", "enc_dict", "dec_dict", "pred_dict",
               "use_bf16"):
-        setattr(p, k, getattr(cfg, k))
+        if hasattr(cfg, k):
+            setattr(p, k, getattr(cfg, k))
     p.slot_dict = {k: v for k, v in cfg.slot_dict.items()
                    if k != "use_pallas"}
     p.loss_dict = dict(use_denoise_loss=True)
-    p.n_sample_frames = T_FRAMES
+    if is_video(cfg.model):
+        p.n_sample_frames = T_FRAMES
     return p
 
 
@@ -80,18 +83,20 @@ def random_params(shapes, seed=0):
 def build_pair(use_pallas=True, seed=0, use_bf16=False, cfg=None):
     """-> (cfg, jax model, jax variables, port model on the CPU), both
     holding the same seeded (f32) weights and computing in bf16 under
-    `use_bf16`; `cfg` replaces the tiny config."""
+    `use_bf16`; `cfg` (a video or an image model's) replaces the tiny
+    config."""
     cfg = tiny_config(use_pallas, use_bf16) if cfg is None else cfg
     jmodel = build_jax_model(jax_params_of(cfg))
     rngs = {n: jax.random.PRNGKey(i) for i, n in enumerate(
         ("params", "diffusion", "dropout"))}
+    x = video() if is_video(cfg.model) else images()
     shapes = jax.eval_shape(
         lambda r, x: jmodel.init(r, {"img": x}, method=jmodel.compute_losses),
-        rngs, jnp.asarray(video()))
+        rngs, jnp.asarray(x))
     params = random_params(shapes["params"], seed)
     tmodel = build_torch_model(cfg, device="cpu")
     missing, unexpected = tmodel.load_state_dict(
-        convert_savi_diffusion(params, cfg), strict=True)
+        convert_model(params, cfg), strict=True)
     assert not missing and not unexpected
     jvars = {"params": jax.tree_util.tree_map(jnp.asarray, params)}
     return cfg, jmodel, jvars, tmodel
@@ -99,3 +104,52 @@ def build_pair(use_pallas=True, seed=0, use_bf16=False, cfg=None):
 
 def t2n(x):
     return x.detach().cpu().numpy()
+
+
+# ---- the image family (tests/test_torch_images.py) -----------------------
+
+IMG_ITERS = 3
+IMG_TIMESTEPS = 10  # DDIM takes min(200, T) steps: 10 keep it cheap
+
+
+def tiny_image_config(model="SADiffusion", use_pallas=False):
+    """The image configs' structure at narrow widths, 16x16, 3 slots of 32
+    over 3 iterations. SADiffusion: the GN-ResNet18 encoder (4x4
+    features, so eval masks are upsampled) and the tiny flagship's LDM
+    (4x4x3 latents, 10 timesteps); SA: the plain CNN encoder (3 -> 16 ->
+    16, 5x5, as the trained SA's) and the spatial broadcast decoder 32 ->
+    16 x 3 from 4x4 (two stride-2 deconvs, then one of stride 1)."""
+    base = configs.SALDMCLEVRTex128 if model == "SADiffusion" else \
+        configs.SACLEVRTex128
+    video = configs.tiny_config(RES, SLOTS, SLOT_SIZE, IMG_TIMESTEPS)
+    cfg = base().copy(
+        resolution=RES, train_batch_size=2, val_batch_size=2,
+        dataset="synthetic", train_samples=4, val_samples=4,
+        slot_dict=configs.slot_dict_for(SLOTS, SLOT_SIZE, IMG_ITERS,
+                                        use_pallas))
+    if model == "SADiffusion":
+        cfg.enc_dict = dict(video.enc_dict)
+        cfg.dec_dict = video.dec_dict
+    else:
+        cfg.enc_dict = dict(enc_channels=(3, 16, 16), enc_ks=5,
+                            enc_out_channels=SLOT_SIZE, enc_norm="")
+        cfg.dec_dict = dict(dec_channels=(SLOT_SIZE, 16, 16, 16),
+                            dec_resolution=(4, 4), dec_ks=5, dec_norm="")
+    return cfg
+
+
+def images(seed=0, B=2):
+    return np.random.RandomState(seed).uniform(
+        -1, 1, (B, *RES, 3)).astype(np.float32)
+
+
+def jax_sad_loss(m, img, t, noise):
+    """The JAX SADiffusion's denoising loss at fixed timesteps and latent
+    noise (`m.apply(..., method=jax_sad_loss)`): q_sample + denoise
+    composed here, as `make_rng` draws can never equal a torch
+    Generator's."""
+    out = m({"img": img}, train=True)
+    dm = m.dm_decoder
+    pred = dm.denoise(dm.q_sample(dm.encode_latent(img), t, noise), t,
+                      context=out["slots"], train=False)
+    return jnp.mean((pred - noise) ** 2)
