@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`slotdiffusion_tpu_torch`) on one CUDA
 card: build the kernels, hold each against its plain version, serve and
-train the flagship SAViDiffusion and the image models (SADiffusion, SA)
-at full width, and report.
+train the flagship SAViDiffusion, the image models (SADiffusion, SA) and
+the token and reconstruction baselines (SAVi, the dVAE, STEVE, SLATE) at
+full width, and report.
 
     python3 chip_smoke.py
 
@@ -160,10 +161,41 @@ Phases (one flushed line each, with elapsed seconds):
      training steps at 64 images (else 32, 16), slot attention in every
      step; wall seconds and peak memory beside the card's name and power
      limit;
- 12. one JSON line listing every kernel (times per serving request;
+ 12. the token and reconstruction baselines at full width (random
+     weights, seed 0): SAVi (`SAViMoviE128`: 15 slots x 2 iterations, no
+     masks, the spatial broadcast decoder) refuses an `encode` surface,
+     has slot attention's no-mask return held against its plain version
+     at its training step's shape (B = 32 a frame, N = 1024, S = 15, D =
+     192, M = 384), timed, bit-identical on a repeat, and trains 3 steps
+     at the config's 32 clips x 3 frames (else 16, 8, 4) and validates 2
+     batches of 8 clips with masks (its decoder's masks: FG-ARI, mIoU,
+     mBO); the dVAE (`DVAEMoviE128`) trains 3 steps at 64 frames (else
+     32, 16) with its gumbel temperature moving and no kernel launched
+     (its one-group norms are `F.group_norm`), writing ckpt_last.pt;
+     STEVE (`STEVEMoviE128`) grafts that file through `graft_pretrained`
+     (its dVAE bit-identical), serves `encode` of 2 clips eagerly and from
+     a CUDA graph (bit for bit, 3 slot attention launches each), trains 3
+     steps at 32 clips (slot attention at its training shape checked and
+     timed first), validates (losses: its masks are at the visual
+     resolution and the JAX metrics take no upsampling) and reconstructs
+     the 2 clips with `recon_img` (6 frames x 1024 tokens of 4096 through
+     8 blocks, timed; the generation's logits against the teacher-forced
+     forward on its own prefix, and its ids where the forward's top two
+     logits are apart); SLATE (`SLATECLEVRTex128`: 11 slots x 3
+     iterations) has slot attention checked and timed at its training
+     shape (B = 64), trains 3 steps at 64 images (else 32, 16) and
+     reconstructs 4 images the same way. Every training step is gated as
+     in phase 11 (finite losses, slot attention in every step, every
+     trainable parameter outside the frozen dVAE a non-zero gradient and
+     moved); wall seconds and peak memory beside the card's name and
+     power limit;
+ 13. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
      `res64_*`: slot attention at the 64x64 model's shape; `img_*`: slot
-     attention at the image shape, per image `encode`; the bf16 entry
+     attention at the image shape, per image `encode`; `savi_train_*`,
+     `steve_train_*`, `slate_train_*`: slot attention per training step's
+     forward calls of each baseline, and `baseline_seconds` their wall
+     and event times; the bf16 entry
      points of GN and attention as entries of their own, `"entry"` and
      `"dtype": "bf16"` marking them, with the f32 entry's times beside),
      then the card's name and power limit, then the result line.
@@ -351,6 +383,24 @@ IMG_SLOTS = 11
 # may round one ulp apart (TOL), which the GRU and MLP carry to the slots
 # and the decoder to the image, as phase 4's encode (1e-2)
 IMG_PATH_TOL = 1e-2
+# 12: the token and reconstruction baselines. SAVi (`SAViMoviE128`) and
+# STEVE (`STEVEMoviE128`) train BASE_STEPS steps at the first of
+# BASE_TRAIN_BATCHES clips that fits (the configs' 32, then cuts), the
+# dVAE (`DVAEMoviE128`) at the first of DVAE_BATCHES frames, SLATE
+# (`SLATECLEVRTex128`) at the first of IMG_TRAIN_BATCHES images; SAVi and
+# STEVE validate BASE_EVAL_BATCHES batches of BASE_EVAL_BATCH clips; STEVE
+# serves and reconstructs RECON_CLIPS clips, SLATE reconstructs
+# RECON_IMAGES images
+BASE_TRAIN_BATCHES = (32, 16, 8, 4)
+DVAE_BATCHES = (64, 32, 16)
+BASE_STEPS = 3
+BASE_EVAL_BATCH, BASE_EVAL_BATCHES = 8, 2
+RECON_CLIPS, RECON_IMAGES = 2, 4
+# 12: KV-cached generation against the teacher-forced forward on the
+# generated prefix: the same f32 formulas, a one-token attention over the
+# cache against the full causal one, summed in another order; relative to
+# the logits' largest magnitude
+GEN_TOL = 1e-3
 # 11: the first training step from `init_reference_`, whose zero UNet
 # output conv predicts eps = 0: its loss is the mean square of the
 # Gaussian noise, 1 in expectation with a standard deviation of
@@ -2458,6 +2508,325 @@ def images(smi, dev, gen, phase="phase 11"):
     return paths, img_sa
 
 
+def clip_data(cfg, batch, steps, load_mask=False, val_batches=0):
+    """`steps` batches of `batch` synthetic clips at `cfg`'s resolution and
+    clip length (a dVAE config's: single frames) and, with `val_batches`,
+    a val split of that many batches of BASE_EVAL_BATCH clips; the
+    training settings for `fit_checked` (a log line every step, no
+    checkpoint but at the end, no loader workers)."""
+    from slotdiffusion_tpu_torch.data.loader import DataModule
+    from slotdiffusion_tpu_torch.data.synthetic import synthetic_video_splits
+    tcfg = cfg.copy(print_iter=1, save_interval=100.0, num_workers=0,
+                    load_mask=load_mask, val_batch_size=BASE_EVAL_BATCH)
+    train, val = synthetic_video_splits(tcfg, steps * batch,
+                                        val_batches * BASE_EVAL_BATCH)
+    return tcfg, DataModule(train, val, batch, BASE_EVAL_BATCH, seed=0)
+
+
+def baseline_validate(model, tcfg, data, phase, want, per_batch, smi):
+    """`Trainer.validate` of a baseline on `data`'s val split, with the
+    launch counts set to 0 just before and read just after: exactly the
+    keys `want`, finite; slot attention `per_batch` launches a batch; the
+    live weights bit-identical after it. -> the launches."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.methods.build import build_method
+    trainer = build_method(model, data, tcfg)
+    live = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    res = trainer.validate()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    counts = ops.launch_counts()
+    n = len(data.val_loader())
+    log(f"{phase}: Trainer.validate over {n} batches of {BASE_EVAL_BATCH} "
+        f"synthetic clips in {secs:.3f} s wall [{smi}]: " +
+        ", ".join(f"{k} {v:.6f}" for k, v in sorted(res.items())) +
+        f"; launches {nonzero(counts)}")
+    want_counts = dict(dict.fromkeys(counts, 0),
+                       slot_attention=per_batch * n)
+    moved = [k for k, v in model.state_dict().items()
+             if not torch.equal(v, live[k])]
+    if set(res) != {f"val/{k}" for k in want} or \
+            not all(map(math.isfinite, res.values())) or \
+            counts != want_counts or moved:
+        raise SystemExit(f"{phase}: validate gave {res}, launches {counts} "
+                         f"(want {nonzero(want_counts)}), {len(moved)} "
+                         "tensors changed")
+    return counts
+
+
+def ar_recon(model, slots, phase, what, smi):
+    """`recon_img` of `slots` ([B, T, S, D] or [B, S, D]), timed; its
+    greedy generation from a CUDA graph of one step (the default on the
+    card) against the eager loop (the same ids and logits), and held
+    against the plain path: the teacher-forced forward on the generated
+    prefix gives logits within GEN_TOL of the logits' scale, and its
+    argmax is the generated id wherever its two largest logits are
+    further apart than twice the largest difference. -> {name: seconds
+    or ms}."""
+    import torch
+    dec = model.trans_decoder
+    flat = slots.reshape(-1, *slots.shape[-2:])
+    steps = model.num_patches
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    out = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[f"{what}_{name}_s"] = time.time() - t0
+        out[f"{what}_{name}_ms"] = start.elapsed_time(end)
+        return res
+
+    imgs = run("recon_img", lambda: model.recon_img(slots))
+    with torch.no_grad():
+        ids, logits = run("generate", lambda: dec.generate(flat, steps))
+        e_ids, e_logits = run("generate_eager", lambda: dec.generate(
+            flat, steps, graphed=False))
+        forward = dec(flat, ids[:, :-1])
+    same_eager = torch.equal(ids, e_ids)
+    eager_diff = (logits - e_logits).abs().max().item()
+    diff = (logits - forward).abs().max().item()
+    rel = diff / forward.abs().max().item()
+    top2 = forward.topk(2, dim=-1).values
+    decided = top2[..., 0] - top2[..., 1] > 2 * diff
+    same = ids == forward.argmax(-1)
+    miss = (decided & ~same).sum().item()
+    share = same.float().mean().item()
+    ok = rel <= GEN_TOL and miss == 0 and same_eager and \
+        eager_diff <= GEN_TOL * forward.abs().max().item() and \
+        torch.isfinite(imgs).all().item() and \
+        tuple(imgs.shape[-3:]) == (*model.resolution, 3)
+    log(f"{phase}: {what} recon_img of {flat.shape[0]} frames x {steps} "
+        f"tokens ({dec.vocab_size}-way, {dec.num_layers} blocks): "
+        f"{out[f'{what}_recon_img_s']:.3f} s wall; generate from a CUDA "
+        f"graph of one step {out[f'{what}_generate_s']:.3f} s wall "
+        f"({out[f'{what}_generate_ms']:.1f} ms by CUDA events), eager "
+        f"{out[f'{what}_generate_eager_s']:.3f} s "
+        f"({out[f'{what}_generate_eager_ms']:.1f} ms) [{smi}]: ids "
+        f"{'equal' if same_eager else 'DIFFER'}, logits max abs diff "
+        f"{eager_diff:.2e}; vs the teacher-forced forward on its prefix: "
+        f"logits max rel err {rel:.2e} (tol {GEN_TOL:.0e}), ids agree at "
+        f"{share:.6f}, {miss} disagree away from ties (must be 0) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{phase}: {what}'s AR generation disagrees with "
+                         "its plain path")
+    return out
+
+
+def baseline_batch(model, make, batches, phase, unit):
+    """`batch_that_fits` with the kernel calls of the probe recorded:
+    -> (batch, {kernel: {shape key: calls}})."""
+    shapes, handles = record_shapes(model)
+    batch, _ = batch_that_fits(model, make, batches, phase, shapes,
+                               unit=unit)
+    for hk in handles:
+        hk.remove()
+    return batch, shapes
+
+
+def baselines(smi, dev, gen, phase="phase 12"):
+    """Phase 12: the token and reconstruction baselines at full width.
+    -> ({path: {kernel: launches}}, {family: slot attention's totals at
+    its training step's shapes}, {what: seconds})."""
+    import gc
+    import tempfile
+
+    import torch
+    from slotdiffusion_tpu_torch import configs, ops
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    from slotdiffusion_tpu_torch.serving import build_serving_fn
+    from slotdiffusion_tpu_torch.training.checkpoint import graft_pretrained
+    t_phase = time.time()
+    paths, sa_results, secs = {}, {}, {}
+    only_sa = {"gn_silu": {}, "attention": {}}
+
+    def free(*_):
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def clips(T, H, W):
+        return lambda bs: torch.rand(bs, T, H, W, 3, device=dev) * 2 - 1
+
+    # ---- SAVi: slot attention without masks, the broadcast decoder ----
+    cfg = configs.SAViMoviE128()
+    T, (H, W) = cfg.n_sample_frames, cfg.resolution
+    model = build_model(cfg, device=dev)
+    init_random_(model, torch.Generator().manual_seed(0))
+    log(f"{phase}: built SAVi (SAViMoviE128, {H}x{W}, "
+        f"{cfg.slot_dict['num_slots']} slots x "
+        f"{cfg.slot_dict['num_iterations']} iterations, no masks), "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+        "parameters, random weights (seed 0)")
+    try:
+        build_serving_fn(model, "encode")
+        raise SystemExit(f"{phase}: SAVi served encode")
+    except ValueError as err:
+        log(f"{phase}: SAVi's encode surface is refused: {err}")
+    batch, shapes = baseline_batch(model, clips(T, H, W),
+                                   BASE_TRAIN_BATCHES, f"{phase} (SAVi)",
+                                   "clips")
+    sa_results["savi"] = check_kernels(dict(shapes, **only_sa),
+                                       model.slot_attention, gen, dev,
+                                       f"{phase} (SAVi training shapes)")
+    free()
+    paths["savi_training"] = fit_checked(
+        model, *clip_data(cfg, batch, BASE_STEPS), f"{phase} (SAVi)",
+        BASE_STEPS, need=("slot_attention",), unit="clips", smi=smi)[2]
+    paths["savi_validate"] = baseline_validate(
+        model, *clip_data(cfg, BASE_EVAL_BATCH, 1, True, BASE_EVAL_BATCHES),
+        f"{phase} (SAVi)",
+        ("img_recon_loss", "ari", "fari", "miou", "fmiou", "mbo"), T, smi)
+    del model
+    free()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the dVAE: stage 1, no kernel (flax layers in the JAX one) -
+        dcfg = configs.DVAEMoviE128()
+        dvae = build_model(dcfg, device=dev)
+        init_random_(dvae, torch.Generator().manual_seed(0))
+        log(f"{phase}: built the dVAE (DVAEMoviE128, {H}x{W} frames, "
+            f"{dcfg.vocab_size} tokens), "
+            f"{sum(p.numel() for p in dvae.parameters()) / 1e6:.2f}M "
+            "parameters, random weights (seed 0)")
+        frames, _ = baseline_batch(dvae, clips(1, H, W), DVAE_BATCHES,
+                                   f"{phase} (dVAE)", "frames")
+        seen = []
+        compute = dvae.compute_losses
+
+        def noting(batch, gen_, train=True, sched=None):
+            seen.append(sched["gumbel_tau"])
+            return compute(batch, gen_, train=train, sched=sched)
+
+        dvae.compute_losses = noting
+        tcfg, data = clip_data(dcfg, frames, BASE_STEPS)
+        _, _, paths["dvae_training"], _, _ = fit_checked(
+            dvae, tcfg, data, f"{phase} (dVAE)", BASE_STEPS, need=(),
+            ckp_path=tmp, unit="frames", smi=smi)
+        dvae.compute_losses = compute
+        log(f"{phase} (dVAE): gumbel tau at the steps "
+            + " ".join(f"{x:.6f}" for x in seen) + f" (from "
+            f"{dcfg.init_tau} to {dcfg.final_tau} over "
+            f"{dcfg.tau_decay_pct} of the run); launches "
+            f"{nonzero(paths['dvae_training'])} (must be none: its norms "
+            "are F.group_norm)")
+        if any(paths["dvae_training"].values()) or len(seen) != BASE_STEPS \
+                or not seen[0] > seen[1] > seen[2]:
+            raise SystemExit(f"{phase}: the dVAE launched a kernel or its "
+                             f"temperature did not move: {seen}")
+        ckpt = os.path.join(tmp, "ckpt_last.pt")
+        dvae_state = {k: v.clone() for k, v in dvae.state_dict().items()}
+        del dvae, data
+        free()
+
+        # ---- STEVE on that dVAE --------------------------------------
+        cfg = configs.STEVEMoviE128()
+        cfg = cfg.copy(dvae_dict=dict(cfg.dvae_dict, dvae_ckp_path=ckpt))
+        model = build_model(cfg, device=dev)
+        init_random_(model, torch.Generator().manual_seed(0))
+        if not graft_pretrained(model, cfg) or any(
+                not torch.equal(v, dvae_state[k])
+                for k, v in model.dvae.state_dict().items()):
+            raise SystemExit(f"{phase}: the grafted dVAE differs from the "
+                             "stage-1 model")
+        del dvae_state
+        log(f"{phase}: built STEVE (STEVEMoviE128, "
+            f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+            "parameters, random weights, seed 0) and grafted the dVAE's "
+            f"ckpt_last.pt ({os.path.getsize(ckpt) / 2.0 ** 20:.1f} MiB) "
+            "through graft_pretrained: bit-identical")
+        video = clips(T, H, W)(RECON_CLIPS)
+        outs, counts = [], []
+        for graphed in (False, True):
+            fn = build_serving_fn(model, "encode", graphed=graphed)
+            if graphed:
+                fn(video)  # the capture
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.time()
+            outs.append(fn(video))
+            torch.cuda.synchronize()
+            secs[f"steve_encode{'_graphed' * graphed}"] = time.time() - t0
+            counts.append(ops.launch_counts())
+        fails = []
+        verdict = compare(f"{phase}: STEVE graphed encode", outs[1],
+                          outs[0], fails)
+        # one slot attention a frame, over the batch
+        want = dict(dict.fromkeys(counts[0], 0), slot_attention=T)
+        msum = (outs[0][1].sum(2) - 1).abs().max().item()
+        log(f"{phase}: STEVE encode of {RECON_CLIPS} clips x {T} frames: "
+            f"eager {secs['steve_encode']:.3f} s, graphed "
+            f"{secs['steve_encode_graphed']:.3f} s (host clock) [{smi}]; "
+            f"graphed vs eager {verdict}; masks "
+            f"{tuple(outs[0][1].shape)} at the visual resolution, summing "
+            f"to 1 over the slots within {msum:.1e}; "
+            f"launches {nonzero(counts[0])}")
+        if fails or counts[0] != want or counts[1] != want or \
+                msum > 1e-4 or tuple(outs[0][0].shape) != (
+                    RECON_CLIPS, T, model.num_slots, model.slot_size):
+            raise SystemExit(f"{phase}: STEVE encode failed: {fails}, "
+                             f"{counts}")
+        paths["steve_encode"], paths["steve_graphed_encode"] = counts
+        slots = outs[0][0]
+        del outs, fn
+        model.dvae.requires_grad_(False)
+        batch, shapes = baseline_batch(model, clips(T, H, W),
+                                       BASE_TRAIN_BATCHES,
+                                       f"{phase} (STEVE)", "clips")
+        sa_results["steve"] = check_kernels(
+            dict(shapes, **only_sa), model.savi.slot_attention, gen, dev,
+            f"{phase} (STEVE training shapes)")
+        free()
+        paths["steve_training"] = fit_checked(
+            model, *clip_data(cfg, batch, BASE_STEPS), f"{phase} (STEVE)",
+            BASE_STEPS, need=("slot_attention",), unit="clips", smi=smi)[2]
+        # its masks are at the visual resolution and the JAX metrics take
+        # no upsampling: validate reads the losses
+        paths["steve_validate"] = baseline_validate(
+            model, *clip_data(cfg, BASE_EVAL_BATCH, 1, False,
+                              BASE_EVAL_BATCHES),
+            f"{phase} (STEVE)", ("token_recon_loss",), T, smi)
+        free()
+        secs.update(ar_recon(model, slots, phase, "steve", smi))
+        del model, slots
+        free()
+
+    # ---- SLATE: images, slot attention with masks over 3 iterations ----
+    cfg = configs.SLATECLEVRTex128()
+    model = build_model(cfg, device=dev)
+    init_random_(model, torch.Generator().manual_seed(0))
+    log(f"{phase}: built SLATE (SLATECLEVRTex128, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+        "parameters, random weights, seed 0)")
+    model.dvae.requires_grad_(False)
+    make_img = lambda bs: torch.rand(bs, H, W, 3, device=dev) * 2 - 1
+    batch, shapes = baseline_batch(model, make_img, IMG_TRAIN_BATCHES,
+                                   f"{phase} (SLATE)", "images")
+    sa_results["slate"] = check_kernels(
+        dict(shapes, **only_sa), model.slot_attention, gen, dev,
+        f"{phase} (SLATE training shapes)")
+    free()
+    paths["slate_training"] = fit_checked(
+        model, *image_data(cfg, batch, BASE_STEPS), f"{phase} (SLATE)",
+        BASE_STEPS, need=("slot_attention",), smi=smi)[2]
+    with torch.no_grad():
+        slots = model({"img": make_img(RECON_IMAGES)}, testing=True)[
+            "slots"]
+    secs.update(ar_recon(model, slots, phase, "slate", smi))
+    del model, slots
+    free()
+    log(f"{phase}: done in {time.time() - t_phase:.1f} s [{smi}]")
+    return paths, sa_results, secs
+
+
 def main():
     import gc
 
@@ -2776,7 +3145,11 @@ def main():
     img_paths, img_sa = images(smi, dev, gen)
     per_path.update(img_paths)
 
-    # ---- 12. report -----------------------------------------------------
+    # ---- 12. the token and reconstruction baselines ----------------------
+    base_paths, base_sa, base_secs = baselines(smi, dev, gen)
+    per_path.update(base_paths)
+
+    # ---- 13. report -----------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():
@@ -2793,7 +3166,9 @@ def main():
             "replaces": f"{ops.REFERENCE_PACKAGE}/{m.REPLACES}",
             "launches": sum(c[name] for c in per_path.values()),
             "max_abs_err": max(r["err"], train_results.get(
-                name, {"err": 0.0})["err"]),
+                name, {"err": 0.0})["err"], *[
+                    res[name]["err"] for res in base_sa.values()
+                    if name in res]),
             "ms": r["ms"], "event_ms": r["event"],
             "plain_ms": r["plain"],
             "bound_ms": max(r["t_bytes"], r["t_ops"]),
@@ -2826,6 +3201,21 @@ def main():
                                  img_sa[name]["t_ops"] else "operations"),
                 "img_max_abs_err": img_sa[name]["err"],
                 "img_launches_per_encode": img_paths["image_encode"][name]}),
+            **{f"{fam}_train_{k}": v for fam, res in base_sa.items()
+               if name in res for k, v in (
+                   # a training step's forward calls (phase 12: SAVi's
+                   # no-mask return at B = 32 a frame, N = 1024, S = 15, 2
+                   # iterations; STEVE's with masks; SLATE's at B = 64,
+                   # S = 11, 3 iterations)
+                   ("ms", res[name]["ms"]), ("event_ms", res[name]["event"]),
+                   ("plain_ms", res[name]["plain"]),
+                   ("bound_ms", max(res[name]["t_bytes"],
+                                    res[name]["t_ops"])),
+                   ("bound_by", "bytes" if res[name]["t_bytes"] >=
+                    res[name]["t_ops"] else "operations"),
+                   ("max_abs_err", res[name]["err"]))},
+            **({"baseline_seconds": base_secs}
+               if name == "slot_attention" else {}),
             **extra,
         })
     for name, r in bf16_serve.items():

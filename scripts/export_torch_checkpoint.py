@@ -10,6 +10,13 @@ read: {"model": state_dict, "config": name, "source": path, "ema": bool}.
     # dm_decoder swapped in)
     python scripts/export_torch_checkpoint.py --model sa
     python scripts/export_torch_checkpoint.py --model sa_ldm
+    # the repo's trained baselines: SAVi, the dVAE (which SLATE and STEVE
+    # ran against; train_torch.py's SLATESyntheticLong64 and
+    # STEVESyntheticLong64 take this file), SLATE and STEVE
+    python scripts/export_torch_checkpoint.py --model savi
+    python scripts/export_torch_checkpoint.py --model dvae
+    python scripts/export_torch_checkpoint.py --model slate
+    python scripts/export_torch_checkpoint.py --model steve
     # a stand-alone stage-1 VQ-VAE run (default: vqvae_synthetic_params-
     # res64's ckpt_last), for the port's VQVAE configs and for
     # train_torch.py --vqvae_ckp_path
@@ -45,19 +52,36 @@ DEFAULTS = {
     "sa_ldm": ("configs/sa_ldm_synthetic_long-res64.py",
                "checkpoint/sa_ldm_synthetic_long-res64/ckpt_final",
                "checkpoint/torch_sa_ldm_synthetic_long-res64/model.pt"),
+    "savi": ("configs/savi_synthetic_params-res64.py",
+             "checkpoint/savi_synthetic_params-res64/ckpt_last",
+             "checkpoint/torch_savi_synthetic_params-res64/model.pt"),
+    "dvae": ("configs/dvae_synthetic_long-res64.py",
+             "checkpoint/dvae_synthetic_long-res64/ckpt_final",
+             "checkpoint/torch_dvae_synthetic_long-res64/dvae.pt"),
+    "slate": ("configs/slate_synthetic_long-res64.py",
+              "checkpoint/slate_synthetic_long-res64/ckpt_final",
+              "checkpoint/torch_slate_synthetic_long-res64/model.pt"),
+    "steve": ("configs/steve_synthetic_long-res64.py",
+              "checkpoint/steve_synthetic_long-res64/ckpt_final",
+              "checkpoint/torch_steve_synthetic_long-res64/model.pt"),
 }
 # the port's config of each JAX config file
 PORT_CONFIGS = {"savi_ldm_movi_file-res64": "SAViLDMMoviFile64",
                 "vqvae_synthetic_params-res64": "VQVAESynthetic64",
                 "vqvae_synthetic_lpips-res64": "VQVAESyntheticLPIPS64",
                 "sa_synthetic_long-res64": "SASyntheticLong64",
-                "sa_ldm_synthetic_long-res64": "SALDMSyntheticLong64"}
+                "sa_ldm_synthetic_long-res64": "SALDMSyntheticLong64",
+                "savi_synthetic_params-res64": "SAViSynthetic64",
+                "dvae_synthetic_long-res64": "DVAESyntheticLong64",
+                "slate_synthetic_long-res64": "SLATESyntheticLong64",
+                "steve_synthetic_long-res64": "STEVESyntheticLong64"}
 
 
 def export(params_path, weight, out, config=None, use_ema=True,
            vqvae=False):
     """Restore `weight` (built by the JAX config `params_path`), convert
-    it (SAViDiffusion, SADiffusion, SA) and write `out`; -> the written
+    it (SAViDiffusion, SADiffusion, SA, SAVi, the dVAE, SLATE, STEVE)
+    and write `out`; -> the written
     dict. `config` is the port's name of the model's config (default:
     the `PORT_CONFIGS` entry of the JAX file, else SAViLDMMoviFile64).
     With `vqvae` the checkpoint is a stand-alone VQVAE run (its tree's
@@ -89,7 +113,8 @@ def export(params_path, weight, out, config=None, use_ema=True,
         name = config or PORT_CONFIGS.get(stem, "SAViLDMMoviFile64")
         cfg = configs.get_config(name)
         sd = convert_model(tree, cfg)
-        use_ema = use_ema and bool(cfg.dec_dict.get("use_ema", False))
+        use_ema = use_ema and bool(
+            (getattr(cfg, "dec_dict", None) or {}).get("use_ema", False))
     state = {"model": sd, "config": name, "source": weight,
              "ema": bool(use_ema)}
     save_checkpoint(out, state)

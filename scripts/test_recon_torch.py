@@ -1,8 +1,9 @@
 """Reconstruction evaluation of the PyTorch port (the counterpart of
 scripts/test_recon.py): encode each val clip or image to slots, decode
 them (a diffusion model: DPM-Solver++, one noise sample shared over the
-batch, `same_noise` as the JAX script passes it, then the VQ-VAE; SA: its
-spatial broadcast decoder), and report MSE (summed per frame), PSNR and
+batch, `same_noise` as the JAX script passes it, then the VQ-VAE; SA and
+SAVi: their spatial broadcast decoder; SLATE and STEVE: `recon_img`, every
+token generated greedily by the AR decoder, then the dVAE), and report MSE (summed per frame), PSNR and
 SSIM against the inputs.
 
     python scripts/test_recon_torch.py --params SAViLDMMoviFile64 \
@@ -68,6 +69,9 @@ def main(argv=None):
             if params.model in ("SADiffusion", "SAViDiffusion"):
                 samples = model.log_images({"img": img}, gen, use_dpm=True,
                                            same_noise=True)["samples"]
+            elif params.model in ("SLATE", "STEVE"):
+                samples = model.recon_img(model({"img": img}, testing=True)
+                                          ["slots"], gen)
             else:
                 samples = model({"img": img})["recon_img"]
             x = (samples * 0.5 + 0.5).clamp(0, 1).reshape(-1, *img.shape[-3:])

@@ -13,8 +13,16 @@ FG-mIoU and mBO, T folded into H for a video.
 For a video model `--seq_len` sweeps clip lengths; -1 is the whole
 video, which runs in chunks of the training clip length with the slots
 carried over (`methods/inference.py:chunked_video_apply`). An image model
-(SA: its decoder's masks; SADiffusion: slot attention's, upsampled) takes
-each batch whole. `--cpu` runs on the CPU.
+(SA: its decoder's masks; SADiffusion: slot attention's, upsampled;
+SLATE: slot attention's at the visual resolution) takes each batch whole.
+SAVi's masks are its decoder's; STEVE's are slot attention's at the
+visual resolution, as the JAX script feeds them to `seg_metrics_fn` (no
+upsampling: a model whose features are coarser than its input fails
+there, as in the JAX script). `--cpu` runs on the CPU.
+
+    python scripts/test_seg_torch.py --params STEVESyntheticLong64 \
+        --weight checkpoint/torch_steve_synthetic_long-res64/model.pt \
+        --split val --cpu
 """
 
 import argparse

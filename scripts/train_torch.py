@@ -18,6 +18,13 @@ scripts/train.py for `slotdiffusion_tpu_torch`).
         --vqvae_ckp_path checkpoint/torch_VQVAECLEVRTex128/ckpt_last.pt
     python scripts/train_torch.py --cpu --params SASyntheticLong64 \
         --max_steps 3                                        # SA, CPU
+    python scripts/train_torch.py --params DVAEMoviE128 \
+        --data_root data/MOVi                                # dVAE
+    python scripts/train_torch.py --params STEVEMoviE128 \
+        --data_root data/MOVi \
+        --dvae_ckp_path checkpoint/torch_DVAEMoviE128/ckpt_last.pt
+    python scripts/train_torch.py --cpu --params STEVESyntheticLong64 \
+        --max_steps 2                     # on the repo's exported dVAE
 
 `--params` names a port config (`slotdiffusion_tpu_torch.configs`): the
 flagship `SAViLDMMoviE128` (SAViDiffusion, MOVi-E 128x128, 32 clips a
@@ -28,7 +35,18 @@ frames a step) and its siblings, `VQVAESynthetic64` and
 family: `SALDMCLEVRTex128`, `SALDMCelebA128` (SADiffusion, 64 images a
 step), their stage 1 `VQVAECLEVRTex128`, `VQVAECelebA128`, the SA
 baseline `SACLEVRTex128`, `SACelebA128`, and the repo's trained 64x64
-`SASyntheticLong64` and `SALDMSyntheticLong64`. A VQ-VAE's
+`SASyntheticLong64` and `SALDMSyntheticLong64`; the token and
+reconstruction baselines: `SAViMoviE128` (SAVi) and its siblings,
+`STEVEMoviE128` and its siblings with their stage 1 `DVAEMoviE128`...,
+`SLATECLEVRTex128`, `SLATECelebA128` with `DVAECLEVRTex128`,
+`DVAECelebA128`, and the repo's trained 64x64 `SAViSynthetic64`,
+`DVAESyntheticLong64`, `SLATESyntheticLong64`, `STEVESyntheticLong64`.
+SLATE and STEVE train against the frozen dVAE that `--dvae_ckp_path`
+names (a dVAE run's `ckpt_last.pt`, or a SLATE or STEVE checkpoint);
+`SLATESyntheticLong64` and `STEVESyntheticLong64` take the repo's trained
+one as `scripts/export_torch_checkpoint.py --model dvae` exports it, the
+others refuse to start without one. A dVAE's gumbel temperature anneals
+by the step (`methods/build.py`). A VQ-VAE's
 `ckpt_last.pt` is a file that a SAViDiffusion run takes as
 `--vqvae_ckp_path` as it is. Its perceptual term is live when LPIPS
 weights are given (`--lpips_weights`, or `SLOTDIFFUSION_LPIPS_WEIGHTS`;
@@ -74,6 +92,11 @@ RUN_NAMES = {"SAViLDMMoviE128": "savi_ldm_movie"}
 EXPORTED_VQVAE = os.path.join(
     REPO, "checkpoint/torch_vqvae_synthetic_params-res64/vqvae.pt")
 TAKES_EXPORTED_VQVAE = ("SAViLDMMoviFile64", "SALDMSyntheticLong64")
+# what `scripts/export_torch_checkpoint.py --model dvae` writes: the dVAE
+# the repo's trained SLATE and STEVE ran against
+EXPORTED_DVAE = os.path.join(
+    REPO, "checkpoint/torch_dvae_synthetic_long-res64/dvae.pt")
+TAKES_EXPORTED_DVAE = ("SLATESyntheticLong64", "STEVESyntheticLong64")
 IMAGE_DATASETS = ("synthetic", "clevrtex", "celeba")
 
 
@@ -95,6 +118,9 @@ def main(argv=None):
                         help="a MOVi-layout tree (default: synthetic clips)")
     parser.add_argument("--vqvae_ckp_path", default="",
                         help="port-format checkpoint of the frozen VQ-VAE")
+    parser.add_argument("--dvae_ckp_path", default="",
+                        help="port-format checkpoint of SLATE's or STEVE's "
+                             "frozen dVAE")
     parser.add_argument("--ckp_path", default="")
     parser.add_argument("--resume", default="",
                         help="a ckpt_last.pt to continue from")
@@ -155,6 +181,23 @@ def main(argv=None):
         print("the VQ-VAE is random (no --vqvae_ckp_path; the repo's "
               "trained one, for --params SAViLDMMoviFile64, comes from "
               "scripts/export_torch_checkpoint.py --vqvae)", flush=True)
+    tokens = cfg.model in ("SLATE", "STEVE")
+    dvae = args.dvae_ckp_path
+    if dvae and not tokens:
+        raise SystemExit(f"{cfg.model} takes no --dvae_ckp_path")
+    if not dvae and args.params in TAKES_EXPORTED_DVAE:
+        if not os.path.isfile(EXPORTED_DVAE):
+            raise SystemExit(
+                f"{EXPORTED_DVAE} is missing: export the repo's trained "
+                "dVAE with scripts/export_torch_checkpoint.py --model dvae, "
+                "or pass --dvae_ckp_path")
+        dvae = EXPORTED_DVAE
+    if dvae:
+        print(f"the frozen dVAE: {dvae}", flush=True)
+        cfg = cfg.copy(dvae_dict=dict(cfg.dvae_dict, dvae_ckp_path=dvae))
+    elif tokens:
+        raise SystemExit(f"{cfg.model} trains against a frozen stage-1 "
+                         "dVAE: pass --dvae_ckp_path")
     batch = cfg.train_batch_size
     model = build_model(cfg, device=device)
     init_reference_(model, torch.Generator().manual_seed(args.seed))

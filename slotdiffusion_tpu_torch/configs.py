@@ -7,7 +7,14 @@ the repo's two trained 64x64 ones (`VQVAESynthetic64`,
 CelebA at 128x128 (`SALDMCLEVRTex128`, `SALDMCelebA128`) with their
 stage-1 VQ-VAEs (`VQVAECLEVRTex128`, `VQVAECelebA128`), the SA baseline
 on both (`SACLEVRTex128`, `SACelebA128`), and the repo's two trained
-64x64 image models (`SASyntheticLong64`, `SALDMSyntheticLong64`).
+64x64 image models (`SASyntheticLong64`, `SALDMSyntheticLong64`). The
+token and reconstruction baselines: SAVi on MOVi-E and its siblings
+(`SAViMoviE128`, ...), STEVE (`STEVEMoviE128`, ...) with its stage-1
+dVAE (`DVAEMoviE128`, ...), SLATE on CLEVRTex and CelebA
+(`SLATECLEVRTex128`, `SLATECelebA128`) with theirs (`DVAECLEVRTex128`,
+`DVAECelebA128`), and the repo's four trained 64x64 ones
+(`SAViSynthetic64`, `DVAESyntheticLong64`, `SLATESyntheticLong64`,
+`STEVESyntheticLong64`).
 
 An own copy of the settings of the JAX package's `configs_base.py:17-140,
 274-330` and `configs/video_based/savi_ldm/savi_ldm_movie_params-res128.py`
@@ -554,13 +561,407 @@ class SALDMSyntheticLong64(_ImageCommon):
     denoise_loss_w = 1.0
 
 
+# ---- the token and reconstruction baselines: SAVi, the dVAE, SLATE and
+# STEVE (an own copy of the JAX package's configs_base.py:204-247,
+# 303-363 and of the configs under configs/video_based/savi, steve and
+# configs/img_based/slate). The JAX STEVE and SLATE configs name an orbax
+# stage-1 dVAE (`dvae_ckp_path`), which the port cannot read; the port's
+# leave it unset (a random dVAE), and a run names a port-format file
+# (a dVAE config's ckpt_last.pt; `scripts/train_torch.py
+# --dvae_ckp_path`). Slot attention runs the kernel (`use_pallas=True`):
+# SAVi's no-mask return, STEVE's and SLATE's masked one.
+
+def transformer_pred_dict(slot_size, num_layers=2, num_heads=4,
+                          ffn_dim=None):
+    """SAVi's pre-norm transformer predictor (the JAX
+    configs_base.py:transformer_pred_dict)."""
+    return dict(pred_type="transformer", pred_rnn=False,
+                pred_norm_first=True, pred_num_layers=num_layers,
+                pred_num_heads=num_heads,
+                pred_ffn_dim=ffn_dim or slot_size * 4, pred_sg_every=None)
+
+
+class _VideoCommon(BaseParams):
+    """What the video baselines share: the JAX `_Common` and
+    `_VideoCommon` (configs_base.py:142-149, 274-280) and the port
+    trainer's defaults."""
+    seed = 0
+    min_lr = 0.0
+    grad_accum_steps = 1
+    use_ema = False
+    ema_decay = 0.9999
+    print_iter = 50
+    use_bf16 = False
+    num_workers = 8
+    resolution = (128, 128)
+    dataset = "movi"
+    movi_level = "e"
+    data_root = "./data/MOVi"
+    n_sample_frames = 3
+    frame_offset = 1
+    video_len = 24
+    load_mask = True
+
+
+class SAViMoviE128(_VideoCommon):
+    """The SAVi baseline on MOVi-E at 128x128 (`configs/video_based/savi/
+    savi_movie_params-res128.py` over `SAViBase`, configs_base.py:
+    283-305): 15 slots of 192, 2 iterations, the GN-ResNet18 encoder,
+    the 2-layer transformer predictor, the spatial broadcast decoder
+    (192 -> 64 x 4 from 8x8), the MSE reconstruction loss; Adam at 1e-4,
+    2.5 % warmup, clipping at 0.05, 32 clips of 3 frames a step, 30
+    epochs."""
+    max_epochs = 30
+    save_interval = 0.25
+    eval_interval = 1
+    lr = 1e-4
+    clip_grad = 0.05
+    warmup_steps_pct = 0.025
+    train_batch_size = 32
+    val_batch_size = 64
+    model = "SAVi"
+    slot_dict = slot_dict_for(15, 192, 2)
+    enc_dict = dict(SAViLDMMoviE128.enc_dict)
+    dec_dict = dict(dec_channels=(192, 64, 64, 64, 64),
+                    dec_resolution=(8, 8), dec_ks=5, dec_norm="")
+    pred_dict = transformer_pred_dict(192)
+    loss_dict = dict(use_img_recon_loss=True)
+    img_recon_loss_w = 1.0
+
+
+class SAViMoviD128(SAViMoviE128):
+    """savi_movid_params-res128."""
+    movi_level = "d"
+
+
+class SAViMoviSolid128(SAViMoviE128):
+    """savi_movisolid_params-res128: 12 slots, the plain CNN encoder, the
+    STEVE-MOVi data layout."""
+    movi_level = "Solid"
+    dataset = "steve_movi"
+    slot_dict = slot_dict_for(12, 192, 2)
+    enc_dict = dict(SAViLDMMoviSolid128.enc_dict)
+
+
+class SAViMoviTex128(SAViMoviSolid128):
+    """savi_movitex_params-res128."""
+    movi_level = "Tex"
+
+
+class STEVEMoviE128(_VideoCommon):
+    """STEVE on MOVi-E at 128x128 (`configs/video_based/steve/
+    steve_movie_params-res128.py` over `STEVEBase`, configs_base.py:
+    333-355): SAVi's encoder (15 slots of 192, 2 iterations, the
+    GN-ResNet18, the transformer predictor) with its masks, the frozen
+    dVAE of 4096 tokens a 4x4 patch (32x32 tokens), the AR decoder of 8
+    blocks of 192 with 4 heads; the token cross-entropy; Adam at 1e-4,
+    the decoder at 3e-4, 5 % warmup, clipping at 0.05, 32 clips of 3
+    frames a step, 30 epochs."""
+    max_epochs = 30
+    save_interval = 0.1
+    eval_interval = 1
+    lr = 1e-4
+    dec_lr = 3e-4
+    clip_grad = 0.05
+    warmup_steps_pct = 0.05
+    train_batch_size = 32
+    val_batch_size = 64
+    model = "STEVE"
+    slot_dict = slot_dict_for(15, 192, 2)
+    dvae_dict = dict(down_factor=4, vocab_size=4096)
+    enc_dict = dict(SAViLDMMoviE128.enc_dict)
+    dec_dict = dict(dec_num_layers=8, dec_num_heads=4, dec_d_model=192)
+    pred_dict = transformer_pred_dict(192)
+    loss_dict = dict(use_img_recon_loss=False)
+    token_recon_loss_w = 1.0
+    img_recon_loss_w = 1.0
+
+
+class STEVEMoviD128(STEVEMoviE128):
+    """steve_movid_params-res128."""
+    movi_level = "d"
+
+
+class STEVEMoviSolid128(STEVEMoviE128):
+    """steve_movisolid_params-res128: 12 slots, the plain CNN encoder,
+    the STEVE-MOVi data layout."""
+    movi_level = "Solid"
+    dataset = "steve_movi"
+    slot_dict = slot_dict_for(12, 192, 2)
+    enc_dict = dict(SAViLDMMoviSolid128.enc_dict)
+
+
+class STEVEMoviTex128(STEVEMoviSolid128):
+    """steve_movitex_params-res128."""
+    movi_level = "Tex"
+
+
+class DVAEImg128(_ImageCommon):
+    """The dVAE's stage 1 on images (`DVAEImgBase`, configs_base.py:
+    228-247): 4096 tokens, gumbel temperature from 1 to 0.1 by a cosine
+    over the first 15 % of the steps; Adam at 1e-3, 5 % warmup, no
+    clipping, 64 images a step, 100 epochs."""
+    max_epochs = 100
+    save_interval = 0.5
+    eval_interval = 4
+    lr = 1e-3
+    clip_grad = -1.0
+    warmup_steps_pct = 0.05
+    load_mask = False
+    train_batch_size = 64
+    val_batch_size = 128
+    model = "dVAE"
+    vocab_size = 4096
+    dvae_dict = dict(down_factor=4, vocab_size=4096)
+    init_tau = 1.0
+    final_tau = 0.1
+    tau_decay_pct = 0.15
+    recon_loss_w = 1.0
+
+
+class DVAECLEVRTex128(DVAEImg128):
+    """`configs/img_based/slate/dvae_clevrtex_params-res128.py`."""
+    dataset = "clevrtex"
+    data_root = "./data/CLEVRTex"
+
+
+class DVAECelebA128(DVAEImg128):
+    """`configs/img_based/slate/dvae_celeba_params-res128.py`."""
+    dataset = "celeba"
+    data_root = "./data/CelebA"
+
+
+class DVAEMoviE128(DVAEImg128):
+    """STEVE's stage 1 on single MOVi-E frames (`configs/video_based/
+    steve/dvae_movie_params-res128.py` over `DVAEVideoBase`,
+    configs_base.py:358-366): 50 epochs, validation every 2. Its
+    `ckpt_last.pt` is what a STEVE run takes as `dvae_ckp_path`."""
+    max_epochs = 50
+    eval_interval = 2
+    dataset = "movi"
+    movi_level = "e"
+    data_root = "./data/MOVi"
+    n_sample_frames = 1
+    frame_offset = 1
+    video_len = 24
+
+
+class DVAEMoviD128(DVAEMoviE128):
+    """dvae_movid_params-res128."""
+    movi_level = "d"
+
+
+class DVAEMoviSolid128(DVAEMoviE128):
+    """dvae_movisolid_params-res128 (the STEVE-MOVi data layout)."""
+    movi_level = "Solid"
+    dataset = "steve_movi"
+
+
+class DVAEMoviTex128(DVAEMoviSolid128):
+    """dvae_movitex_params-res128."""
+    movi_level = "Tex"
+
+
+class SLATECLEVRTex128(_ImageCommon):
+    """SLATE on CLEVRTex at 128x128 (`configs/img_based/slate/
+    slate_clevrtex_params-res128.py` over `SLATEImgBase`,
+    configs_base.py:205-225): 11 slots of 192, 3 iterations, the
+    GN-ResNet18 encoder with its masks, the frozen dVAE of 4096 tokens,
+    the AR decoder of 8 blocks of 192; the token cross-entropy; Adam at
+    1e-4, the decoder at 3e-4, 5 % warmup, clipping at 1.0, 64 images a
+    step, 200 epochs."""
+    max_epochs = 200
+    save_interval = 0.5
+    eval_interval = 4
+    lr = 1e-4
+    dec_lr = 3e-4
+    clip_grad = 1.0
+    warmup_steps_pct = 0.05
+    load_mask = True
+    train_batch_size = 64
+    val_batch_size = 128
+    dataset = "clevrtex"
+    data_root = "./data/CLEVRTex"
+    model = "SLATE"
+    slot_dict = slot_dict_for(11, 192, 3)
+    dvae_dict = dict(down_factor=4, vocab_size=4096)
+    enc_dict = dict(SAViLDMMoviE128.enc_dict)
+    dec_dict = dict(dec_num_layers=8, dec_num_heads=4, dec_d_model=192)
+    loss_dict = dict(use_img_recon_loss=False)
+    token_recon_loss_w = 1.0
+    img_recon_loss_w = 1.0
+
+
+class SLATECelebA128(SLATECLEVRTex128):
+    """`configs/img_based/slate/slate_celeba_params-res128.py`: 4 slots,
+    no masks, 100 epochs, validation every 2."""
+    max_epochs = 100
+    eval_interval = 2
+    dataset = "celeba"
+    data_root = "./data/CelebA"
+    load_mask = False
+    slot_dict = slot_dict_for(4, 192, 3)
+
+
+class SAViSynthetic64(_VideoCommon):
+    """The repo's trained SAVi: an own copy of the JAX package's
+    `configs/savi_synthetic_params-res64.py`, whose checkpoint
+    `checkpoint/savi_synthetic_params-res64/ckpt_last` the export script
+    carries into the port. 64x64 synthetic clips of 3 frames (128 train,
+    16 val), 8 a step, 2 epochs; 6 slots of 64, 2 iterations; the plain
+    CNN encoder (3 -> 32 x 3, 5x5, no norm); a 1-layer transformer
+    predictor; the decoder 64 -> 32 x 3 from 8x8; Adam at 1e-4, clipping
+    at 0.05. The JAX config runs no Pallas kernel: `use_pallas="auto"`
+    (the f32 formula), as `SAViLDMMoviFile64`."""
+    max_epochs = 2
+    save_interval = 1.0
+    eval_interval = 1
+    print_iter = 10
+    lr = 1e-4
+    clip_grad = 0.05
+    warmup_steps_pct = 0.05
+    dataset = "synthetic_video"
+    data_root = ""
+    train_samples = 128
+    val_samples = 16
+    max_objects = 4
+    video_len = 6
+    train_batch_size = 8
+    val_batch_size = 8
+    num_workers = 2
+    model = "SAVi"
+    resolution = (64, 64)
+    slot_dict = slot_dict_for(6, 64, 2, use_pallas="auto")
+    enc_dict = dict(enc_channels=(3, 32, 32, 32), enc_ks=5,
+                    enc_out_channels=64, enc_norm="")
+    dec_dict = dict(dec_channels=(64, 32, 32, 32), dec_resolution=(8, 8),
+                    dec_ks=5, dec_norm="")
+    pred_dict = transformer_pred_dict(64, 1, 2, 128)
+    loss_dict = dict(use_img_recon_loss=True)
+    img_recon_loss_w = 1.0
+
+
+class DVAESyntheticLong64(DVAEMoviE128):
+    """The repo's trained dVAE: an own copy of the JAX package's
+    `configs/dvae_synthetic_long-res64.py` over
+    `dvae_synthetic_params-res64.py`, whose checkpoint
+    `checkpoint/dvae_synthetic_long-res64/ckpt_final` the export script
+    carries into the port (`--model dvae`). Single 64x64 synthetic frames
+    (512 train, 32 val), 16 a step, 128 epochs; 512 tokens; the
+    temperature annealed over the first 30 % of the steps."""
+    max_epochs = 128
+    save_interval = 16.0
+    eval_interval = 8
+    print_iter = 32
+    clip_grad = -1.0
+    dataset = "synthetic_video"
+    data_root = ""
+    train_samples = 512
+    val_samples = 32
+    max_objects = 4
+    video_len = 6
+    train_batch_size = 16
+    val_batch_size = 16
+    num_workers = 2
+    resolution = (64, 64)
+    vocab_size = 512
+    dvae_dict = dict(down_factor=4, vocab_size=512)
+    tau_decay_pct = 0.3
+
+
+class SLATESyntheticLong64(_ImageCommon):
+    """The repo's trained SLATE: an own copy of the JAX package's
+    `configs/slate_synthetic_long-res64.py` over
+    `slate_synthetic_params-res64.py`, whose checkpoint
+    `checkpoint/slate_synthetic_long-res64/ckpt_final` the export script
+    carries into the port. 64x64 synthetic images (512 train, 32 val), 16
+    a step, 320 epochs; 6 slots of 64, 2 iterations; the plain CNN
+    encoder (3 -> 32 x 3); the dVAE of 512 tokens (16x16 of them); the
+    AR decoder of 2 blocks of 64, 4 heads; Adam at 1e-4, the decoder at
+    3e-4, clipping at 0.05. `use_pallas="auto"`, as the JAX config."""
+    max_epochs = 320
+    save_interval = 16.0
+    eval_interval = 8
+    print_iter = 64
+    lr = 1e-4
+    dec_lr = 3e-4
+    clip_grad = 0.05
+    warmup_steps_pct = 0.05
+    dataset = "synthetic"
+    data_root = ""
+    train_samples = 512
+    val_samples = 32
+    max_objects = 4
+    load_mask = True
+    train_batch_size = 16
+    val_batch_size = 16
+    num_workers = 2
+    model = "SLATE"
+    resolution = (64, 64)
+    slot_dict = slot_dict_for(6, 64, 2, use_pallas="auto")
+    enc_dict = dict(enc_channels=(3, 32, 32, 32), enc_ks=5,
+                    enc_out_channels=64, enc_norm="")
+    dvae_dict = dict(down_factor=4, vocab_size=512)
+    dec_dict = dict(dec_num_layers=2, dec_num_heads=4, dec_d_model=64)
+    loss_dict = dict(use_img_recon_loss=False)
+    token_recon_loss_w = 1.0
+    img_recon_loss_w = 1.0
+
+
+class STEVESyntheticLong64(_VideoCommon):
+    """The repo's trained STEVE: an own copy of the JAX package's
+    `configs/steve_synthetic_long-res64.py` over
+    `steve_synthetic_params-res64.py`, whose checkpoint
+    `checkpoint/steve_synthetic_long-res64/ckpt_final` the export script
+    carries into the port. 64x64 synthetic clips of 2 frames (512 train,
+    32 val), 8 a step, 160 epochs; 6 slots of 64, 2 iterations; the
+    plain CNN encoder (3 -> 32 x 3); a 1-layer transformer predictor; the
+    dVAE of 512 tokens; the AR decoder of 2 blocks of 64; Adam at 1e-4,
+    the decoder at 3e-4, clipping at 0.05. `use_pallas="auto"`, as the
+    JAX config."""
+    max_epochs = 160
+    save_interval = 16.0
+    eval_interval = 8
+    print_iter = 64
+    lr = 1e-4
+    dec_lr = 3e-4
+    clip_grad = 0.05
+    warmup_steps_pct = 0.05
+    dataset = "synthetic_video"
+    data_root = ""
+    train_samples = 512
+    val_samples = 32
+    max_objects = 4
+    n_sample_frames = 2
+    video_len = 6
+    train_batch_size = 8
+    val_batch_size = 8
+    num_workers = 2
+    model = "STEVE"
+    resolution = (64, 64)
+    slot_dict = slot_dict_for(6, 64, 2, use_pallas="auto")
+    enc_dict = dict(enc_channels=(3, 32, 32, 32), enc_ks=5,
+                    enc_out_channels=64, enc_norm="")
+    pred_dict = transformer_pred_dict(64, 1, 2, 128)
+    dvae_dict = dict(down_factor=4, vocab_size=512)
+    dec_dict = dict(dec_num_layers=2, dec_num_heads=4, dec_d_model=64)
+    loss_dict = dict(use_img_recon_loss=False)
+    token_recon_loss_w = 1.0
+    img_recon_loss_w = 1.0
+
+
 CONFIGS = {c.__name__: c for c in (
     SAViLDMMoviE128, SAViLDMMoviFile64, SAViLDMMoviD128,
     SAViLDMMoviSolid128, SAViLDMMoviTex128, VQVAEMoviE128, VQVAEMoviD128,
     VQVAEMoviSolid128, VQVAEMoviTex128, VQVAESynthetic64,
     VQVAESyntheticLPIPS64, SACLEVRTex128, SACelebA128, SALDMCLEVRTex128,
     SALDMCelebA128, VQVAECLEVRTex128, VQVAECelebA128, SASyntheticLong64,
-    SALDMSyntheticLong64)}
+    SALDMSyntheticLong64, SAViMoviE128, SAViMoviD128, SAViMoviSolid128,
+    SAViMoviTex128, STEVEMoviE128, STEVEMoviD128, STEVEMoviSolid128,
+    STEVEMoviTex128, DVAEMoviE128, DVAEMoviD128, DVAEMoviSolid128,
+    DVAEMoviTex128, DVAECLEVRTex128, DVAECelebA128, SLATECLEVRTex128,
+    SLATECelebA128, SAViSynthetic64, DVAESyntheticLong64,
+    SLATESyntheticLong64, STEVESyntheticLong64)}
 
 
 def get_config(name):

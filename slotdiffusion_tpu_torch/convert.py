@@ -4,9 +4,12 @@ Takes the flax param tree of a JAX-package model as nested dicts
 of numpy arrays (e.g. `jax.tree_util.tree_map(np.asarray, params)`) and
 returns `{name: torch.Tensor}` for `load_state_dict`. The walks are copies
 of the ones the JAX package's `models/torch_export.py` uses for
-`export_torch_sa` (:225), `export_torch_sa_diffusion` (:260) and
-`export_torch_savi_diffusion` (:287-318); the port's modules carry the
-upstream names those walks emit, so only the prefixes differ.
+`export_torch_sa` (:225), `export_torch_sa_diffusion` (:260),
+`export_torch_savi_diffusion` (:287-318), `export_torch_slate` and
+`export_torch_steve` (:320-352), `export_torch_savi` (:398-411), the MLP
+and LSTM predictors (:442-479), `export_torch_dvae` (:510-531) and
+`export_torch_steve_transformer` (:562-587); the port's modules carry
+the upstream names those walks emit, so only the prefixes differ.
 
 Layout rules: conv [kh, kw, C, F] -> [F, C, kh, kw]; transposed conv
 [kh, kw, C, F] -> [C, F, kh, kw] flipped in both spatial axes (flax's
@@ -277,12 +280,169 @@ def convert_model(params, cfg) -> Dict[str, torch.Tensor]:
     """flax params of the model `cfg.model` names -> the port's
     state_dict."""
     fn = {"SA": convert_sa, "SADiffusion": convert_sa_diffusion,
-          "SAViDiffusion": convert_savi_diffusion}.get(cfg.model)
+          "SAViDiffusion": convert_savi_diffusion, "SAVi": convert_savi,
+          "SLATE": convert_slate, "STEVE": convert_steve,
+          "dVAE": convert_dvae_state_dict,
+          "DVAE": convert_dvae_state_dict}.get(cfg.model)
     if fn is None:
         if cfg.model == "VQVAE":
             return convert_vqvae_state_dict(params, cfg.enc_dec_dict)
         raise ValueError(f"model {cfg.model!r} is not ported yet")
     return fn(params, cfg)
+
+
+def convert_mlp_predictor(params):
+    """flax ResidualMLPPredictor -> `ln`, `mlp.{2i}` (the JAX package's
+    torch_export.py:export_torch_mlp_predictor)."""
+    out: Dict[str, np.ndarray] = {}
+    _layernorm(out, "ln", params["LayerNorm_0"])
+    i = 0
+    while f"Dense_{i}" in params:
+        _linear(out, f"mlp.{2 * i}", params[f"Dense_{i}"])
+        i += 1
+    return out
+
+
+def convert_rnn_predictor(params, base_fn):
+    """flax RNNPredictorWrapper -> `base_predictor.*`, `out_projector`
+    and the torch LSTM layout `rnn.{weight,bias}_{ih,hh}_l{i}` (gates i,
+    f, g, o; the JAX package's torch_export.py:export_torch_rnn_predictor):
+    flax's cell keeps one bias, on the recurrent side, which goes into
+    `bias_ih` with zeros in `bias_hh` (the cell adds both)."""
+    out = {f"base_predictor.{k}": v for k, v in base_fn(
+        params["base"]).items()}
+    _linear(out, "out_projector", params["out_proj"])
+    layer = 0
+    while f"lstm{layer}" in params:
+        cell = params[f"lstm{layer}"]
+        gates = ("i", "f", "g", "o")
+        out[f"rnn.weight_ih_l{layer}"] = np.concatenate(
+            [np.transpose(_np(cell[f"i{g}"]["kernel"])) for g in gates])
+        out[f"rnn.weight_hh_l{layer}"] = np.concatenate(
+            [np.transpose(_np(cell[f"h{g}"]["kernel"])) for g in gates])
+        b = np.concatenate([_np(cell[f"h{g}"]["bias"]) for g in gates])
+        out[f"rnn.bias_ih_l{layer}"] = b
+        out[f"rnn.bias_hh_l{layer}"] = np.zeros_like(b)
+        layer += 1
+    return out
+
+
+def convert_predictor(params, pred_dict):
+    """The predictor a config's `pred_dict` builds (the JAX
+    `build_predictor`): the transformer or the MLP, in the LSTM wrapper
+    with `pred_rnn`."""
+    if pred_dict.get("pred_type", "transformer") == "mlp":
+        base_fn = convert_mlp_predictor
+    else:
+        layers = pred_dict.get("pred_num_layers", 2)
+        base_fn = lambda p: convert_transformer_predictor(p, layers)
+    if pred_dict.get("pred_rnn", False):
+        return convert_rnn_predictor(params, base_fn)
+    return base_fn(params)
+
+
+def _savi_encoder(out, prefix, savi, cfg):
+    """A SAVi's encode side under `prefix`: `init_latents`, the
+    SAEncoder, slot attention and the predictor (if the config has one)."""
+    sub = {}
+    _slot_encoder(sub, savi, cfg.enc_dict)
+    if "predictor" in savi:
+        sub.update({f"predictor.{k}": v for k, v in convert_predictor(
+            savi["predictor"], cfg.pred_dict).items()})
+    out.update({f"{prefix}{k}": v for k, v in sub.items()})
+
+
+def convert_savi(params, cfg) -> Dict[str, torch.Tensor]:
+    """flax SAVi params (the baseline) -> port SAVi state_dict (the JAX
+    package's torch_export.py:export_torch_savi walk, the decoder under
+    `decoder.` as the port's SA keeps it)."""
+    out: Dict[str, np.ndarray] = {}
+    _savi_encoder(out, "", params, cfg)
+    out.update({f"decoder.{k}": v for k, v in
+                convert_spatial_broadcast_decoder(
+                    params["decoder"], cfg.dec_dict).items()})
+    return _tensors(out)
+
+
+def convert_dvae(params) -> Dict[str, np.ndarray]:
+    """flax DVAE params -> upstream dVAE names (the JAX package's
+    torch_export.py:export_torch_dvae): Conv2dBlock `{i}.m` (the conv)
+    and `{i}.weight`/`{i}.bias` (its GroupNorm); the pixel shuffles at
+    decoder.5 and decoder.10 hold nothing."""
+    out: Dict[str, np.ndarray] = {}
+
+    def block(prefix, sub):
+        _conv(out, f"{prefix}.m", sub["Conv_0"], bias=False)
+        out[f"{prefix}.weight"] = _np(sub["GroupNorm_0"]["scale"])
+        out[f"{prefix}.bias"] = _np(sub["GroupNorm_0"]["bias"])
+
+    for i in range(7):
+        block(f"encoder.{i}", params[f"enc_blocks_{i}"])
+    _conv(out, "encoder.7", params["enc_out"])
+    for i in range(5):
+        block(f"decoder.{i}", params[f"dec_blocks1_{i}"])
+    for i in range(4):
+        block(f"decoder.{i + 6}", params[f"dec_blocks2_{i}"])
+    _conv(out, "decoder.11", params["dec_out"])
+    return out
+
+
+def convert_dvae_state_dict(params, cfg=None) -> Dict[str, torch.Tensor]:
+    """A bare JAX DVAE's params -> the port DVAE's state_dict, which
+    `build_model` of a "dVAE" config loads strictly and
+    `graft_pretrained` takes as it is."""
+    return _tensors(convert_dvae(params))
+
+
+def convert_ar_decoder(params) -> Dict[str, np.ndarray]:
+    """flax STEVETransformerDecoder -> upstream names (the JAX package's
+    torch_export.py:export_torch_steve_transformer)."""
+    out: Dict[str, np.ndarray] = {}
+    _linear(out, "in_proj", params["in_proj"])
+    out["tok_emb.weight"] = _np(params["tok_emb"]["embedding"])
+    out["pos_emb.pe"] = _np(params["pos_emb"])
+    _layernorm(out, "tf_dec.layer_norm", params["final_ln"])
+    _linear(out, "head", params["head"])
+    i = 0
+    while f"block{i}" in params:
+        p, blk = f"tf_dec.blocks.{i}", params[f"block{i}"]
+        _layernorm(out, f"{p}.self_attn_layer_norm", blk["self_attn_ln"])
+        _layernorm(out, f"{p}.encoder_decoder_attn_layer_norm",
+                   blk["cross_ln"])
+        _layernorm(out, f"{p}.ffn_layer_norm", blk["ffn_ln"])
+        for name, sub in (("self_attn", blk["self_attn"]),
+                          ("encoder_decoder_attn", blk["cross_attn"])):
+            for k in ("proj_q", "proj_k", "proj_v", "proj_o"):
+                _linear(out, f"{p}.{name}.{k}", sub[k])
+        _linear(out, f"{p}.ffn.0", blk["ffn_fc1"])
+        _linear(out, f"{p}.ffn.2", blk["ffn_fc2"])
+        i += 1
+    return out
+
+
+def _token_parts(out, params):
+    out.update({f"dvae.{k}": v for k, v in convert_dvae(
+        params["dvae"]).items()})
+    out.update({f"trans_decoder.{k}": v for k, v in convert_ar_decoder(
+        params["trans_decoder"]).items()})
+
+
+def convert_slate(params, cfg) -> Dict[str, torch.Tensor]:
+    """flax SLATE params -> port SLATE state_dict (the JAX package's
+    torch_export.py:export_torch_slate)."""
+    out: Dict[str, np.ndarray] = {}
+    _slot_encoder(out, params, cfg.enc_dict)
+    _token_parts(out, params)
+    return _tensors(out)
+
+
+def convert_steve(params, cfg) -> Dict[str, torch.Tensor]:
+    """flax STEVE params -> port STEVE state_dict (the JAX package's
+    torch_export.py:export_torch_steve, the encode side under `savi.`)."""
+    out: Dict[str, np.ndarray] = {}
+    _savi_encoder(out, "savi.", params["savi"], cfg)
+    _token_parts(out, params)
+    return _tensors(out)
 
 
 def convert_transformer_predictor(params, num_layers):
@@ -398,8 +558,8 @@ def convert_savi_diffusion(params, cfg) -> Dict[str, torch.Tensor]:
     put("savi.encoder", convert_sa_encoder(savi["encoder"], cfg.enc_dict))
     put("savi.slot_attention", convert_slot_attention(
         savi["slot_attention"]))
-    put("savi.predictor", convert_transformer_predictor(
-        savi["predictor"], cfg.pred_dict.get("pred_num_layers", 2)))
+    put("savi.predictor", convert_predictor(savi["predictor"],
+                                            cfg.pred_dict))
     put("dm_decoder", convert_diffusion(params["dm_decoder"], cfg.dec_dict))
     return _tensors(out)
 

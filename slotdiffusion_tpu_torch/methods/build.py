@@ -1,15 +1,19 @@
 """Trainer configuration per model (mirrors the JAX package's
-methods/build.py:25-131 for SAViDiffusion, SADiffusion, SA and VQVAE):
-for the diffusion models the `dm_decoder` LR group at `dec_lr`; for the
-slot models the segmentation metrics of each validation batch
-(`seg_metrics_fn`; SA's from its decoder's masks); for the stage-1
-VQVAE one LR group and no metrics beyond its losses; the run's seed for
-all. Each loss is weighted by the config's `<loss>_w` (the trainer's
+methods/build.py:25-131 for SAViDiffusion, SADiffusion, SA, SAVi, SLATE,
+STEVE, the VQVAE and the dVAE): for the diffusion models the
+`dm_decoder` LR group at `dec_lr`, for SLATE and STEVE the
+`trans_decoder` group; for the slot models the segmentation metrics of
+each validation batch (`seg_metrics_fn`; SA's and SAVi's from their
+decoder's masks, SLATE's and STEVE's from slot attention's at the visual
+resolution); for the stage-1 VQVAE and dVAE one LR group and no metrics
+beyond their losses, the dVAE's gumbel temperature annealed by the step;
+the run's seed for all. Each loss is weighted by the config's `<loss>_w` (the trainer's
 lookup: SA's `img_recon_loss_w`). The COCO/VOC `inst/` and `sem/` dual
 protocol is not ported yet."""
 
 import torch
 
+from ..models.blocks import cosine_anneal
 from ..ops import metrics as M
 from ..training.trainer import Trainer
 
@@ -27,6 +31,12 @@ def seg_metrics_fn(batch, out):
         pred = pred[..., 0]
     pred_id = pred.argmax(dim=-3)
     gt = torch.as_tensor(batch["masks"]).to(pred_id.device).long()
+    if gt.shape[-2:] != pred_id.shape[-2:]:
+        # the JAX function folds both at one resolution and fails here too
+        raise ValueError(f"masks at {tuple(pred_id.shape[-2:])} and ground "
+                         f"truth at {tuple(gt.shape[-2:])}: no upsampling "
+                         "is done (STEVE and SLATE give slot attention's "
+                         "masks at the visual resolution)")
     if pred_id.dim() == 4:  # video [B, T, H, W] -> [B, T * H, W]
         B, T, H, W = pred_id.shape
         pred_id = pred_id.reshape(B, T * H, W)
@@ -40,15 +50,34 @@ def seg_metrics_fn(batch, out):
     }
 
 
+SLOT_MODELS = ("SAViDiffusion", "SADiffusion", "SA", "SAVi", "SLATE",
+               "STEVE")
+# the decoder each family trains at `dec_lr` when that differs from `lr`
+DECODERS = {"SAViDiffusion": "dm_decoder", "SADiffusion": "dm_decoder",
+            "SLATE": "trans_decoder", "STEVE": "trans_decoder"}
+
+
 def build_method(model, datamodule, params, ckp_path=None):
     """-> a `Trainer` for `model` as `params` configures it."""
-    if params.model == "VQVAE":
+    name = params.model
+    if name == "VQVAE":
         return Trainer(model, datamodule, params, ckp_path=ckp_path,
                        seed=params.seed)
-    if params.model not in ("SAViDiffusion", "SADiffusion", "SA"):
-        raise ValueError(f"training {params.model!r} is not ported yet")
-    dec_lr = getattr(params, "dec_lr", params.lr)  # SA: no dm_decoder
-    lr_groups = {"dm_decoder": dec_lr} if dec_lr != params.lr else None
+    if name in ("dVAE", "DVAE"):
+        # the gumbel temperature: `init_tau` -> `final_tau` by a cosine
+        # over `tau_decay_pct` of the run's micro-steps
+        total = params.max_epochs * len(datamodule)
+        start, final = params.init_tau, params.final_tau
+        tau_steps = params.tau_decay_pct * total
+        return Trainer(model, datamodule, params, ckp_path=ckp_path,
+                       seed=params.seed, step_scalars={
+                           "gumbel_tau": lambda step: cosine_anneal(
+                               step, start, final, 0, tau_steps)})
+    if name not in SLOT_MODELS:
+        raise ValueError(f"training {name!r} is not ported yet")
+    dec_lr = getattr(params, "dec_lr", params.lr)  # SA, SAVi: no decoder
+    lr_groups = {DECODERS[name]: dec_lr} \
+        if name in DECODERS and dec_lr != params.lr else None
     return Trainer(model, datamodule, params, ckp_path=ckp_path,
                    lr_groups=lr_groups, seed=params.seed,
                    host_metrics_fn=seg_metrics_fn)

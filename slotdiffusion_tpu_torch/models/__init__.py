@@ -22,8 +22,10 @@ def is_video(name):
 
 def build_model(params, device="cuda"):
     """Instantiate the model named by `params.model` (SAViDiffusion,
-    SADiffusion, SA, or the stage-1 VQVAE from `params.enc_dec_dict` and
-    `params.vq_dict`) on `device`, in eval mode. Parameters are f32
+    SADiffusion, SA, SAVi, STEVE, SLATE, the stage-1 VQVAE from
+    `params.enc_dec_dict` and `params.vq_dict`, or the stage-1 dVAE
+    ("dVAE" or "DVAE") of `params.dvae_dict["vocab_size"]`, else
+    `params.vocab_size`) on `device`, in eval mode. Parameters are f32
     whatever the compute dtype (`compute_dtype_of`), so a bf16 model
     loads an f32 checkpoint and trains f32 master weights. A VQVAE reads
     its LPIPS weights from `params.lpips_weights` when the config sets it
@@ -50,6 +52,28 @@ def build_model(params, device="cuda"):
         model = SA(resolution=tuple(params.resolution),
                    slot_dict=params.slot_dict, enc_dict=params.enc_dict,
                    dec_dict=params.dec_dict, compute_dtype=dtype)
+    elif params.model == "SAVi":
+        from .savi import SAVi
+        model = SAVi(tuple(params.resolution), params.slot_dict,
+                     params.enc_dict, params.pred_dict,
+                     dec_dict=params.dec_dict, compute_dtype=dtype)
+    elif params.model == "STEVE":
+        from .slate import STEVE
+        model = STEVE(tuple(params.resolution), params.slot_dict,
+                      params.enc_dict, params.dec_dict, params.dvae_dict,
+                      params.pred_dict, getattr(params, "loss_dict", None),
+                      compute_dtype=dtype)
+    elif params.model == "SLATE":
+        from .slate import SLATE
+        model = SLATE(tuple(params.resolution), params.slot_dict,
+                      params.enc_dict, params.dec_dict, params.dvae_dict,
+                      getattr(params, "loss_dict", None),
+                      compute_dtype=dtype)
+    elif params.model in ("dVAE", "DVAE"):
+        from .dvae import dVAE
+        dvae_dict = getattr(params, "dvae_dict", None)
+        model = dVAE(dvae_dict["vocab_size"] if dvae_dict else
+                     params.vocab_size, compute_dtype=dtype)
     else:
         raise ValueError(f"model {params.model!r} is not ported yet")
     return model.to(device).eval()
@@ -101,18 +125,24 @@ def _variance_scaling(shape, init, generator, transposed=False):
     1 / 0.87962566 (its std on [-2, 2]) so its std is sqrt(scale / fan)."""
     scale, mode, distribution = init
     fan_in, fan_out = _fans(shape, transposed)
-    std = math.sqrt(scale / (fan_in if mode == "fan_in" else fan_out))
+    fan = {"fan_in": fan_in, "fan_out": fan_out,
+           "fan_avg": (fan_in + fan_out) / 2}[mode]
+    std = math.sqrt(scale / fan)
     if distribution == "uniform":
         u = torch.rand(shape, generator=generator, dtype=torch.float64)
         return (2 * u - 1) * math.sqrt(3.0) * std
     if distribution != "truncated_normal":
         raise ValueError(f"unsupported distribution {distribution}")
-    # inverse CDF of the standard normal on [Phi(-2), Phi(2)]
+    return _truncated_normal(shape, generator) * std / 0.87962566103423978
+
+
+def _truncated_normal(shape, generator):
+    """The standard normal cut at +-2 (not rescaled: flax's
+    `truncated_normal(1.0)`), by the inverse CDF on [Phi(-2), Phi(2)]."""
     lo, hi = (0.5 * (1 + math.erf(b / math.sqrt(2))) for b in (-2.0, 2.0))
     u = lo + (hi - lo) * torch.rand(shape, generator=generator,
                                     dtype=torch.float64)
-    z = math.sqrt(2.0) * torch.erfinv(2 * u - 1)
-    return z * std / 0.87962566103423978
+    return math.sqrt(2.0) * torch.erfinv(2 * u - 1)
 
 
 def _orthogonal_blocks(shape, generator):
@@ -147,10 +177,19 @@ def init_reference_(model, generator):
       conv of the SA encoder (the plain-CNN branch) and for the spatial
       broadcast decoder's transposed convs (models/blocks.py:225, fans of
       flax's [kh, kw, C, F] layout);
+    - per-gate orthogonal [H, H] blocks: an LSTM's recurrent weight
+      (flax's `OptimizedLSTMCell`, models/predictor.py:98-103);
+    - the AR token decoder (models/ar_decoder.py:40-50, 105-112,
+      160-166): `variance_scaling(1, fan_avg, uniform)` for the q/k/v
+      projections, `(gain^2, fan_avg, uniform)` with gain = (3 x
+      layers)^-1/2 for each `proj_o` and the FFN's second layer,
+      `(2, fan_in, truncated_normal)` for its first, N(0, 0.02^2) for
+      `tok_emb`, the standard normal cut at +-2 for `pos_emb`;
     - lecun_normal (`LECUN_NORMAL`) for every other matrix and kernel:
-      dense layers, attention projections, the other convs (every conv
-      of a VQ-VAE).
+      dense layers, attention projections, the LSTM's input weights, the
+      other convs (every conv of a VQ-VAE and of a dVAE).
     The values are drawn in float64 on the CPU and copied in."""
+    from .ar_decoder import ARDecoderBlock, ARMultiHeadAttention
     from .blocks import ConvTranspose2d
     from .resnet import ResNet
     from .sa import SAEncoder
@@ -170,6 +209,16 @@ def init_reference_(model, generator):
                  for p in m.parameters() if p.dim() == 4}
     deconvs = {id(m.weight) for m in model.modules()
                if isinstance(m, ConvTranspose2d)}
+    ar = {}
+    for m in model.modules():
+        if isinstance(m, ARMultiHeadAttention):
+            ar.update({id(getattr(m, k).weight): (1.0, "fan_avg", "uniform")
+                       for k in ("proj_q", "proj_k", "proj_v")})
+            ar[id(m.proj_o.weight)] = (m.gain ** 2, "fan_avg", "uniform")
+        if isinstance(m, ARDecoderBlock):
+            ar[id(m.ffn[0].weight)] = (2.0, "fan_in", "truncated_normal")
+            ar[id(m.ffn[2].weight)] = (m.self_attn.gain ** 2, "fan_avg",
+                                       "uniform")
     for name, p in model.named_parameters():
         if id(p) in zero:
             v = torch.zeros(p.shape)
@@ -182,8 +231,15 @@ def init_reference_(model, generator):
             n = p.shape[0]
             v = (2 * torch.rand(p.shape, generator=generator,
                                 dtype=torch.float64) - 1) / n
-        elif name.endswith("gru.weight_hh"):
+        elif name.endswith("gru.weight_hh") or ".rnn.weight_hh_l" in name:
             v = _orthogonal_blocks(p.shape, generator)
+        elif id(p) in ar:
+            v = _variance_scaling(p.shape, ar[id(p)], generator)
+        elif name.endswith("tok_emb.weight"):
+            v = 0.02 * torch.randn(p.shape, generator=generator,
+                                   dtype=torch.float64)
+        elif name.endswith("pos_emb.pe"):
+            v = _truncated_normal(p.shape, generator)
         elif id(p) in resnet:
             v = _variance_scaling(p.shape, RESNET_CONV, generator)
         elif id(p) in enc_convs:

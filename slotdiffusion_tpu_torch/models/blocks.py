@@ -271,3 +271,43 @@ class DeconvNormAct(nn.Sequential):
                             compute_dtype=compute_dtype),
             get_norm(norm, out_channels, compute_dtype) or nn.Identity(),
             get_act(act) or nn.Identity())
+
+
+def cosine_anneal(step, start_value, final_value, start_step, final_step):
+    """Cosine annealing from `start_value` at `start_step` to `final_value`
+    at `final_step` and after (the JAX package's models/blocks.py:315-327;
+    the dVAE's gumbel temperature). A Python float, computed in f32 as the
+    JAX function computes it."""
+    if final_step <= start_step:
+        return final_value
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    progress = (f32(step - start_step) / f32(final_step - start_step)
+                ).clamp(0.0, 1.0)
+    return (f32(0.5 * (start_value + final_value)) +
+            f32(0.5 * (start_value - final_value)) *
+            torch.cos(f32(math.pi) * progress)).item()
+
+
+def gumbel_softmax(logits, tau=1.0, hard=False, dim=-1, generator=None,
+                   exp_sample=None):
+    """Gumbel-softmax (the JAX package's models/blocks.py:339-355): gumbels
+    -log(max(E, tiny)) of an Exp(1) sample E, drawn from `generator` on
+    the logits' device or passed in (`exp_sample`, e.g. the JAX draw a
+    test shares); `hard` gives the one-hot of the argmax in the forward
+    pass with the soft sample's gradient (straight through)."""
+    if exp_sample is None:
+        if generator is None:
+            raise ValueError("a gumbel sample needs a torch.Generator")
+        exp_sample = torch.empty_like(logits).exponential_(
+            generator=generator)
+    if exp_sample.shape != logits.shape:
+        raise ValueError(f"an Exp(1) sample of {tuple(exp_sample.shape)} "
+                         f"for logits of {tuple(logits.shape)}")
+    tiny = torch.finfo(logits.dtype).tiny
+    gumbels = -torch.log(torch.clamp_min(exp_sample.to(logits.dtype), tiny))
+    y = torch.softmax((logits + gumbels) / tau, dim=dim)
+    if hard:
+        y_hard = F.one_hot(y.argmax(dim), y.shape[dim]).to(y.dtype)
+        y_hard = y_hard.movedim(-1, dim)
+        y = y + (y_hard - y).detach()
+    return y

@@ -145,7 +145,8 @@ class SAViDiffusion(nn.Module):
         self.slot_size = slot_dict["slot_size"]
         self.compute_dtype = compute_dtype
         self.savi = SAVi(self.resolution, slot_dict, enc_dict, pred_dict,
-                         eps=eps, compute_dtype=compute_dtype)
+                         eps=eps, return_mask=True,
+                         compute_dtype=compute_dtype)
         self.dm_decoder = _build_dm_decoder(dec_dict, compute_dtype)
         # the JAX model's `use_ema` (models/slot_diffusion.py:176-178): the
         # decoder's config may ask for an EMA of `dm_decoder`

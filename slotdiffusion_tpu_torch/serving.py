@@ -1,7 +1,11 @@
 """Serving surfaces of the port: live callables, one CUDA graph per
 surface and input shape, and exported artifacts (mirrors the JAX
 package's serving.py:35-137), for the video model (SAViDiffusion) and the
-image model (SADiffusion):
+image model (SADiffusion), and `encode` of STEVE (video) and SLATE
+(image), whose masks stay at the visual resolution as their JAX forwards
+return them; SA and SAVi, whose testing forward carries no masks, have
+no `encode` surface (`build_serving_fn` raises ValueError, where the
+JAX package's fails on `out["masks"]`):
 
 - ``encode``  img [B, T, H, W, 3] -> (slots [B, T, S, D],
   masks [B, T, S, H, W]); an image [B, H, W, 3] -> (slots [B, S, D],
@@ -64,6 +68,8 @@ from .ops.dpm_solver import SAMPLER, sample_denoiser
 
 MAGIC = "slotdiffusion-tpu-torch-export-v1"
 SURFACES = ("encode", "sample", "denoise")
+# the models whose testing forward carries no masks: no `encode` surface
+NO_MASKS = ("SA", "SAVi")
 # warm-up calls on a side stream before a capture: the allocator's blocks,
 # cuBLAS's and cuDNN's handles and workspaces come into being outside the
 # graph
@@ -85,8 +91,17 @@ def draw_noise(seed, shape, device):
 class _Encode(nn.Module):
     def __init__(self, model):
         super().__init__()
+        name = type(model).__name__
+        if name in NO_MASKS:
+            raise ValueError(
+                f"{name} has no encode surface: its testing forward returns "
+                "slots only, no masks (the JAX package's build_serving_fn "
+                "reads out['masks'] and refuses it too)")
         self.resolution = tuple(model.resolution)
-        self.video = is_video(type(model).__name__)
+        # the diffusion models serve masks at the input's resolution,
+        # STEVE and SLATE at the visual one, as their JAX forwards return
+        self.at_visual = not getattr(model, "upsample_masks", True)
+        self.video = is_video(name)
         if self.video:
             self.savi = model.savi
         else:
@@ -97,8 +112,10 @@ class _Encode(nn.Module):
 
     def forward(self, img):
         if self.video:
-            return encode_video(self.savi, self.resolution, img)
-        return encode_image(self, self.resolution, img)
+            return encode_video(self.savi, self.resolution, img,
+                                train=self.at_visual)
+        return encode_image(self, self.resolution, img,
+                            train=self.at_visual)
 
 
 class _Denoise(nn.Module):
@@ -293,7 +310,8 @@ def example_args(model, what, data_shape):
 
 def build_serving_fn(model, what, data_shape=None, graphed=None):
     """-> a `Surface` for `what` of a built SAViDiffusion or SADiffusion
-    `model`, on the model's device; with `data_shape` (the video shape
+    `model` (`encode` also of STEVE and SLATE; SA and SAVi have none:
+    ValueError), on the model's device; with `data_shape` (the video shape
     [B, T, H, W, 3], or the images' [B, H, W, 3]), -> (surface,
     `example_args`). `graphed` (default: on a CUDA device)
     replays CUDA graphs; `graphed=False` runs eagerly."""

@@ -7,7 +7,7 @@ A checkpoint is one `torch.save` file of a dict: `model` (state_dict),
 file goes to a temporary name in the same directory and `os.replace`
 swaps it in, so a crash at any instant leaves the old or the new file
 whole. Orbax checkpoints of the JAX package are not read (the card machine
-has no orbax); `graft_pretrained` grafts a frozen VQ-VAE from a
+has no orbax); `graft_pretrained` grafts a frozen VQ-VAE or dVAE from a
 port-format file, the counterpart of the JAX package's `apply_pretrained`.
 """
 
@@ -54,35 +54,46 @@ def load_model_weights(model, path):
     return state
 
 
-def graft_pretrained(model, cfg):
-    """Copy the frozen VQ-VAE named by `cfg.dec_dict["vae_dict"]
-    ["vqvae_ckp_path"]` into `model.dm_decoder.vae.vqvae`. The file is a
-    port-format checkpoint whose `model` holds the VQ-VAE's entries,
-    relative to the VQ-VAE module or prefixed `dm_decoder.vae.vqvae.` (a
-    SAViDiffusion checkpoint). Every parameter must be present with its
-    shape. A config without the path leaves the model as it is; returns
-    whether it grafted."""
-    vae = (getattr(cfg, "dec_dict", None) or {}).get("vae_dict") or {}
-    path = vae.get("vqvae_ckp_path")
-    if not path:
-        return False
+def _graft(path, dst, prefix, what):
+    """Load the entries of `dst` from the port-format file `path`, whose
+    `model` holds them relative to `dst` or under `prefix` (a whole
+    model's checkpoint): every entry present, each with its shape."""
     if not os.path.isfile(path):
         raise FileNotFoundError(
-            f"pretrained VQ-VAE {path!r} not found: train the stage-1 model "
-            "first or clear vqvae_ckp_path")
+            f"pretrained {what} {path!r} not found: train the stage-1 model "
+            "first or clear its checkpoint path")
     src = load_checkpoint(path)["model"]
-    prefix = "dm_decoder.vae.vqvae."
     src = {k[len(prefix):] if k.startswith(prefix) else k: v
            for k, v in src.items()}
-    dst = model.dm_decoder.vae.vqvae
     want = dst.state_dict()
     missing = sorted(set(want) - set(src))
     if missing:
-        raise KeyError(f"{path} lacks {len(missing)} VQ-VAE entries: "
+        raise KeyError(f"{path} lacks {len(missing)} {what} entries: "
                        f"{missing[:5]}")
     for k, v in want.items():
         if src[k].shape != v.shape:
             raise ValueError(f"{path}: {k} has shape {tuple(src[k].shape)},"
                              f" the model {tuple(v.shape)}")
     dst.load_state_dict({k: src[k] for k in want})
-    return True
+
+
+def graft_pretrained(model, cfg):
+    """Copy the frozen stage-1 models a config names into `model`: the
+    VQ-VAE of `cfg.dec_dict["vae_dict"]["vqvae_ckp_path"]` into
+    `model.dm_decoder.vae.vqvae` (its entries relative to the VQ-VAE or
+    prefixed `dm_decoder.vae.vqvae.`, a SAViDiffusion checkpoint), the
+    dVAE of `cfg.dvae_dict["dvae_ckp_path"]` into `model.dvae` (relative
+    to the dVAE, a dVAE run's ckpt_last.pt, or prefixed `dvae.`, a SLATE
+    or STEVE checkpoint). Each file is port-format; every parameter must
+    be present with its shape (the JAX package's training/checkpoint.py:
+    138-150). A config without the paths leaves the model as it is;
+    returns whether it grafted."""
+    vae = (getattr(cfg, "dec_dict", None) or {}).get("vae_dict") or {}
+    vq_path = vae.get("vqvae_ckp_path")
+    dvae_path = (getattr(cfg, "dvae_dict", None) or {}).get("dvae_ckp_path")
+    if vq_path:
+        _graft(vq_path, model.dm_decoder.vae.vqvae, "dm_decoder.vae.vqvae.",
+               "VQ-VAE")
+    if dvae_path:
+        _graft(dvae_path, model.dvae, "dvae.", "dVAE")
+    return bool(vq_path or dvae_path)

@@ -1,17 +1,22 @@
 """The training loop of the port (mirrors the JAX package's
-training/trainer.py:118-338, 548-606, one process, one card), for a
-SAViDiffusion or a stage-1 VQVAE.
+training/trainer.py:118-338, 548-606, one process, one card), for every
+model the port builds.
 
 One step: the model's `compute_losses` on a batch, the weighted total of
 its `*_loss` entries (`{k}_w` weights from the config, 1.0 by default),
 backward, then `training.optim.Optimizer` (global-norm clip, Adam with
 per-group cosine-warmup LRs, k-step accumulation) and, when enabled, the
-EMA tick after each update. One seeded `torch.Generator` on the model's
-device draws every diffusion timestep, noise and dropout mask of the run;
+EMA tick after each update. Scalars the method schedules by the step
+(`step_scalars`: the dVAE's gumbel temperature) reach `compute_losses`
+as `sched`, in training and validation, as the JAX trainer's
+`_sched_dict` does. One seeded `torch.Generator` on the model's
+device draws every diffusion timestep, noise, dropout mask and gumbel
+sample of the run;
 its state goes into each checkpoint with the model, the optimizer, the
 EMA and the step, so a resumed run continues the same sequence (bit for
 bit on the CPU). What the model declares frozen (`frozen_modules`:
-SAViDiffusion's `dm_decoder.vae`, nothing of a VQVAE) takes no gradient
+SAViDiffusion's `dm_decoder.vae`, SLATE's and STEVE's `dvae`, nothing
+of a VQVAE) takes no gradient
 and no update. Metrics go to stdout and `<ckp_path>/train_log.jsonl`.
 
 Under `use_bf16` the model computes in bf16 while its parameters, and
@@ -67,7 +72,8 @@ class Trainer:
     micro-batches, as the JAX TrainState's."""
 
     def __init__(self, model, datamodule, params, ckp_path=None,
-                 lr_groups=None, seed=0, host_metrics_fn=None):
+                 lr_groups=None, seed=0, host_metrics_fn=None,
+                 step_scalars=None):
         self.model = model
         self.data = datamodule
         self.ckp_path = ckp_path
@@ -95,6 +101,10 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
         self.host_metrics_fn = host_metrics_fn
+        # {name: fn(step)}: scalars scheduled by the micro-step count (the
+        # dVAE's gumbel temperature), passed to `compute_losses` as
+        # `sched` (the JAX trainer's `_sched_dict`)
+        self.step_scalars = dict(step_scalars or {})
         self.eval_interval = max(int(getattr(params, "eval_interval", 1)),
                                  1)
         self.loss_weights = {name: float(getattr(params, name))
@@ -106,6 +116,14 @@ class Trainer:
         self.logger = JSONLLogger(ckp_path)
         self.step = 0
 
+    def sched_kwargs(self):
+        """`{"sched": {name: value at this step}}` for `compute_losses`,
+        or {} for a model without scheduled scalars."""
+        if not self.step_scalars:
+            return {}
+        return {"sched": {k: fn(self.step)
+                          for k, fn in self.step_scalars.items()}}
+
     def weighted_total(self, losses):
         return sum(self.loss_weights.get(f"{k}_w", 1.0) * v
                    for k, v in losses.items() if k.endswith("_loss"))
@@ -114,7 +132,8 @@ class Trainer:
         """One micro-step on `batch`; -> metrics of the step (floats)."""
         t0 = time.time()
         img = batch["img"].to(self.device, non_blocking=True)
-        _, losses = self.model.compute_losses({"img": img}, self.generator)
+        _, losses = self.model.compute_losses({"img": img}, self.generator,
+                                              **self.sched_kwargs())
         total = self.weighted_total(losses)
         micro_norm = self.optimizer.backward(total)
         updated, norm = self.optimizer.step()
@@ -178,12 +197,15 @@ class Trainer:
         data = {"img": batch["img"].to(self.device, non_blocking=True)}
         gen = self._eval_generator(batch_idx)
         state = gen.get_state()
-        out, losses = self.model.compute_losses(data, gen, train=False)
+        sched = self.sched_kwargs()
+        out, losses = self.model.compute_losses(data, gen, train=False,
+                                                **sched)
         losses = {k: v.item() for k, v in losses.items()}
         if self.ema is not None:
             gen.set_state(state)
             with self.ema.swapped(self.model):
-                _, ema = self.model.compute_losses(data, gen, train=False)
+                _, ema = self.model.compute_losses(data, gen, train=False,
+                                                   **sched)
             losses.update({f"{k}_ema": v.item() for k, v in ema.items()})
         return out, losses
 

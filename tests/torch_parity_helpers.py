@@ -38,12 +38,13 @@ def jax_params_of(cfg):
     slot_dict and resolves its own knobs)."""
     p = BaseParams()
     for k in ("model", "resolution", "enc_dict", "dec_dict", "pred_dict",
-              "use_bf16"):
+              "use_bf16", "dvae_dict", "vocab_size"):
         if hasattr(cfg, k):
             setattr(p, k, getattr(cfg, k))
-    p.slot_dict = {k: v for k, v in cfg.slot_dict.items()
-                   if k != "use_pallas"}
-    p.loss_dict = dict(use_denoise_loss=True)
+    if hasattr(cfg, "slot_dict"):
+        p.slot_dict = {k: v for k, v in cfg.slot_dict.items()
+                       if k != "use_pallas"}
+    p.loss_dict = getattr(cfg, "loss_dict", dict(use_denoise_loss=True))
     if is_video(cfg.model):
         p.n_sample_frames = T_FRAMES
     return p
@@ -88,7 +89,7 @@ def build_pair(use_pallas=True, seed=0, use_bf16=False, cfg=None):
     cfg = tiny_config(use_pallas, use_bf16) if cfg is None else cfg
     jmodel = build_jax_model(jax_params_of(cfg))
     rngs = {n: jax.random.PRNGKey(i) for i, n in enumerate(
-        ("params", "diffusion", "dropout"))}
+        ("params", "diffusion", "dropout", "gumbel"))}
     x = video() if is_video(cfg.model) else images()
     shapes = jax.eval_shape(
         lambda r, x: jmodel.init(r, {"img": x}, method=jmodel.compute_losses),
@@ -153,3 +154,54 @@ def jax_sad_loss(m, img, t, noise):
     pred = dm.denoise(dm.q_sample(dm.encode_latent(img), t, noise), t,
                       context=out["slots"], train=False)
     return jnp.mean((pred - noise) ** 2)
+
+
+# ---- the token and reconstruction baselines (tests/test_torch_baselines*) --
+
+VOCAB = 16  # the tiny dVAE's tokens; 16x16 images give 4x4 of them
+TINY_PRED = dict(pred_type="transformer", pred_rnn=False,
+                 pred_norm_first=True, pred_num_layers=1, pred_num_heads=2,
+                 pred_ffn_dim=2 * SLOT_SIZE, pred_sg_every=None)
+
+
+def tiny_baseline_config(model, use_pallas=False, pred_dict=None,
+                         img_recon=False):
+    """The baseline configs' structure at narrow widths, 16x16, 3 slots of
+    32, 2 iterations (3 for SLATE, as its configs). SAVi: the plain CNN
+    encoder (3 -> 16 -> 16) and the spatial broadcast decoder 32 -> 16 x 3
+    from 4x4; STEVE: the GN-ResNet18 encoder (4x4 features and masks), a
+    1-layer transformer predictor; SLATE: the plain CNN encoder (16x16
+    masks); both a dVAE of `VOCAB` tokens (4x4 of them) and a 2-block AR
+    decoder of 32 with 2 heads, STEVE's pixel loss with `img_recon`; the
+    dVAE ("dVAE") alone with `VOCAB` tokens. `pred_dict` replaces the
+    1-layer transformer predictor."""
+    cnn = dict(enc_channels=(3, 16, 16), enc_ks=5,
+               enc_out_channels=SLOT_SIZE, enc_norm="")
+    token = dict(dvae_dict=dict(down_factor=4, vocab_size=VOCAB),
+                 dec_dict=dict(dec_num_layers=2, dec_num_heads=2,
+                               dec_d_model=SLOT_SIZE))
+    common = dict(resolution=RES, train_batch_size=2, val_batch_size=2,
+                  train_samples=4, val_samples=4)
+    if model == "dVAE":
+        return configs.DVAEMoviE128().copy(
+            vocab_size=VOCAB, dvae_dict=token["dvae_dict"],
+            dataset="synthetic_video", **common)
+    slot = configs.slot_dict_for(SLOTS, SLOT_SIZE,
+                                 3 if model == "SLATE" else 2, use_pallas)
+    pred = dict(TINY_PRED if pred_dict is None else pred_dict)
+    if model == "SAVi":
+        return configs.SAViMoviE128().copy(
+            slot_dict=slot, enc_dict=cnn, pred_dict=pred,
+            dec_dict=dict(dec_channels=(SLOT_SIZE, 16, 16, 16),
+                          dec_resolution=(4, 4), dec_ks=5, dec_norm=""),
+            n_sample_frames=T_FRAMES, dataset="synthetic_video", **common)
+    if model == "STEVE":
+        return configs.STEVEMoviE128().copy(
+            slot_dict=slot, pred_dict=pred, n_sample_frames=T_FRAMES,
+            enc_dict=dict(configs.STEVEMoviE128.enc_dict,
+                          enc_out_channels=SLOT_SIZE),
+            loss_dict=dict(use_img_recon_loss=img_recon),
+            dataset="synthetic_video", **token, **common)
+    return configs.SLATECLEVRTex128().copy(
+        slot_dict=slot, enc_dict=cnn, dataset="synthetic", **token,
+        **common)
