@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`slotdiffusion_tpu_torch`) on one CUDA
 card: build the kernels, hold each against its plain version, serve and
-train the flagship SAViDiffusion, the image models (SADiffusion, SA) and
-the token and reconstruction baselines (SAVi, the dVAE, STEVE, SLATE) at
-full width, and report.
+train the flagship SAViDiffusion, the image models (SADiffusion, SA),
+the token and reconstruction baselines (SAVi, the dVAE, STEVE, SLATE)
+and SADiffusion with the frozen DINO ViT on COCO and VOC at full width,
+and report.
 
     python3 chip_smoke.py
 
@@ -126,9 +127,11 @@ Phases (one flushed line each, with elapsed seconds):
      attention): DPM-Solver++ multistep, singlestep_fixed and adaptive
      (order 3), noise prediction, taylor and logSNR (20 steps), DDIM (200
      steps) and the ancestral chain (1000) in f32; multistep and DDIM in
-     bf16; DPM (dynamic thresholding) and DDIM (clamp) of the flagship
-     UNet over 48x48 pixels, and its refusal (a raise) over 64x64, where
-     its GN groups exceed the kernel's. Each line: UNet calls, wall
+     bf16; DPM (dynamic thresholding) and DDIM (clamp, 50 steps) of the
+     flagship UNet over 64x64 pixels (its 49,152-value GN groups through the GN
+     kernel's two-pass path), and that decoder's `sample` serving surface
+     eagerly and from a CUDA graph (bit for bit, the same launches). Each
+     line: UNet calls, wall
      seconds, CUDA-event ms, the kernel path against a plain-path twin
      from the same x_T and noises (final VQ codes that agree, frame
      differences; a run outside its gate is repeated from an x_T one
@@ -189,13 +192,42 @@ Phases (one flushed line each, with elapsed seconds):
      trainable parameter outside the frozen dVAE a non-zero gradient and
      moved); wall seconds and peak memory beside the card's name and
      power limit;
- 13. one JSON line listing every kernel (times per serving request;
+ 13. COCO and VOC with the frozen DINO ViT at full width
+     (`SALDMDINOCOCO224`: DINO ViT-S/8 over 224x224 images, 7 slots x
+     256 x 3 iterations over its 28x28 patch tokens, the flagship's LDM
+     over 56x56x3 latents; random weights, seed 0): GN, attention (784,
+     196 and 49 tokens, cross-attention onto 7 slots) and slot attention
+     (B = 8, N = 784, S = 7, D = 256, M = 512) at the serving shapes
+     against their plain versions, timed, GN and slot attention
+     bit-identical on a repeat, the count of GN calls a UNet call that
+     take the two-pass path (groups over 32,768 values); the attention
+     kernel's bf16 entry against `scaled_dot_product_attention` in bf16
+     at 784 tokens; `encode` (masks of 224x224 summing to 1 over the
+     slots), `sample` and `denoise` of 8 images eagerly and from CUDA
+     graphs (bit for bit, the same launches), one encode and one
+     denoise against the CPU; the kernels and their gradients at a
+     training step's shapes; GN's two-pass path at (8, 384, 56, 56), the
+     training batch's, (1, 384, 64, 64) and (1, 128, 128, 128), f32 and
+     bf16, against its plain version and bit-identical on a repeat, timed
+     at the first beside its bounds; `Trainer.fit(max_steps=3)` on
+     synthetic COCO images at the config's 64 a step (else 32, 16): every
+     kernel in every step, every trainable tensor a non-zero gradient and
+     moved, the frozen DINO bit-identical with no gradient, step seconds
+     and peak memory; `Trainer.validate` over 2 batches of 16 synthetic
+     COCO images under the dual protocol (`inst/*` and `sem/*`) through
+     the kernels and the plain versions (phase 6's gates); one training
+     step of `SALDMDINOVOC224` (6 slots x 192) with its kernels checked
+     at its shapes;
+ 14. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
      `res64_*`: slot attention at the 64x64 model's shape; `img_*`: slot
      attention at the image shape, per image `encode`; `savi_train_*`,
      `steve_train_*`, `slate_train_*`: slot attention per training step's
      forward calls of each baseline, and `baseline_seconds` their wall
-     and event times; the bf16 entry
+     and event times; `coco_*`: each model kernel at phase 13's serving
+     shapes; `long_run_*`: GN's two-pass path at (8, 384, 56, 56);
+     `sdpa_bf16_*`: attention's bf16 entry against SDPA at 784 tokens;
+     the bf16 entry
      points of GN and attention as entries of their own, `"entry"` and
      `"dtype": "bf16"` marking them, with the f32 entry's times beside),
      then the card's name and power limit, then the result line.
@@ -312,8 +344,12 @@ STAGE2_CLIPS = 4
 # plain-path twin or None for all 12). "f32" and "bf16" are the flagship
 # (latent), "pixel" its UNet over 64x64 pixels with no VQ-VAE. Two twins
 # are cut to the first frame of each video: ancestral's 1000 steps and the
-# pixel decoder's DDIM (the widths and steps never are)
+# pixel decoder's DDIM (the widths never are). The pixel decoder's DDIM
+# takes PIXEL_DDIM_STEPS steps, not the default 200: at 64x64 a UNet call
+# over the 12 frames takes 0.22 s, and 200 of them put the script past
+# half its time limit (the flagship's DDIM keeps its 200)
 DPM = dict(use_dpm=True, steps=20, order=3)
+PIXEL_DDIM_STEPS = 50
 SAMPLER_RUNS = (
     ("dpm++ multistep", "f32", dict(DPM, method="multistep"), None),
     ("dpm++ singlestep_fixed", "f32", dict(DPM, method="singlestep_fixed"),
@@ -329,7 +365,8 @@ SAMPLER_RUNS = (
     ("dpm++ multistep", "bf16", dict(DPM, method="multistep"), None),
     ("ddim", "bf16", dict(use_dpm=False, use_ddim=True), None),
     ("dpm++ (dynamic thresholding)", "pixel", dict(use_dpm=True), None),
-    ("ddim (clamp)", "pixel", dict(use_dpm=False, use_ddim=True), 2),
+    ("ddim (clamp)", "pixel", dict(use_dpm=False, use_ddim=True,
+                                   steps=PIXEL_DDIM_STEPS), 2),
 )
 # 10: kernel path vs plain-path twin, the same x_T and per-step noises
 # (same_noise: one draw a step, whatever the batch). Latent decoders: the
@@ -357,11 +394,13 @@ CONTROL_EPS = 2.0 ** -20
 CHECKED_CALLS = 20
 PER_CALL_TOL = {"f32": 1e-4, "bf16": 5e-2}
 GN_PER_UNET, ATTN_PER_UNET = 61, 32
-# the pixel decoder's side: the GN kernel holds groups of at most 32,768
-# values, and the flagship UNet's largest group is 12 channels (384 after
-# the skip concat, 32 groups) at full resolution: 12 x 48^2 = 27,648
-# fits, 12 x 64^2 = 49,152 does not, and there the wrapper must raise
-PIXEL_SIDE, PIXEL_REFUSED_SIDE = 48, 64
+# the pixel decoder's side: the flagship UNet's largest GN group is 12
+# channels (384 after the skip concat, 32 groups) at full resolution,
+# 12 x 64^2 = 49,152 values, over the 32,768 of the GN kernel's
+# single-read path: its two-pass path takes them; PIXEL_SERVE videos of
+# PIXEL_SERVE_FRAMES frames through the `sample` surface
+PIXEL_SIDE = 64
+PIXEL_SERVE, PIXEL_SERVE_FRAMES = 1, 2
 
 # 11: the image family. SADiffusion (`SALDMCLEVRTex128`) serves IMG_SERVE
 # images of 128x128; trains IMG_STEPS steps at the first of
@@ -401,6 +440,28 @@ RECON_CLIPS, RECON_IMAGES = 2, 4
 # cache against the full causal one, summed in another order; relative to
 # the logits' largest magnitude
 GEN_TOL = 1e-3
+# 13: COCO and VOC with the frozen DINO ViT. SADiffusion
+# (`SALDMDINOCOCO224`: 7 slots x 256, 3 iterations over DINO's 28x28
+# patch tokens, the flagship's LDM over 56x56x3 latents) serves IMG_SERVE
+# images of 224x224, trains COCO_STEPS steps at the first of
+# COCO_TRAIN_BATCHES that fits (the config's 64, then cuts) and validates
+# COCO_EVAL_BATCHES batches of COCO_EVAL_BATCH synthetic COCO images
+# under the dual inst/sem protocol; `SALDMDINOVOC224` (6 x 192) trains
+# VOC_STEPS at the COCO batch
+COCO_TRAIN_BATCHES = (64, 32, 16)
+COCO_STEPS = 3
+COCO_EVAL_BATCH, COCO_EVAL_BATCHES = 16, 2
+VOC_STEPS = 1
+# 13: the GN kernel's two-pass path (groups over 32,768 values) at each
+# (B, C, H, W), 32 groups, B None the COCO training batch: the UNet's
+# 384-channel norm at 56x56 latents (37,632 values a group), the pixel
+# decoder's at 64x64 (49,152), 128 channels at 128x128 (65,536); against
+# `group_norm_reference` relative to the largest output, f32 and bf16
+# (one bf16 rounding of the output: 2^-8 relative, twice that allowed);
+# timed at the first
+GN_LONG_SHAPES = ((8, 384, 56, 56), (None, 384, 56, 56), (1, 384, 64, 64),
+                  (1, 128, 128, 128))
+GN_LONG_TOL = {"f32": 1e-4, "bf16": 2.0 ** -7}
 # 11: the first training step from `init_reference_`, whose zero UNet
 # output conv predicts eps = 0: its loss is the mean square of the
 # Gaussian noise, 1 in expectation with a standard deviation of
@@ -627,7 +688,7 @@ def gn_host_split(dev, calls=2000):
             "stream_ptr": per_call(lambda: _cuda.stream_ptr(dev)),
             "ctypes_call": per_call(lambda: lib.sdt_group_norm_f32(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), 12,
-                512, 16, 32, 1e-5, 1, stream)),
+                512, 16, 32, 1e-5, 1, None, 0, stream)),
             "wrapper_inference": per_call(lambda: fused_norm.fused_group_norm(
                 x, w, b, 32, 1e-5, "silu")),
             # the same launch through the dispatcher (`sdt::group_norm`,
@@ -1076,7 +1137,7 @@ def train(cfg, model, dev, gen, phase, f32_step_seconds=None):
 
 
 def validate_against_plain(ecfg, model, data, dev, gen, smi, phase, what,
-                           plain=True):
+                           plain=True, dual=False):
     """`Trainer.validate` of `model` on `data`'s val set with the settings
     `ecfg` (the EMA on: its shadow moved by 1e-3 relative, seeded, so that
     the EMA pass computes something else), through the kernels: every
@@ -1087,7 +1148,8 @@ def validate_against_plain(ecfg, model, data, dev, gen, smi, phase, what,
     the masks, a video's or an image's) must agree wherever the plain
     path's two largest masks are more than ARGMAX_TIE apart and at
     ARGMAX_EXACT of all pixels, the masks within TOL, each metric within
-    SEG_METRIC_TOL and each loss within LOSS_RTOL. -> the kernels'
+    SEG_METRIC_TOL and each loss within LOSS_RTOL. With `dual` (COCO,
+    VOC) the metrics are the `inst/*` and `sem/*` pairs. -> the kernels'
     launches. Raises SystemExit otherwise."""
     import torch
     from slotdiffusion_tpu_torch import ops
@@ -1120,11 +1182,14 @@ def validate_against_plain(ecfg, model, data, dev, gen, smi, phase, what,
         f"({val_s / n_batches:.3f} s a batch, host metrics included) on "
         f"{smi}; launches {counts}")
     log(f"{phase}: " + ", ".join(f"{k} {v:.6f}" for k, v in res_k.items()))
-    want = {f"val/{k}" for k in ("denoise_loss", "denoise_loss_ema", "ari",
-                                 "fari", "miou", "fmiou", "mbo")}
+    prefixes = ("inst/", "sem/") if dual else ("",)
+    want = {f"val/{k}" for k in ("denoise_loss", "denoise_loss_ema")} | {
+        f"val/{p}{k}" for p in prefixes
+        for k in ("ari", "fari", "miou", "fmiou", "mbo")}
     if set(res_k) != want or not all(map(math.isfinite, res_k.values())):
         raise SystemExit(f"validate gave {res_k}")
-    if not all(-1.0 <= res_k[k] <= 1.0 for k in ("val/ari", "val/fari")):
+    if not all(-1.0 <= res_k[f"val/{p}{k}"] <= 1.0 for p in prefixes
+               for k in ("ari", "fari")):
         raise SystemExit(f"ARI outside [-1, 1]: {res_k}")
     check_launches(counts, f"{phase}: validate", bf16)
     moved = [k for k, v in model.state_dict().items()
@@ -2043,11 +2108,65 @@ def run_sampler(model, kind, name, kw, twin_frames, video, dev, phase):
     return counts, report, None if ok else f"{kind} {name}"
 
 
+def pixel_sample_surface(model, dev, phase, failed):
+    """The `sample` serving surface of the pixel-space decoder (20
+    DPM-Solver++ steps with dynamic thresholding, no decode) on
+    PIXEL_SERVE videos' slots, eagerly and from a CUDA graph: the same
+    bits, the same launches (GN_PER_UNET GN and ATTN_PER_UNET attention a
+    UNet call, the 49,152-value groups through the GN kernel's two-pass
+    path), images of the decoder's side. -> {path: launches}; a fault
+    goes to `failed`."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.serving import build_serving_fn
+    g = torch.Generator(device=dev).manual_seed(13)
+    slots = torch.randn(PIXEL_SERVE, PIXEL_SERVE_FRAMES, model.num_slots,
+                        model.slot_size, generator=g, device=dev)
+    side = model.dm_decoder.resolution
+    paths, outs = {}, {}
+    for graphed in (False, True):
+        fn = build_serving_fn(model, "sample", graphed=graphed)
+        if graphed:
+            fn(3, slots)  # the capture
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        with torch.inference_mode():
+            out = fn(3, slots)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        counts = ops.launch_counts()
+        name = "graphed" if graphed else "eager"
+        outs[name] = out
+        paths[f"pixel_{name}_sample"] = counts
+        calls = counts["gn_silu"] // GN_PER_UNET
+        ok = out.shape == (PIXEL_SERVE, PIXEL_SERVE_FRAMES, *side, 3) and \
+            bool(torch.isfinite(out).all()) and calls > 0 and \
+            counts["gn_silu"] == GN_PER_UNET * calls and \
+            counts["attention"] == ATTN_PER_UNET * calls
+        verdict = ""
+        if graphed:
+            same = torch.equal(out, outs["eager"]) and \
+                counts == paths["pixel_eager_sample"]
+            verdict = "; vs eager " + ("bit-identical, the same launches"
+                                       if same else "DIFFERS")
+            ok = ok and same
+        log(f"{phase}: {name} `sample` surface of the pixel decoder over "
+            f"{side[0]}x{side[1]} ({PIXEL_SERVE} x {PIXEL_SERVE_FRAMES} "
+            f"frames) in {secs:.3f} s (host clock): {tuple(out.shape)}, "
+            f"{calls} UNet calls, launches {nonzero(counts)}{verdict} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"pixel {name} sample surface")
+    return paths
+
+
 def samplers(smi, dev, phase="phase 10"):
     """Every sampler of the decoder at full flagship width (random
     weights, seed 0) through `log_images` of 2 videos x 6 frames, each
     against the plain versions (`run_sampler`): DPM-Solver(++) methods,
-    DDIM, ancestral, two of them in bf16, and the pixel-space decoder.
+    DDIM, ancestral, two of them in bf16, and the pixel-space decoder,
+    also through its `sample` serving surface, eager and graphed.
     -> {path: launch counts}; raises SystemExit after the last run if any
     failed."""
     import gc
@@ -2081,22 +2200,8 @@ def samplers(smi, dev, phase="phase 10"):
             total = {n: total[n] + counts[n] for n in total}
         per_path[f"samplers_{kind}"] = total
         if kind == "pixel":
-            refused_side = PIXEL_REFUSED_SIDE
-            x = torch.zeros(2, refused_side, refused_side, 3, device=dev)
-            try:
-                with torch.inference_mode():
-                    model.dm_decoder.denoise(
-                        x, torch.zeros(2, device=dev),
-                        torch.zeros(2, *model.savi.init_latents.shape[-2:],
-                                    device=dev))
-                refused = "ran"
-            except ValueError as e:
-                refused = f"raised: {e}"
-            log(f"{phase}: the pixel decoder's UNet over {refused_side}x"
-                f"{refused_side}: the GN kernel {refused}")
-            if refused == "ran":
-                failed.append(f"pixel {refused_side}x{refused_side} ran "
-                              "past the GN kernel's group limit")
+            per_path.update(pixel_sample_surface(model, dev, phase,
+                                                 failed))
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -2827,6 +2932,242 @@ def baselines(smi, dev, gen, phase="phase 12"):
     return paths, sa_results, secs
 
 
+def gn_long(gen, dev, phase, train_batch):
+    """The GN kernel's two-pass path at GN_LONG_SHAPES, f32 and bf16 entry
+    (SiLU on), against its plain version: relative error within
+    GN_LONG_TOL, two calls bit-identical; the first shape in f32 timed
+    beside the plain version, `F.silu(F.group_norm)` and the bounds (the
+    function's: x read and y written once; the design's: x read twice).
+    -> that shape's numbers. Raises SystemExit if any disagrees."""
+    import torch
+    import torch.nn.functional as F
+    from slotdiffusion_tpu_torch.ops import fused_norm
+    failed, res = [], None
+    for B, C, H, W in GN_LONG_SHAPES:
+        B = B or train_batch
+        L = C // 32 * H * W
+        chunk, count = fused_norm.long_plan(L)
+        for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x = (torch.randn(B, C, H, W, generator=gen, device=dev) * 2 +
+                 0.5).to(dt)
+            w = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
+            b = 0.1 * torch.randn(C, generator=gen, device=dev)
+            kern = lambda: fused_norm.fused_group_norm(x, w, b, 32, 1e-5,
+                                                       "silu")
+            plain = lambda: fused_norm.group_norm_reference(x, w, b, 32,
+                                                            1e-5, "silu")
+            y, y2, ref = kern(), kern(), plain()
+            same = torch.equal(y, y2)
+            abs_err = (y.float() - ref.float()).abs().max().item()
+            rel = abs_err / ref.float().abs().max().item()
+            ok = same and rel <= GN_LONG_TOL[dname]
+            log(f"{phase}: gn_silu two-pass ({B}, {C}, {H}, {W}) {dname}: "
+                f"{L} values a group in {count} chunks of {chunk}; max rel "
+                f"err {rel:.3e} (tol {GN_LONG_TOL[dname]:.1e}), two calls "
+                f"{'bit-identical' if same else 'DIFFER'} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"({B}, {C}, {H}, {W}) {dname}")
+            if res is None and dname == "f32":
+                n = x.numel()
+                k_t, p_t = timed(kern), timed(plain)
+                l_t = timed(lambda: F.silu(F.group_norm(x, 32, w, b, 1e-5)))
+                terms = bound_terms(2 * n * 4 + 2 * C * 4, f32_ops=10 * n)
+                design = 1e3 * (3 * n * 4 + 2 * C * 4) / HBM_BYTES_PER_S
+                res = dict(shape=[B, C, H, W], group=L, chunk=chunk,
+                           chunks=count, ms=k_t[0], event_ms=k_t[1],
+                           plain_ms=p_t[0], library_ms=l_t[0],
+                           bound_ms=max(terms),
+                           bound_by="bytes" if terms[0] >= terms[1]
+                           else "operations",
+                           design_bound_ms=design, max_abs_err=abs_err)
+                log(f"{phase}: gn_silu two-pass ({B}, {C}, {H}, {W}) f32 "
+                    f"device (event) ms: kernel {k_t[0]:.4f} ({k_t[1]:.4f}),"
+                    f" plain {p_t[0]:.4f}, library {l_t[0]:.4f}, bound "
+                    f"{max(terms):.4f} (x and y once), design bound "
+                    f"{design:.4f} (x read twice)")
+    if failed:
+        raise SystemExit(f"{phase}: the GN two-pass path disagrees: "
+                         f"{failed}")
+    return res
+
+
+def sdpa_bf16(shapes, gen, dev, phase, tokens=784):
+    """At the serving path's self-attention of `tokens` keys: the
+    attention kernel's bf16 entry and `scaled_dot_product_attention` on
+    the same bf16 q, k, v (the library yardstick), timed, and their
+    largest difference. -> {shape, ms, library_ms, max_abs_err}."""
+    import torch
+    import torch.nn.functional as F
+    from slotdiffusion_tpu_torch.ops import attention_kernel
+    Bq, nq, nk, heads = next(k for k in shapes["attention"]
+                             if k[1] == k[2] == tokens)
+    hd = heads * attention_kernel.HEAD_DIM
+    q, k, v = (torch.randn(Bq, tokens, hd, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    split = lambda t: t.view(Bq, tokens, heads, -1).transpose(1, 2)
+    kern = lambda: attention_kernel.fused_mha(q, k, v, heads)
+    lib = lambda: F.scaled_dot_product_attention(split(q), split(k),
+                                                 split(v))
+    err = (kern().float() - lib().transpose(1, 2).reshape(Bq, tokens, hd)
+           .float()).abs().max().item()
+    k_t, l_t = timed(kern), timed(lib)
+    log(f"{phase}: attention bf16 B={Bq} Nq=Nk={tokens} H={heads}: kernel "
+        f"{k_t[0]:.4f} ms, scaled_dot_product_attention {l_t[0]:.4f} ms "
+        f"(device), kernel/library {k_t[0] / l_t[0]:.3f}, max_abs_diff "
+        f"{err:.3e}")
+    return dict(shape=[Bq, tokens, tokens, heads], ms=k_t[0],
+                library_ms=l_t[0], max_abs_err=err)
+
+
+def coco_data(cfg, batch, steps, val_batches=0):
+    """`steps` batches of `batch` synthetic COCO images at `cfg`'s
+    resolution (and `val_batches` val batches of COCO_EVAL_BATCH) through
+    the COCO collater, with the training settings for `fit_checked`."""
+    from slotdiffusion_tpu_torch.data.coco import coco_collate_fn
+    from slotdiffusion_tpu_torch.data.loader import DataModule
+    from slotdiffusion_tpu_torch.data.synthetic import SyntheticCOCODataset
+    tcfg = cfg.copy(print_iter=1, save_interval=100.0, num_workers=0,
+                    val_batch_size=COCO_EVAL_BATCH)
+    val = SyntheticCOCODataset(cfg.resolution, val_batches * COCO_EVAL_BATCH,
+                               seed=1) if val_batches else None
+    return tcfg, DataModule(
+        SyntheticCOCODataset(cfg.resolution, steps * batch, seed=0), val,
+        batch, COCO_EVAL_BATCH, seed=0, collate_fn=coco_collate_fn)
+
+
+def coco_voc(smi, dev, gen, phase="phase 13"):
+    """Phase 13: SADiffusion with the frozen DINO ViT at 224x224, full
+    width. -> ({path: launches}, {kernel: totals at the COCO serving
+    shapes}, the GN two-pass numbers, the bf16 SDPA yardstick)."""
+    import gc
+
+    import torch
+    from slotdiffusion_tpu_torch import configs
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    from slotdiffusion_tpu_torch.ops import fused_norm
+    from slotdiffusion_tpu_torch.serving import build_serving_fn
+    t_phase = time.time()
+    paths = {}
+    cfg = configs.SALDMDINOCOCO224()
+    model = build_model(cfg, device=dev)
+    init_random_(model, torch.Generator().manual_seed(0))
+    dino = model.encoder.encoder.dino
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{phase}: built SADiffusion (SALDMDINOCOCO224, 224x224, 7 slots x "
+        f"256 x 3 iterations, DINO ViT-S/8 frozen: "
+        f"{sum(p.numel() for p in dino.parameters()) / 1e6:.1f}M), "
+        f"{n_params / 1e6:.1f}M parameters, random weights (seed 0)")
+    inputs = image_inputs(cfg, dev)
+    img, x_t, t_model = inputs
+
+    # the kernels at the serving shapes: checked, timed, bit-identical
+    shapes, handles = record_shapes(model)
+    with torch.inference_mode():
+        s0, _ = build_serving_fn(model, "encode", graphed=False)(img)
+        build_serving_fn(model, "denoise", graphed=False)(x_t, t_model, s0)
+    torch.cuda.synchronize()
+    for hk in handles:
+        hk.remove()
+    long_calls = sum(n for (shape, _, _, G), n in shapes["gn_silu"].items()
+                     if shape[1] // G * shape[2] * shape[3] >
+                     fused_norm.MAX_GROUP)
+    log(f"{phase}: a UNet call at 56x56 latents: "
+        f"{sum(shapes['gn_silu'].values())} GN calls, {long_calls} of them "
+        f"over {fused_norm.MAX_GROUP} values a group (the two-pass path); "
+        f"attention shapes {sorted(shapes['attention'])}; slot attention "
+        f"{sorted(shapes['slot_attention'])}")
+    if not long_calls:
+        raise SystemExit(f"{phase}: no GN call reached the two-pass path")
+    sa_mod = model.slot_attention
+    coco_k = check_kernels(shapes, sa_mod, gen, dev,
+                           f"{phase} (COCO serving shapes)")
+    sdpa = sdpa_bf16(shapes, gen, dev, phase)
+
+    # serving, eager and graphed (masks of 224x224 summing to 1)
+    served, slots = image_requests(model, inputs, phase, smi)
+    paths.update({f"coco_{k}": v for k, v in served.items()})
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        d_gpu = build_serving_fn(model, "denoise", graphed=False)(
+            x_t[:1], t_model[:1], slots[:1]).cpu()
+        d_cpu = build_serving_fn(cpu, "denoise")(
+            x_t[:1].cpu(), t_model[:1].cpu(), slots[:1].cpu())
+        s_gpu, m_gpu = build_serving_fn(model, "encode", graphed=False)(
+            img[:1])
+        s_cpu, m_cpu = build_serving_fn(cpu, "encode")(img[:1].cpu())
+    del cpu
+    for name, a, b, tol in (("denoise", d_gpu, d_cpu, 1e-3),
+                            ("encode slots", s_gpu.cpu(), s_cpu, 1e-2),
+                            ("encode masks", m_gpu.cpu(), m_cpu, 1e-2)):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        log(f"{phase}: {name} card vs CPU plain path: max rel err "
+            f"{rel:.2e} (tol {tol:.0e})")
+        if not rel <= tol:
+            raise SystemExit(f"{phase}: {name}: the card disagrees with the "
+                             "CPU")
+
+    # training: DINO and the VQ-VAE frozen
+    for m in model.frozen_modules:
+        m.requires_grad_(False)
+    dino_start = {n: p.detach().clone() for n, p in dino.named_parameters()}
+    shapes, handles = record_shapes(model)
+    H, W = cfg.resolution
+    make_img = lambda bs: torch.rand(bs, H, W, 3, device=dev) * 2 - 1
+    batch, _ = batch_that_fits(model, make_img, COCO_TRAIN_BATCHES, phase,
+                               shapes)
+    for hk in handles:
+        hk.remove()
+    check_kernels(shapes, sa_mod, gen, dev, f"{phase} (training shapes)",
+                  timing=False)
+    check_grads(model_grad_cases(shapes, sa_mod, gen, dev), gen, dev, phase)
+    gn_res = gn_long(gen, dev, phase, batch)
+    trainer, _, paths["coco_training"], secs, peak = fit_checked(
+        model, *coco_data(cfg, batch, COCO_STEPS), phase, COCO_STEPS,
+        smi=smi)
+    del trainer
+    stale = [n for n, p in dino.named_parameters()
+             if p.grad is not None or not torch.equal(p, dino_start[n])]
+    log(f"{phase}: {COCO_STEPS} steps at {batch} images ("
+        + ("the config's 64" if batch == 64 else f"cut from 64 to {batch}")
+        + f"): step seconds {' '.join(f'{x:.3f}' for x in secs)}, peak "
+        f"{peak:.2f} GiB [{smi}]; DINO's {len(dino_start)} tensors "
+        + ("bit-identical, no gradient" if not stale
+           else f"CHANGED {stale[:3]}"))
+    if stale:
+        raise SystemExit(f"{phase}: the frozen DINO moved: {stale[:5]}")
+    vcfg, vdata = coco_data(cfg, COCO_EVAL_BATCH, 1, COCO_EVAL_BATCHES)
+    paths["coco_validate"] = validate_against_plain(
+        vcfg.copy(use_ema=True), model, vdata, dev, gen, smi, phase,
+        f"{COCO_EVAL_BATCHES} batches of {COCO_EVAL_BATCH} synthetic COCO "
+        f"{H}x{W} images (dual inst/sem protocol)", dual=True)
+    del model, sa_mod, slots, s0, dino, dino_start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # VOC: 6 slots x 192
+    voc = configs.SALDMDINOVOC224()
+    model = build_model(voc, device=dev)
+    init_random_(model, torch.Generator().manual_seed(0))
+    for m in model.frozen_modules:
+        m.requires_grad_(False)
+    shapes, handles = record_shapes(model)
+    batch_that_fits(model, make_img, (batch,), f"{phase} (VOC)", shapes)
+    for hk in handles:
+        hk.remove()
+    check_kernels(shapes, model.slot_attention, gen, dev,
+                  f"{phase} (VOC training shapes)", timing=False)
+    paths["voc_training"] = fit_checked(
+        model, *coco_data(voc, batch, VOC_STEPS), f"{phase} (VOC)",
+        VOC_STEPS, smi=smi)[2]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{phase}: done in {time.time() - t_phase:.1f} s [{smi}]")
+    return paths, coco_k, gn_res, sdpa
+
+
 def main():
     import gc
 
@@ -3149,7 +3490,11 @@ def main():
     base_paths, base_sa, base_secs = baselines(smi, dev, gen)
     per_path.update(base_paths)
 
-    # ---- 13. report -----------------------------------------------------
+    # ---- 13. COCO and VOC with the frozen DINO ViT ----------------------
+    coco_paths, coco_k, gn_long_res, sdpa = coco_voc(smi, dev, gen)
+    per_path.update(coco_paths)
+
+    # ---- 14. report -----------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():
@@ -3166,7 +3511,8 @@ def main():
             "replaces": f"{ops.REFERENCE_PACKAGE}/{m.REPLACES}",
             "launches": sum(c[name] for c in per_path.values()),
             "max_abs_err": max(r["err"], train_results.get(
-                name, {"err": 0.0})["err"], *[
+                name, {"err": 0.0})["err"], coco_k.get(
+                    name, {"err": 0.0})["err"], *[
                     res[name]["err"] for res in base_sa.values()
                     if name in res]),
             "ms": r["ms"], "event_ms": r["event"],
@@ -3216,6 +3562,24 @@ def main():
                    ("max_abs_err", res[name]["err"]))},
             **({"baseline_seconds": base_secs}
                if name == "slot_attention" else {}),
+            **({} if name not in coco_k else {
+                # the COCO serving shapes (phase 13: 8 images of 224x224;
+                # GN and attention per UNet call at 56x56 latents, slot
+                # attention per `encode`: N = 784, S = 7, D = 256)
+                "coco_ms": coco_k[name]["ms"],
+                "coco_event_ms": coco_k[name]["event"],
+                "coco_plain_ms": coco_k[name]["plain"],
+                "coco_library_ms": coco_k[name]["lib"]
+                if coco_k[name]["has_lib"] else None,
+                "coco_bound_ms": max(coco_k[name]["t_bytes"],
+                                     coco_k[name]["t_ops"]),
+                "coco_bound_by": ("bytes" if coco_k[name]["t_bytes"] >=
+                                  coco_k[name]["t_ops"] else "operations"),
+                "coco_max_abs_err": coco_k[name]["err"]}),
+            **({} if name != "gn_silu" else {
+                f"long_run_{k}": v for k, v in gn_long_res.items()}),
+            **({} if name != "attention" else {
+                f"sdpa_bf16_{k}": v for k, v in sdpa.items()}),
             **extra,
         })
     for name, r in bf16_serve.items():

@@ -17,6 +17,9 @@ read: {"model": state_dict, "config": name, "source": path, "ema": bool}.
     python scripts/export_torch_checkpoint.py --model dvae
     python scripts/export_torch_checkpoint.py --model slate
     python scripts/export_torch_checkpoint.py --model steve
+    # the repo's SA trained on its generated COCO and VOC trees
+    python scripts/export_torch_checkpoint.py --model sa_coco
+    python scripts/export_torch_checkpoint.py --model sa_voc
     # a stand-alone stage-1 VQ-VAE run (default: vqvae_synthetic_params-
     # res64's ckpt_last), for the port's VQVAE configs and for
     # train_torch.py --vqvae_ckp_path
@@ -64,6 +67,12 @@ DEFAULTS = {
     "steve": ("configs/steve_synthetic_long-res64.py",
               "checkpoint/steve_synthetic_long-res64/ckpt_final",
               "checkpoint/torch_steve_synthetic_long-res64/model.pt"),
+    "sa_coco": ("configs/sa_coco_file-res64.py",
+                "checkpoint/sa_coco_file-res64/ckpt_final",
+                "checkpoint/torch_sa_coco_file-res64/model.pt"),
+    "sa_voc": ("configs/sa_voc_file-res64.py",
+               "checkpoint/sa_voc_file-res64/ckpt_final",
+               "checkpoint/torch_sa_voc_file-res64/model.pt"),
 }
 # the port's config of each JAX config file
 PORT_CONFIGS = {"savi_ldm_movi_file-res64": "SAViLDMMoviFile64",
@@ -74,7 +83,9 @@ PORT_CONFIGS = {"savi_ldm_movi_file-res64": "SAViLDMMoviFile64",
                 "savi_synthetic_params-res64": "SAViSynthetic64",
                 "dvae_synthetic_long-res64": "DVAESyntheticLong64",
                 "slate_synthetic_long-res64": "SLATESyntheticLong64",
-                "steve_synthetic_long-res64": "STEVESyntheticLong64"}
+                "steve_synthetic_long-res64": "STEVESyntheticLong64",
+                "sa_coco_file-res64": "SACOCOFile64",
+                "sa_voc_file-res64": "SAVOCFile64"}
 
 
 def export(params_path, weight, out, config=None, use_ema=True,

@@ -1,7 +1,13 @@
 """Segmentation evaluation of the PyTorch port (the counterpart of
 scripts/test_seg.py): run a trained model over the val or test split,
 take the argmax slot of every pixel, and report FG-ARI, ARI, mIoU,
-FG-mIoU and mBO, T folded into H for a video.
+FG-mIoU and mBO, T folded into H for a video; COCO and VOC each twice,
+`inst/*` against the instance masks and `sem/*` against the semantic
+ones, without COCO's overlap pixels.
+
+    python scripts/test_seg_torch.py --params SACOCOFile64 \
+        --weight checkpoint/torch_sa_coco_file-res64/model.pt \
+        --data_root /tmp/seg/mini_coco --split val --cpu
 
     python scripts/test_seg_torch.py --params SAViLDMMoviFile64 \
         --weight checkpoint/torch_savi_ldm_movi_file-res64/model.pt \
@@ -39,7 +45,7 @@ def evaluate(params, args, model, device, seq_len, clip_len):
     (None for an image model)."""
     import torch
 
-    from slotdiffusion_tpu_torch.data import build_dataset
+    from slotdiffusion_tpu_torch.data import build_dataset, collate_fn
     from slotdiffusion_tpu_torch.data.loader import epoch_batches, make_loader
     from slotdiffusion_tpu_torch.methods.build import (seg_metrics_fn,
                                                        workers)
@@ -58,7 +64,8 @@ def evaluate(params, args, model, device, seq_len, clip_len):
     bs = args.bs if args.bs > 0 else params.val_batch_size
     batches = epoch_batches(len(val_set), bs, shuffle=False, drop_last=False)
     loader = make_loader(val_set, batches,
-                         num_workers=workers(params, args))
+                         num_workers=workers(params, args),
+                         collate_fn=collate_fn(params))
     meters = {}
     with torch.inference_mode():
         for i, batch in enumerate(loader):

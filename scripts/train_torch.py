@@ -63,10 +63,11 @@ keeps a random VQ-VAE. SA has none.
 
 With `--data_root` the clips come from a MOVi-layout tree
 (`scripts/gen_movi_tree.py`; the STEVE-MOVi layout for the MOVi-Solid and
--Tex configs), and an image config's images from its CLEVRTex or CelebA
-tree; else from synthetic clips or images at the config's resolution (a
-config whose dataset is `synthetic_video` or `synthetic` takes its own
-split sizes). Validation (losses; FG-ARI, mIoU, mBO for
+-Tex configs), and an image config's images from its CLEVRTex, CelebA,
+COCO or VOC tree; else from synthetic clips or images at the config's
+resolution (COCO-shaped ones for a COCO or VOC config; a config whose
+dataset is `synthetic_video`, `synthetic` or `synthetic_coco` takes its
+own split sizes). Validation (losses; FG-ARI, mIoU, mBO for
 SAViDiffusion) runs every
 `eval_interval` epochs and at the end. Checkpoints and the JSONL log go
 to `--ckp_path` (default `checkpoint/torch_<run>/`, where the run is
@@ -97,7 +98,8 @@ TAKES_EXPORTED_VQVAE = ("SAViLDMMoviFile64", "SALDMSyntheticLong64")
 EXPORTED_DVAE = os.path.join(
     REPO, "checkpoint/torch_dvae_synthetic_long-res64/dvae.pt")
 TAKES_EXPORTED_DVAE = ("SLATESyntheticLong64", "STEVESyntheticLong64")
-IMAGE_DATASETS = ("synthetic", "clevrtex", "celeba")
+IMAGE_DATASETS = ("synthetic", "synthetic_coco", "clevrtex", "celeba",
+                  "coco", "voc")
 
 
 def main(argv=None):
@@ -211,11 +213,12 @@ def main(argv=None):
         layout = "steve_movi" if cfg.dataset == "steve_movi" else "movi"
         data = build_datamodule(cfg.copy(data_root=args.data_root,
                                          dataset=layout))
-    elif cfg.dataset in ("synthetic_video", "synthetic"):
+    elif cfg.dataset in ("synthetic_video", "synthetic", "synthetic_coco"):
         data = build_datamodule(cfg)
-    elif images:
-        data = build_datamodule(cfg.copy(dataset="synthetic",
-                                         train_samples=256,
+    elif images:  # COCO and VOC fall back to COCO-shaped synthetic images
+        fake = "synthetic_coco" if cfg.dataset in ("coco", "voc") \
+            else "synthetic"
+        data = build_datamodule(cfg.copy(dataset=fake, train_samples=256,
                                          val_samples=2 * batch))
     else:
         data = SyntheticVideoData(cfg, batch, seed=args.seed,

@@ -14,7 +14,12 @@ dVAE (`DVAEMoviE128`, ...), SLATE on CLEVRTex and CelebA
 (`SLATECLEVRTex128`, `SLATECelebA128`) with theirs (`DVAECLEVRTex128`,
 `DVAECelebA128`), and the repo's four trained 64x64 ones
 (`SAViSynthetic64`, `DVAESyntheticLong64`, `SLATESyntheticLong64`,
-`STEVESyntheticLong64`).
+`STEVESyntheticLong64`). The real-world images: SADiffusion with a
+frozen DINO ViT-S/8 on COCO and VOC at 224x224 (`SALDMDINOCOCO224`,
+`SALDMDINOVOC224`) with their stage-1 VQ-VAEs (`VQVAECOCO224`,
+`VQVAEVOC224`), and the repo's 64x64 SA on its COCO, VOC and
+synthetic-COCO trees (`SACOCOFile64`, `SAVOCFile64`,
+`SASyntheticCOCO64`, over `SASynthetic64`).
 
 An own copy of the settings of the JAX package's `configs_base.py:17-140,
 274-330` and `configs/video_based/savi_ldm/savi_ldm_movie_params-res128.py`
@@ -950,6 +955,154 @@ class STEVESyntheticLong64(_VideoCommon):
     img_recon_loss_w = 1.0
 
 
+# ---- COCO and VOC (an own copy of the JAX package's
+# configs/img_based/sa_ldm/{sa_ldm_dino,vqvae}_{coco,voc}_params-res224.py
+# over `SALDMImgBase` / `VQVAEImgBase` and `dino_enc_dict`,
+# configs_base.py:109-117, 182-202, 250-268, and of configs/sa_coco_file-
+# res64.py, sa_voc_file-res64.py and sa_synthetic_coco-res64.py over
+# configs/sa_synthetic_params-res64.py)
+
+def dino_enc_dict(slot_size, resolution, patch_size=8, small_size=True):
+    """The frozen DINO ViT encoder (ViT-S/8 by default)."""
+    return dict(dino="dino-vits8" if small_size else "dino-vitb8",
+                enc_out_channels=slot_size, patch_size=patch_size,
+                small_size=small_size, resolution=tuple(resolution))
+
+
+class SALDMDINOCOCO224(_ImageCommon):
+    """SADiffusion with a frozen DINO ViT-S/8 on COCO at 224x224: 7 slots
+    of 256, 3 iterations, DINO's 28x28 patch tokens (384 channels) under
+    the SA encoder's position embedding and MLP head; the flagship's LDM
+    decoder over 56x56x3 latents; Adam at 1e-4, the dm_decoder at 2e-4,
+    5 % warmup, clipping at 0.05, 64 images a step, 100 epochs. Evaluated
+    under the dual inst/sem protocol (`load_anno`). The three kernel
+    knobs as in the flagship. The JAX config names an orbax stage-1
+    VQ-VAE; the port's leaves `vqvae_ckp_path` unset (a random VQ-VAE),
+    and a run takes `VQVAECOCO224`'s ckpt_last.pt. DINO's pretrained
+    weights come from the `.npz` SLOTDIFFUSION_DINO_WEIGHTS names
+    (`models/dino.py:load_dino_weights`); without it DINO keeps its
+    seeded weights."""
+    max_epochs = 100
+    save_interval = 0.25
+    eval_interval = 4
+    lr = 1e-4
+    dec_lr = 2e-4
+    clip_grad = 0.05
+    warmup_steps_pct = 0.05
+    load_mask = True
+    load_anno = True
+    train_batch_size = 64
+    val_batch_size = 64
+    dataset = "coco"
+    data_root = "./data/COCO"
+    norm_mean = 0.5
+    norm_std = 0.5
+    model = "SADiffusion"
+    resolution = (224, 224)
+    slot_dict = slot_dict_for(7, 256, 3)
+    enc_dict = dino_enc_dict(256, (224, 224))
+    dec_dict = ldm_dec_dict((224, 224), 256)
+    denoise_loss_w = 1.0
+
+
+class SALDMDINOVOC224(SALDMDINOCOCO224):
+    """`configs/img_based/sa_ldm/sa_ldm_dino_voc_params-res224.py`: 6 slots
+    of 192, 500 epochs, a checkpoint every half epoch, validation every
+    10; the VOC trainaug split, its val split's instance masks."""
+    max_epochs = 500
+    save_interval = 0.5
+    eval_interval = 10
+    dataset = "voc"
+    data_root = "./data/VOC"
+    slot_dict = slot_dict_for(6, 192, 3)
+    enc_dict = dino_enc_dict(192, (224, 224))
+    dec_dict = ldm_dec_dict((224, 224), 192)
+
+
+class VQVAECOCO224(VQVAECLEVRTex128):
+    """`configs/img_based/sa_ldm/vqvae_coco_params-res224.py`: the stage-1
+    VQ-VAE on COCO images at 224x224 (56x56x3 latents)."""
+    dataset = "coco"
+    data_root = "./data/COCO"
+    load_anno = False
+    norm_mean = 0.5
+    norm_std = 0.5
+    resolution = (224, 224)
+    enc_dec_dict = dict(VQVAECLEVRTex128.enc_dec_dict, resolution=224)
+
+
+class VQVAEVOC224(VQVAECOCO224):
+    """`configs/img_based/sa_ldm/vqvae_voc_params-res224.py`."""
+    dataset = "voc"
+    data_root = "./data/VOC"
+
+
+class SASynthetic64(_ImageCommon):
+    """`configs/sa_synthetic_params-res64.py`: SA on 64x64 synthetic
+    images (256 train, 32 val), 16 a step, 2 epochs; the model of
+    `SASyntheticLong64` (6 slots of 128, the plain CNN, the decoder from
+    8x8); Adam at 4e-4, clipping at 0.05. Slot attention's f32 formula
+    (`use_pallas="auto"`), as the JAX config computes."""
+    max_epochs = 2
+    save_interval = 1.0
+    eval_interval = 1
+    print_iter = 10
+    lr = 4e-4
+    clip_grad = 0.05
+    warmup_steps_pct = 0.05
+    dataset = "synthetic"
+    data_root = ""
+    train_samples = 256
+    val_samples = 32
+    max_objects = 4
+    load_mask = True
+    train_batch_size = 16
+    val_batch_size = 16
+    num_workers = 2
+    model = "SA"
+    resolution = (64, 64)
+    slot_dict = dict(SASyntheticLong64.slot_dict)
+    enc_dict = dict(SASyntheticLong64.enc_dict)
+    dec_dict = dict(SASyntheticLong64.dec_dict)
+    img_recon_loss_w = 1.0
+
+
+class SACOCOFile64(SASynthetic64):
+    """`configs/sa_coco_file-res64.py`: the repo's trained SA on its
+    generated COCO tree (`scripts/data_utils/gen_mini_seg_data.py
+    --coco_train 256 --coco_val 48 --res 96`), 100 epochs, whose
+    checkpoint `checkpoint/sa_coco_file-res64/ckpt_final` the export
+    script carries into the port."""
+    dataset = "coco"
+    data_root = "data_local/mini_coco"
+    load_anno = True
+    max_epochs = 100
+    eval_interval = 10
+    save_interval = 25.0
+    print_iter = 32
+
+
+class SAVOCFile64(SASynthetic64):
+    """`configs/sa_voc_file-res64.py`: the repo's trained SA on its
+    generated VOC tree (`gen_mini_seg_data.py --voc 128 --res 96`), 200
+    epochs; checkpoint `checkpoint/sa_voc_file-res64/ckpt_final`."""
+    dataset = "voc"
+    data_root = "data_local/mini_voc"
+    load_anno = True
+    max_epochs = 200
+    eval_interval = 20
+    save_interval = 50.0
+    print_iter = 30
+
+
+class SASyntheticCOCO64(SASynthetic64):
+    """`configs/sa_synthetic_coco-res64.py`: SA under the dual inst/sem
+    protocol on the COCO-shaped synthetic images (64 val)."""
+    dataset = "synthetic_coco"
+    val_samples = 64
+    load_anno = True
+
+
 CONFIGS = {c.__name__: c for c in (
     SAViLDMMoviE128, SAViLDMMoviFile64, SAViLDMMoviD128,
     SAViLDMMoviSolid128, SAViLDMMoviTex128, VQVAEMoviE128, VQVAEMoviD128,
@@ -961,7 +1114,9 @@ CONFIGS = {c.__name__: c for c in (
     STEVEMoviTex128, DVAEMoviE128, DVAEMoviD128, DVAEMoviSolid128,
     DVAEMoviTex128, DVAECLEVRTex128, DVAECelebA128, SLATECLEVRTex128,
     SLATECelebA128, SAViSynthetic64, DVAESyntheticLong64,
-    SLATESyntheticLong64, STEVESyntheticLong64)}
+    SLATESyntheticLong64, STEVESyntheticLong64, SALDMDINOCOCO224,
+    SALDMDINOVOC224, VQVAECOCO224, VQVAEVOC224, SASynthetic64,
+    SACOCOFile64, SAVOCFile64, SASyntheticCOCO64)}
 
 
 def get_config(name):

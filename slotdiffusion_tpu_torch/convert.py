@@ -209,11 +209,37 @@ def convert_plain_cnn(params, num_layers, norm=""):
     return out
 
 
+def _flatten(tree, prefix=""):
+    """Nested dicts -> {"a/b/c": leaf}, flax's flattened paths."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, path + "/"))
+        else:
+            out[path] = v
+    return out
+
+
+def convert_dino(params):
+    """flax DINOEncoder params -> the port's DINOEncoder names (the HF
+    ViTModel's): the inverse of the JAX package's `convert_hf_dino_flat`
+    (models/dino.py:116-163): q/k/v [in, heads, hd] -> [out, in], the
+    output [heads, hd, out] -> [out, in], the patch conv [kh, kw, C, F]
+    -> [F, C, kh, kw], dense [in, out] -> [out, in]."""
+    from .models import dino
+    depth = sum(1 for k in params if k.startswith("block"))
+    return dino.convert_flat(_flatten(params), depth)
+
+
 def convert_sa_encoder(params, enc_dict):
-    """flax SAEncoder -> port SAEncoder names: the GN-ResNet walk or the
-    plain-CNN walk, as `enc_dict` picks the encoder."""
+    """flax SAEncoder -> port SAEncoder names: the GN-ResNet, plain-CNN or
+    DINO walk, as `enc_dict` picks the encoder."""
     from .models.resnet import STAGES
-    if enc_dict.get("resnet"):
+    if enc_dict.get("dino"):
+        backbone = {f"dino.{k}": v for k, v in
+                    convert_dino(params["DINOEncoder_0"]).items()}
+    elif enc_dict.get("resnet"):
         backbone = convert_resnet(params["ResNet_0"],
                                   STAGES[enc_dict["resnet"]],
                                   enc_dict.get("use_layer4", False))

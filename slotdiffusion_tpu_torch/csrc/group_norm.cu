@@ -1,5 +1,6 @@
-// GroupNorm(+SiLU) over contiguous f32 or bf16 NCHW, one read of x, one
-// write of y.
+// GroupNorm(+SiLU) over contiguous f32 or bf16 NCHW, any (sample, group)
+// run length: one read of x and one write of y for runs of up to
+// kMaxRun = 32768 values, two reads of x above.
 //
 // Replaces the Pallas kernel `_gn_kernel` driven by `_gn_pallas` /
 // `fused_group_norm` (the JAX package's ops/fused_norm.py:53, 83-103, 127):
@@ -43,6 +44,29 @@
 // Bound on the H100: ~8-12 flops per 8 bytes moved, far below the card's
 // f32 balance, so bytes: 2 * B * C * H * W * 4 bytes over 3.35 TB/s.
 //
+// Runs longer than kMaxRun (the 384-channel norm of the UNet's output
+// level 0 at 56x56 latents: 37,632 values; the pixel decoder at 64x64:
+// 49,152; a dVAE-sized 128 channels at 128x128 in 4 groups: 65,536) take
+// two passes, design (b) of the two that fit:
+// - `gn_long_stats`: one block of kLongThreads a chunk of at most
+//   kLongChunk = 8192 values (32 a thread, in registers) writes the
+//   chunk's mean and centered sum of squares (M2) to a workspace;
+// - `gn_long_apply`: one block a chunk combines its run's partials by
+//   Chan's formula in chunk order (n = n_a + n_b, d = mean_b - mean_a,
+//   mean += d * n_b / n, M2 += M2_b + d^2 * n_a * n_b / n), so every
+//   block of a run gets the same statistics, bit for bit, with no atomics;
+//   then reads its chunk of x again and writes y.
+// The host plans the chunks (`long_plan` in ops/fused_norm.py: as few
+// chunks as kLongChunk allows, equal sizes rounded up to a multiple of 4,
+// the last one shorter) and passes the chunk size and the workspace; a
+// call is deterministic. Why (b) and not a thread-block cluster holding a
+// run in the registers of 2-8 blocks: (b) takes any run length where a
+// cluster stops at 8 x 32768, and its blocks need no co-scheduling, so
+// it launches at any batch. It reads x twice: its bound is 1.5 times the
+// bytes, 3 * B * C * H * W * sizeof(x) over 3.35 TB/s. Programmatic
+// dependent launch stays on the short path; the long path's two kernels
+// are plain launches on the stream.
+//
 // The bf16 entry point (`sdt_group_norm_bf16`, the model under `use_bf16`)
 // is the same kernel on bf16 x and y, as the JAX `_gn_kernel` writes
 // `o_ref.dtype`: the values are widened to f32 as they are loaded, the
@@ -59,6 +83,9 @@ namespace {
 
 constexpr int kBlock = 64;  // threads a block for runs of <= 2 warps
 constexpr int kMaxRun = 32768;   // MAX_GROUP in ops/fused_norm.py
+constexpr int kLongThreads = 256;  // a block of the long path
+constexpr int kLongN = 8;          // chunks of 4 values a thread
+constexpr int kLongChunk = kLongThreads * kLongN * 4;  // LONG_CHUNK
 
 // 4 consecutive values as f32: one 16-byte (f32) or 8-byte (bf16) load
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -204,6 +231,137 @@ gn_silu_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// Four values of a run at `p` (`left` of them valid, >= 1) as f32: one
+// vector load with kVec, else single-value loads with the rest 0.
+template <typename T, bool kVec>
+__device__ __forceinline__ float4 load_chunk(const T* p, int left) {
+  if (kVec) return load4(p);
+  float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+  q.x = to_f32(p[0]);
+  if (left > 1) q.y = to_f32(p[1]);
+  if (left > 2) q.z = to_f32(p[2]);
+  if (left > 3) q.w = to_f32(p[3]);
+  return q;
+}
+
+// Long path, pass 1: block b is chunk b % nchunk of run b / nchunk; it
+// writes (mean, M2) of its values to part[b].
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kLongThreads)
+gn_long_stats(const T* __restrict__ x, float2* __restrict__ part, int L,
+              int chunk, int nchunk) {
+  __shared__ float red_sum[kLongThreads / 32], red_sq[kLongThreads / 32];
+  const int run = blockIdx.x / nchunk, k = blockIdx.x % nchunk;
+  const int start = k * chunk;
+  const int len = min(chunk, L - start);
+  const int n = (len + 3) / 4;
+  const T* p = x + (size_t)run * L + start;
+  float v[kLongN][4];
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kLongN; ++j) {
+    const int i = threadIdx.x + j * kLongThreads;
+    const float4 q = i < n ? load_chunk<T, kVec>(p + 4 * i, len - 4 * i)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[j][0] = q.x;
+    v[j][1] = q.y;
+    v[j][2] = q.z;
+    v[j][3] = q.w;
+    sum += q.x + q.y + q.z + q.w;  // masked values are 0
+  }
+  const float mean = run_sum(sum, kLongThreads, red_sum) / len;
+  float sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < kLongN; ++j) {
+    const int i = threadIdx.x + j * kLongThreads;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float c = i < n && 4 * i + e < len ? v[j][e] - mean : 0.f;
+      sq += c * c;
+    }
+  }
+  const float m2 = run_sum(sq, kLongThreads, red_sq);
+  if (threadIdx.x == 0) part[blockIdx.x] = make_float2(mean, m2);
+}
+
+// Long path, pass 2: the run's statistics from its partials (Chan's
+// formula, chunk order), then y of this block's chunk.
+template <typename T, bool kVec, bool kChanVec, bool kSilu>
+__global__ void __launch_bounds__(kLongThreads)
+gn_long_apply(const T* __restrict__ x, const float2* __restrict__ part,
+              const float* __restrict__ w, const float* __restrict__ bias,
+              T* __restrict__ y, int G, int CG, int HW, int L, int chunk,
+              int nchunk, float eps) {
+  __shared__ float stat[2];
+  const int run = blockIdx.x / nchunk, k = blockIdx.x % nchunk;
+  if (threadIdx.x == 0) {
+    const float2* pr = part + (size_t)run * nchunk;
+    float na = 0.f, mean = 0.f, m2 = 0.f;
+    for (int c = 0; c < nchunk; ++c) {
+      const float2 q = pr[c];
+      const float nb = (float)min(chunk, L - c * chunk);
+      const float nt = na + nb;
+      const float d = q.x - mean;
+      mean += d * (nb / nt);
+      m2 += q.y + d * d * (na * nb / nt);
+      na = nt;
+    }
+    stat[0] = mean;
+    stat[1] = rsqrtf(m2 / L + eps);
+  }
+  __syncthreads();
+  const float mean = stat[0], rstd = stat[1];
+  const int start = k * chunk;
+  const int len = min(chunk, L - start);
+  const int n = (len + 3) / 4;
+  const size_t base = (size_t)run * L + start;
+  const int c0 = (run % G) * CG;
+#pragma unroll
+  for (int j = 0; j < kLongN; ++j) {
+    const int i = threadIdx.x + j * kLongThreads;
+    if (i >= n) continue;
+    const int left = len - 4 * i;
+    const float4 q = load_chunk<T, kVec>(x + base + 4 * i, left);
+    const float v[4] = {q.x, q.y, q.z, q.w};
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + (start + (kChanVec ? 4 * i : 4 * i + e)) / HW;
+      const float a = rstd * w[c];
+      float t = v[e] * a + (bias[c] - mean * a);
+      if (kSilu) t = __fdividef(t, 1.f + __expf(-t));
+      o[e] = t;
+    }
+    T* py = y + base + 4 * i;
+    if (kVec) {
+      store4(py, o);
+    } else {
+      set(py[0], o[0]);
+      if (left > 1) set(py[1], o[1]);
+      if (left > 2) set(py[2], o[2]);
+      if (left > 3) set(py[3], o[3]);
+    }
+  }
+}
+
+template <typename T, bool kVec, bool kChanVec>
+cudaError_t launch_long(bool silu, int blocks, cudaStream_t s, const T* x,
+                        const float* w, const float* b, T* y, float2* part,
+                        int G, int CG, int HW, int L, int chunk, int nchunk,
+                        float eps) {
+  gn_long_stats<T, kVec><<<blocks, kLongThreads, 0, s>>>(x, part, L, chunk,
+                                                         nchunk);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (silu)
+    gn_long_apply<T, kVec, kChanVec, true><<<blocks, kLongThreads, 0, s>>>(
+        x, part, w, b, y, G, CG, HW, L, chunk, nchunk, eps);
+  else
+    gn_long_apply<T, kVec, kChanVec, false><<<blocks, kLongThreads, 0, s>>>(
+        x, part, w, b, y, G, CG, HW, L, chunk, nchunk, eps);
+  return cudaGetLastError();
+}
+
 // Launched with programmatic stream serialization: on Hopper the grid is
 // scheduled while the kernel before it on the stream finishes, and waits
 // for it inside (griddepcontrol.wait), which takes the launch off the
@@ -248,13 +406,41 @@ cudaError_t launch_any(bool vec, bool chan_vec, bool silu, dim3 grid,
 
 template <typename T>
 int group_norm(const T* x, const float* w, const float* b, T* y, int B,
-               int C, int HW, int G, float eps, int silu, void* stream) {
+               int C, int HW, int G, float eps, int silu, float* work,
+               int chunk, void* stream) {
   if (B <= 0 || C <= 0 || HW <= 0 || G <= 0 || C % G)
     return (int)cudaErrorInvalidValue;
   const long long Lll = (long long)(C / G) * HW;
   const long long runs_ll = (long long)B * G;
-  if (Lll > kMaxRun || runs_ll > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (Lll > 0x7fffffffLL || runs_ll > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const int L = (int)Lll, runs = (int)runs_ll;
+  const bool vec = L % 4 == 0 &&
+      (((uintptr_t)x | (uintptr_t)y) & (4 * sizeof(T) - 1)) == 0;
+  const bool chan_vec = vec && HW % 4 == 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (L > kMaxRun) {
+    // the host's plan: chunks of `chunk` values (a multiple of 4), the
+    // last one shorter; `work` holds a float2 a chunk of every run
+    if (work == nullptr || chunk <= 0 || chunk % 4 || chunk > kLongChunk)
+      return (int)cudaErrorInvalidValue;
+    const long long nchunk = (Lll + chunk - 1) / chunk;
+    if (runs_ll * nchunk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const int blocks = (int)(runs_ll * nchunk);
+    float2* part = reinterpret_cast<float2*>(work);
+    const int CG = C / G, nc = (int)nchunk;
+    const cudaError_t err =
+        vec && chan_vec
+            ? launch_long<T, true, true>(silu, blocks, s, x, w, b, y, part,
+                                         G, CG, HW, L, chunk, nc, eps)
+        : vec ? launch_long<T, true, false>(silu, blocks, s, x, w, b, y,
+                                            part, G, CG, HW, L, chunk, nc,
+                                            eps)
+              : launch_long<T, false, false>(silu, blocks, s, x, w, b, y,
+                                             part, G, CG, HW, L, chunk, nc,
+                                             eps);
+    return (int)err;
+  }
   // 16 values a thread up to L = 4096, 32 above (fewer, fuller threads
   // hold more runs an SM at once)
   const int per_thread = L <= 4096 ? 16 : 32;
@@ -262,10 +448,6 @@ int group_norm(const T* x, const float* w, const float* b, T* y, int B,
   while (tpr * per_thread < L) tpr *= 2;
   const int block = tpr > kBlock ? tpr : kBlock;
   const dim3 grid((unsigned)((runs + block / tpr - 1) / (block / tpr)));
-  const bool vec = L % 4 == 0 &&
-      (((uintptr_t)x | (uintptr_t)y) & (4 * sizeof(T) - 1)) == 0;
-  const bool chan_vec = vec && HW % 4 == 0;
-  const cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err =
       L <= 4096
           ? launch_any<T, 4>(vec, chan_vec, silu, grid, block, s, x, w, b,
@@ -277,20 +459,23 @@ int group_norm(const T* x, const float* w, const float* b, T* y, int B,
 
 }  // namespace
 
-// x, y: contiguous f32 [B, C, H*W]; w, b: f32 [C]
+// x, y: contiguous f32 [B, C, H*W]; w, b: f32 [C]; runs of C / G * H * W
+// over kMaxRun values take the long path with `chunk` values a chunk and
+// `work` (f32, 2 a chunk of every run); null and 0 otherwise
 extern "C" int sdt_group_norm_f32(const float* x, const float* w,
                                   const float* b, float* y, int B, int C,
                                   int HW, int G, float eps, int silu,
-                                  void* stream) {
-  return group_norm(x, w, b, y, B, C, HW, G, eps, silu, stream);
+                                  float* work, int chunk, void* stream) {
+  return group_norm(x, w, b, y, B, C, HW, G, eps, silu, work, chunk,
+                    stream);
 }
 
-// x, y: contiguous bf16 [B, C, H*W]; w, b: f32 [C]
+// x, y: contiguous bf16 [B, C, H*W]; the rest as the f32 entry
 extern "C" int sdt_group_norm_bf16(const void* x, const float* w,
                                    const float* b, void* y, int B, int C,
                                    int HW, int G, float eps, int silu,
-                                   void* stream) {
+                                   float* work, int chunk, void* stream) {
   return group_norm(static_cast<const __nv_bfloat16*>(x), w, b,
                     static_cast<__nv_bfloat16*>(y), B, C, HW, G, eps, silu,
-                    stream);
+                    work, chunk, stream);
 }

@@ -1,8 +1,13 @@
 """Data of the port (the counterpart of the JAX package's data/builders.py
 :11-157 for `dataset="movi"`, `"steve_movi"`, `"synthetic_video"`,
-`"synthetic"`, `"clevrtex"` and `"celeba"`): `build_dataset` returns the
-datasets a config names, `build_datamodule` batches them with
-`loader.DataModule`. The other datasets are not ported yet."""
+`"synthetic"`, `"synthetic_coco"`, `"clevrtex"`, `"celeba"`, `"coco"`
+and `"voc"`): `build_dataset` returns the datasets a config names,
+`collate_fn` the batching they need (COCO's pads its boxes),
+`build_datamodule` batches them with `loader.DataModule`. The other
+datasets are not ported yet."""
+
+# the datasets whose samples carry variable-length `annos`
+COCO_LIKE = ("coco", "synthetic_coco")
 
 
 def build_dataset(params, val_only=False):
@@ -28,7 +33,26 @@ def build_dataset(params, val_only=False):
     if name in ("movi", "steve_movi"):
         from .movi import build_movi_dataset
         return build_movi_dataset(params, val_only=val_only)
+    if name == "synthetic_coco":
+        from .synthetic import synthetic_coco_splits
+        train, val = synthetic_coco_splits(params)
+        return val if val_only else (train, val)
+    if name == "coco":
+        from .coco import build_coco_dataset
+        return build_coco_dataset(params, val_only=val_only)
+    if name == "voc":
+        from .voc import build_voc_dataset
+        return build_voc_dataset(params, val_only=val_only)
     raise ValueError(f"dataset {name!r} is not ported yet")
+
+
+def collate_fn(params):
+    """The batching of the dataset `params` names: `coco_collate_fn` for
+    COCO and synthetic COCO, None (torch's default) for the rest."""
+    if params.dataset in COCO_LIKE:
+        from .coco import coco_collate_fn
+        return coco_collate_fn
+    return None
 
 
 def build_datamodule(params):
@@ -38,4 +62,5 @@ def build_datamodule(params):
     return DataModule(train, val, params.train_batch_size,
                       getattr(params, "val_batch_size", None),
                       seed=params.seed,
-                      num_workers=getattr(params, "num_workers", 0))
+                      num_workers=getattr(params, "num_workers", 0),
+                      collate_fn=collate_fn(params))

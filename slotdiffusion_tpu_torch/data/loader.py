@@ -8,10 +8,12 @@ of the JAX package's data/loader.py:40-90, 111-166, 335-372).
   `seed + epoch`; whole batches only with `drop_last`. A trainer that
   resumes mid-epoch asks for the batches from `start`.
 - `DataModule`: the train loader of an epoch and the val loader (not
-  shuffled, the last batch ragged). Worker processes (`num_workers`) are
-  spawned, not forked (the parent may hold threads: CUDA's, a JAX
-  runtime's), and seed numpy from torch's per-worker seed, torch's from
-  the epoch.
+  shuffled, the last batch ragged), each through the dataset's
+  `collate_fn` where it needs one (COCO's); a train set with `set_epoch`
+  is told the epoch first (its augmentation draws by it). Worker
+  processes (`num_workers`) are spawned, not forked (the parent may hold
+  threads: CUDA's, a JAX runtime's), and seed numpy from torch's
+  per-worker seed, torch's from the epoch.
 """
 
 import numpy as np
@@ -61,12 +63,14 @@ def _seed_worker(worker_id):
     np.random.seed(torch.initial_seed() % 2 ** 32)
 
 
-def make_loader(dataset, batches, seed=0, num_workers=0):
+def make_loader(dataset, batches, seed=0, num_workers=0, collate_fn=None):
     """A DataLoader yielding `batches` (lists of indices) of `dataset` as
-    dicts of CPU tensors."""
+    dicts of CPU tensors (batched by `collate_fn`, else torch's
+    default)."""
     return DataLoader(
         _Retrying(dataset, seed), batch_sampler=batches,
         num_workers=num_workers, worker_init_fn=_seed_worker,
+        collate_fn=collate_fn,
         generator=torch.Generator().manual_seed(seed),
         multiprocessing_context="spawn" if num_workers > 0 else None)
 
@@ -76,8 +80,9 @@ class DataModule:
     of an epoch."""
 
     def __init__(self, train_set, val_set, batch_size, val_batch_size=None,
-                 seed=0, num_workers=0):
+                 seed=0, num_workers=0, collate_fn=None):
         self.train_set, self.val_set = train_set, val_set
+        self.collate_fn = collate_fn
         self.batch_size = batch_size
         self.val_batch_size = val_batch_size or batch_size
         self.seed = seed
@@ -93,8 +98,10 @@ class DataModule:
         """Batches `start..` of `epoch`, shuffled, whole batches only."""
         batches = epoch_batches(len(self.train_set), self.batch_size, True,
                                 True, self.seed, epoch)[start:]
+        if hasattr(self.train_set, "set_epoch"):
+            self.train_set.set_epoch(epoch)
         return make_loader(self.train_set, batches, self.seed + epoch,
-                           self.num_workers)
+                           self.num_workers, self.collate_fn)
 
     def val_loader(self):
         """The val set in order, the last batch ragged; None without
@@ -104,4 +111,4 @@ class DataModule:
         batches = epoch_batches(len(self.val_set), self.val_batch_size,
                                 False, False)
         return make_loader(self.val_set, batches, self.seed,
-                           self.num_workers)
+                           self.num_workers, self.collate_fn)

@@ -1,11 +1,15 @@
 """Synthetic images and video clips for training without data on disk
 (own numpy copies of the JAX package's data/synthetic.py:18-72
-`SyntheticImageDataset` and :145-189 `SyntheticVideoDataset`): squares
+`SyntheticImageDataset`, :75-142 `SyntheticCOCODataset` and :145-189
+`SyntheticVideoDataset`): squares
 and discs of random colours over a gradient background (images), or
 squares drifting with constant velocity over a dark background (clips);
 `img` in [-1, 1] as [H, W, 3] or [T, H, W, 3] and the object ids as
 `masks` [H, W] or [T, H, W] (with `load_mask`), every sample a function
-of (seed, index), bit-identical to the JAX dataset's.
+of (seed, index), bit-identical to the JAX dataset's. The COCO-shaped
+images carry COCO's sample layout (semantic `masks`, `inst_masks`,
+`overlap_masks`, `annos`), so the dual inst/sem protocol runs with no
+data on disk.
 
 `SyntheticVideoData` batches them through `data.loader.DataModule`, in
 the order of the JAX package's loader: a permutation seeded by
@@ -17,6 +21,7 @@ import numpy as np
 from torch.utils.data import Dataset
 
 from .loader import DataModule
+from .transforms import suppress_mask_idx
 
 
 def _render_scene(rng, resolution, max_objects=4):
@@ -83,6 +88,86 @@ def synthetic_image_splits(params):
                 num_samples=getattr(params, "train_samples", 512), seed=0,
                 **kw),
             SyntheticImageDataset(
+                num_samples=getattr(params, "val_samples", 64), seed=1,
+                **kw))
+
+
+class SyntheticCOCODataset(Dataset):
+    """COCO-shaped synthetic images with `COCODataset`'s sample layout:
+    {"img", "masks" (semantic: 1 a square, 2 a disc), "inst_masks" (the
+    painting order's ids, made consecutive), "overlap_masks" (pixels
+    painted more than once), "annos" [N, 5] (x1, y1, x2, y2, label 0 a
+    square, 1 a disc), "data_idx"}; batch it with `coco_collate_fn`."""
+
+    def __init__(self, resolution=(64, 64), num_samples=64, max_objects=4,
+                 load_anno=True, seed=0):
+        self.resolution = tuple(resolution)
+        self.num_samples = num_samples
+        self.max_objects = max_objects
+        self.load_anno = load_anno
+        self.seed = seed
+
+    def __len__(self):
+        return self.num_samples
+
+    def __getitem__(self, idx):
+        rng = np.random.RandomState(self.seed * 100003 + idx)
+        H, W = self.resolution
+        gy = np.linspace(0, 1, H)[:, None]
+        gx = np.linspace(0, 1, W)[None, :]
+        bg_color = rng.rand(3) * 0.4
+        img = np.zeros((H, W, 3), np.float32)
+        for c in range(3):
+            img[..., c] = bg_color[c] + 0.2 * (gy * rng.rand()
+                                               + gx * rng.rand())
+        inst = np.zeros((H, W), np.int32)
+        sem = np.zeros((H, W), np.int32)
+        paint_count = np.zeros((H, W), np.int32)
+        n_obj = rng.randint(1, self.max_objects + 1)
+        ys, xs = np.mgrid[0:H, 0:W]
+        boxes = []
+        for _ in range(n_obj):
+            color = 0.4 + 0.6 * rng.rand(3)
+            size = rng.randint(max(H // 8, 3), max(H // 3, 5))
+            cy = rng.randint(0, H)
+            cx = rng.randint(0, W)
+            square = rng.rand() < 0.5
+            if square:
+                sel = (np.abs(ys - cy) < size // 2) & \
+                      (np.abs(xs - cx) < size // 2)
+            else:
+                sel = (ys - cy) ** 2 + (xs - cx) ** 2 < (size // 2) ** 2
+            if not sel.any():
+                continue
+            img[sel] = color
+            inst[sel] = len(boxes) + 1  # a later object overwrites
+            sem[sel] = 1 if square else 2
+            paint_count[sel] += 1
+            sy, sx = np.nonzero(sel)
+            boxes.append([sx.min(), sy.min(), sx.max() + 1, sy.max() + 1,
+                          0 if square else 1])
+        out = {"data_idx": np.int32(idx),
+               "img": (np.clip(img, 0, 1) * 2.0 - 1.0).astype(np.float32)}
+        if self.load_anno:
+            out["masks"] = sem
+            out["inst_masks"] = suppress_mask_idx(inst)
+            out["overlap_masks"] = (paint_count > 1).astype(np.int32)
+            out["annos"] = np.asarray(boxes, np.float32).reshape(-1, 5)
+        return out
+
+
+def synthetic_coco_splits(params):
+    """The JAX builder's "synthetic_coco" splits (data/builders.py:45-57):
+    train (seed 0, `train_samples`, 512 by default) and val (seed 1,
+    `val_samples`, 64) at the config's resolution, with its
+    `max_objects` (4) and `load_anno` (True)."""
+    kw = dict(resolution=tuple(params.resolution),
+              max_objects=getattr(params, "max_objects", 4),
+              load_anno=getattr(params, "load_anno", True))
+    return (SyntheticCOCODataset(
+                num_samples=getattr(params, "train_samples", 512), seed=0,
+                **kw),
+            SyntheticCOCODataset(
                 num_samples=getattr(params, "val_samples", 64), seed=1,
                 **kw))
 

@@ -8,8 +8,10 @@ decoder's masks, SLATE's and STEVE's from slot attention's at the visual
 resolution); for the stage-1 VQVAE and dVAE one LR group and no metrics
 beyond their losses, the dVAE's gumbel temperature annealed by the step;
 the run's seed for all. Each loss is weighted by the config's `<loss>_w` (the trainer's
-lookup: SA's `img_recon_loss_w`). The COCO/VOC `inst/` and `sem/` dual
-protocol is not ported yet."""
+lookup: SA's `img_recon_loss_w`). COCO and VOC batches, which carry
+instance masks, are scored twice (the dual protocol of upstream
+img_based/test_seg.py): `inst/*` against the instance masks and `sem/*`
+against the semantic ones, both with COCO's overlap pixels taken out."""
 
 import torch
 
@@ -18,12 +20,24 @@ from ..ops import metrics as M
 from ..training.trainer import Trainer
 
 
+def _mask_metrics(gt, pred_id, overlap=None, prefix=""):
+    p = f"{prefix}/" if prefix else ""
+    return {f"{p}ari": M.ARI_metric(gt, pred_id, overlap),
+            f"{p}fari": M.fARI_metric(gt, pred_id, overlap),
+            f"{p}miou": M.miou_metric(gt, pred_id, overlap),
+            f"{p}fmiou": M.fmiou_metric(gt, pred_id, overlap),
+            f"{p}mbo": M.mbo_metric(gt, pred_id, overlap)}
+
+
 def seg_metrics_fn(batch, out):
     """ARI, FG-ARI, mIoU, FG-mIoU and mBO of the predicted soft masks
     `out["masks"]` ([B, N, H, W] or video [B, T, N, H, W], optionally with
     a trailing 1) against the integer masks `batch["masks"]`; {} without
     either. The argmax over the slots runs on the masks' device; a video
-    folds T into H, so a slot must keep its object over the clip."""
+    folds T into H, so a slot must keep its object over the clip. A batch
+    with `inst_masks` (COCO, VOC's val) gets each metric twice, `inst/*`
+    against them and `sem/*` against `masks`, with its `overlap_masks`
+    (COCO) passed to both (the JAX package's methods/build.py:36-70)."""
     if "masks" not in batch or "masks" not in out:
         return {}
     pred = out["masks"]
@@ -41,13 +55,15 @@ def seg_metrics_fn(batch, out):
         B, T, H, W = pred_id.shape
         pred_id = pred_id.reshape(B, T * H, W)
         gt = gt.reshape(B, T * H, W)
-    return {
-        "ari": M.ARI_metric(gt, pred_id),
-        "fari": M.fARI_metric(gt, pred_id),
-        "miou": M.miou_metric(gt, pred_id),
-        "fmiou": M.fmiou_metric(gt, pred_id),
-        "mbo": M.mbo_metric(gt, pred_id),
-    }
+    if "inst_masks" in batch:
+        inst = torch.as_tensor(batch["inst_masks"]).to(pred_id.device)
+        overlap = batch.get("overlap_masks")
+        if overlap is not None:
+            overlap = torch.as_tensor(overlap).to(pred_id.device)
+        res = _mask_metrics(inst.long(), pred_id, overlap, "inst")
+        res.update(_mask_metrics(gt, pred_id, overlap, "sem"))
+        return res
+    return _mask_metrics(gt, pred_id)
 
 
 SLOT_MODELS = ("SAViDiffusion", "SADiffusion", "SA", "SAVi", "SLATE",

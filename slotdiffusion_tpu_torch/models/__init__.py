@@ -169,6 +169,10 @@ def init_reference_(model, generator):
     - ones: norm scales (models/blocks.py:43-45, flax LayerNorm/GroupNorm);
     - N(0, 1): `init_latents` (models/savi.py:76-78, models/sa.py:153,
       models/slot_diffusion.py:88);
+    - the DINO ViT (models/dino.py:75-78): zeros for `cls_token`,
+      N(0, 0.02^2) for `position_embeddings`, lecun_normal for its patch
+      conv and every dense layer (of q/k/v [in, heads, hd] and the output
+      [heads, hd, out] the fans of the flattened matrix);
     - U(-1/n, 1/n): the VQ codebook of n entries (models/vqvae.py:206),
       in SAViDiffusion's frozen VQ-VAE and in a bare stage-1 VQVAE;
     - per-gate orthogonal [D, D] blocks: the GRU's recurrent weight
@@ -191,6 +195,7 @@ def init_reference_(model, generator):
     The values are drawn in float64 on the CPU and copied in."""
     from .ar_decoder import ARDecoderBlock, ARMultiHeadAttention
     from .blocks import ConvTranspose2d
+    from .dino import DINOEncoder
     from .resnet import ResNet
     from .sa import SAEncoder
     from .unet import ResBlock, SpatialTransformer, UNetModel
@@ -205,8 +210,10 @@ def init_reference_(model, generator):
                  if isinstance(m, VectorQuantizer)}
     resnet = {id(p) for m in model.modules() if isinstance(m, ResNet)
               for p in m.parameters() if p.dim() == 4}
+    dino = {id(p) for m in model.modules() if isinstance(m, DINOEncoder)
+            for p in m.parameters()}
     enc_convs = {id(p) for m in model.modules() if isinstance(m, SAEncoder)
-                 for p in m.parameters() if p.dim() == 4}
+                 for p in m.parameters() if p.dim() == 4} - dino
     deconvs = {id(m.weight) for m in model.modules()
                if isinstance(m, ConvTranspose2d)}
     ar = {}
@@ -227,6 +234,11 @@ def init_reference_(model, generator):
                 else torch.zeros(p.shape)
         elif name.endswith("init_latents"):
             v = torch.randn(p.shape, generator=generator, dtype=torch.float64)
+        elif id(p) in dino and name.endswith("cls_token"):
+            v = torch.zeros(p.shape)
+        elif id(p) in dino and name.endswith("position_embeddings"):
+            v = 0.02 * torch.randn(p.shape, generator=generator,
+                                   dtype=torch.float64)
         elif id(p) in codebooks:
             n = p.shape[0]
             v = (2 * torch.rand(p.shape, generator=generator,

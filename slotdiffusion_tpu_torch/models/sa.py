@@ -2,11 +2,13 @@
 models/sa.py:27-211): the slot-attention image encoder, the spatial
 broadcast decoder and `SA`, the autoencoder of the two.
 
-- `SAEncoder` (GN-ResNet and plain-CNN branches): backbone ->
-  SoftPositionEmbed -> flatten -> LN -> Linear -> ReLU -> Linear.
-  Parameter names follow the upstream model: `encoder` (the ResNet, or
-  one `ConvNormAct` per layer, `encoder.{i}.0` its conv),
-  `encoder_pos_embedding`, `encoder_out_layer`.
+- `SAEncoder` (GN-ResNet, plain-CNN and frozen DINO ViT branches):
+  backbone -> SoftPositionEmbed -> flatten -> LN -> Linear -> ReLU ->
+  Linear. Parameter names follow the upstream model: `encoder` (the
+  ResNet, one `ConvNormAct` per layer, `encoder.{i}.0` its conv, or
+  `encoder.dino.` with the HF ViT's names), `encoder_pos_embedding`,
+  `encoder_out_layer`. The DINO backbone is frozen: `SlotEncoding.
+  frozen_encoder` names it for the trainer.
 - `SpatialBroadcastDecoder`: each slot tiled over `dec_resolution`, a
   SoftPositionEmbed (`decoder_pos_embedding`), stride-2 `DeconvNormAct`s
   up to `resolution`, then stride 1, and a 1x1 conv to RGB + alpha
@@ -25,6 +27,7 @@ from torch import nn
 
 from .blocks import MLP, Conv2d, ConvNormAct, DeconvNormAct, \
     SoftPositionEmbed
+from .dino import DINOBackbone
 from .resnet import STAGES, ResNet
 from .slot_attention import SlotAttention
 
@@ -51,6 +54,7 @@ class SAEncoder(nn.Module):
     def __init__(self, enc_dict, resolution, compute_dtype=torch.float32):
         super().__init__()
         dt = dict(compute_dtype=compute_dtype)
+        self.dino = bool(enc_dict.get("dino"))
         if enc_dict.get("resnet"):
             use_layer4 = enc_dict.get("use_layer4", False)
             self.encoder = ResNet(
@@ -60,9 +64,9 @@ class SAEncoder(nn.Module):
                     "replace_stride_with_dilation", (False, False, False))),
                 **dt)
             ch = 512 if use_layer4 else 256
-        elif enc_dict.get("dino"):
-            raise ValueError("the DINO encoder is not ported: its weights "
-                             "are not in the repo")
+        elif self.dino:
+            self.encoder = DINOBackbone(enc_dict, resolution, compute_dtype)
+            ch = self.encoder.out_channels
         else:
             self.encoder, ch = _plain_cnn(enc_dict, resolution,
                                           compute_dtype)
@@ -71,8 +75,11 @@ class SAEncoder(nn.Module):
         self.encoder_out_layer = MLP(ch, [out], out, pre_norm=True, **dt)
 
     def forward(self, img):
-        x = self.encoder(img.permute(0, 3, 1, 2).contiguous())  # NCHW
-        x = self.encoder_pos_embedding(x.permute(0, 2, 3, 1))
+        if self.dino:  # NHWC in and out
+            x = self.encoder_pos_embedding(self.encoder(img))
+        else:
+            x = self.encoder(img.permute(0, 3, 1, 2).contiguous())  # NCHW
+            x = self.encoder_pos_embedding(x.permute(0, 2, 3, 1))
         B, h, w, c = x.shape
         return self.encoder_out_layer(x.reshape(B, h * w, c)), (h, w)
 
@@ -142,6 +149,11 @@ class SlotEncoding(nn.Module):
         """`init_latents` over a batch, in the compute dtype."""
         return self.init_latents.to(self.compute_dtype).expand(batch, -1, -1)
 
+    @property
+    def frozen_encoder(self):
+        """The frozen DINO ViT, when the encoder is one: () otherwise."""
+        return (self.encoder.encoder.dino,) if self.encoder.dino else ()
+
 
 class SA(SlotEncoding):
     """The Slot Attention autoencoder on NHWC images [B, H, W, 3]."""
@@ -149,7 +161,11 @@ class SA(SlotEncoding):
     # the trainer's EMA, when a config asks for one, covers every parameter
     ema_prefix = ""
     use_ema = False
-    frozen_modules = ()
+
+    @property
+    def frozen_modules(self):
+        """What the trainer freezes: a DINO encoder."""
+        return self.frozen_encoder
 
     def __init__(self, resolution, slot_dict, enc_dict, dec_dict, eps=1e-6,
                  compute_dtype=torch.float32):

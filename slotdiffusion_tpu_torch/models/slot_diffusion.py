@@ -83,9 +83,10 @@ class SADiffusion(SlotEncoding):
 
     @property
     def frozen_modules(self):
-        """What the trainer freezes: the stage-1 VQ-VAE of an LDM."""
-        return (self.dm_decoder.vae,) if isinstance(self.dm_decoder, LDM) \
-            else ()
+        """What the trainer freezes: a DINO encoder and the stage-1 VQ-VAE
+        of an LDM."""
+        return self.frozen_encoder + ((self.dm_decoder.vae,) if isinstance(
+            self.dm_decoder, LDM) else ())
 
     def encode(self, img, init_slots=None, train=False):
         """img [B, H, W, 3] -> slots [B, S, D], masks [B, S, H, W] (at the

@@ -31,9 +31,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes. Each returns cudaGetLastError().
 _SIGNATURES = {
-    # x, w, b, y, B, C, H*W, groups, eps, silu, stream (x, y f32 / bf16)
-    "sdt_group_norm_f32": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
-    "sdt_group_norm_bf16": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
+    # x, w, b, y, B, C, H*W, groups, eps, silu, the long path's workspace
+    # and chunk (null and 0 for runs of up to MAX_GROUP), stream (x, y
+    # f32 / bf16)
+    "sdt_group_norm_f32": [_P] * 4 + [_I] * 4 + [_F, _I, _P, _I, _P],
+    "sdt_group_norm_bf16": [_P] * 4 + [_I] * 4 + [_F, _I, _P, _I, _P],
     # q, k, v, out, B, Nq, Nk, H, D, scale, stream (q, k, v, out f32 / bf16)
     "sdt_mha_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "sdt_mha_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

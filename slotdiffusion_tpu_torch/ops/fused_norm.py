@@ -8,8 +8,13 @@ per-group mean and biased variance in f32, the affine folded into
 
 Layout: the port's modules are NCHW, where the channels of one group are
 contiguous, so one (sample, group) is one contiguous run of
-`C/G * H * W` values; the kernel holds a run in registers (up to
-MAX_GROUP values), so x is read once and y written once.
+`C/G * H * W` values; the kernel holds a run of up to MAX_GROUP values in
+registers, so x is read once and y written once. A longer run (the
+UNet's 384-channel norm at 56x56 latents, the pixel decoder at 64x64)
+takes the kernel's two-pass path: `long_plan` splits it into chunks of
+at most LONG_CHUNK values, a first kernel writes each chunk's mean and
+centered sum of squares into a workspace the wrapper allocates, and a
+second combines a run's chunks in order (Chan's formula) and writes y.
 
 Two entry points: `sdt_group_norm_f32` and `sdt_group_norm_bf16` (bf16 x
 and y, f32 affine and statistics, y rounded once on the store: the JAX
@@ -38,6 +43,7 @@ ROUTE = "cuda"
 SOURCE = "slotdiffusion_tpu_torch/csrc/group_norm.cu"
 REPLACES = "ops/fused_norm.py:53"  # in the JAX package
 MAX_GROUP = 32768  # values of one (sample, group) the kernel holds
+LONG_CHUNK = 8192  # at most this many values a chunk of the long path
 
 ENTRY = {torch.float32: "sdt_group_norm_f32",
          torch.bfloat16: "sdt_group_norm_bf16"}
@@ -61,10 +67,23 @@ def group_norm_reference(x, weight, bias, num_groups, eps=1e-5, act=None):
     return y.to(x.dtype)
 
 
+def long_plan(L):
+    """The long path's split of a run of L > MAX_GROUP values: -> (chunk,
+    count), as few chunks of at most LONG_CHUNK values as hold the run,
+    of one size rounded up to a multiple of 4; chunk i covers values
+    [i * chunk, min((i + 1) * chunk, L)), the last one the shortest. The
+    kernel combines them in that order."""
+    count = -(-L // LONG_CHUNK)
+    chunk = -(-L // count)
+    chunk += -chunk % 4
+    return chunk, -(-L // chunk)
+
+
 def check_inputs(x, weight, bias, num_groups, act):
     """Raise ValueError unless the kernel takes these arguments: a
     contiguous f32 or bf16 NCHW tensor, f32 [C] affine on its device, whole
-    groups of at most MAX_GROUP values."""
+    groups (of any length: over MAX_GROUP values they take the two-pass
+    path)."""
     if act not in (None, "silu"):
         raise ValueError(f"fused_group_norm: unsupported act {act!r}")
     if x.dtype not in ENTRY or x.dim() != 4 or not x.is_contiguous():
@@ -72,27 +91,33 @@ def check_inputs(x, weight, bias, num_groups, act):
                          f"NCHW tensor, got {x.dtype} {tuple(x.shape)} "
                          f"strides {x.stride()}")
     B, C, H, W = x.shape
-    if C % num_groups:
+    if num_groups <= 0 or C % num_groups:
         raise ValueError(f"{C} channels do not split into {num_groups} groups")
     for p in (weight, bias):
         if p.shape != (C,) or p.dtype != torch.float32 or \
                 p.device != x.device or not p.is_contiguous():
             raise ValueError("fused_group_norm: weight/bias must be "
                              "contiguous f32 [C] on the input's device")
-    if C // num_groups * H * W > MAX_GROUP:
-        raise ValueError(f"a group of {C // num_groups * H * W} values "
-                         f"exceeds the kernel's {MAX_GROUP}")
 
 
 def _launch(x, weight, bias, num_groups, eps, act):
-    """The CUDA kernel on a CUDA `x`."""
+    """The CUDA kernel on a CUDA `x`; a run over MAX_GROUP values gets the
+    long path's plan and workspace."""
     check_inputs(x, weight, bias, num_groups, act)
     B, C, H, W = x.shape
     y = torch.empty_like(x)
+    L = C // num_groups * H * W
+    work, chunk = None, 0
+    if L > MAX_GROUP:
+        chunk, count = long_plan(L)
+        work = torch.empty(B * num_groups * count * 2, dtype=torch.float32,
+                           device=x.device)
     entry = ENTRY[x.dtype]
     err = getattr(_cuda.lib(), entry)(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), B,
-        C, H * W, num_groups, eps, act == "silu", _cuda.stream_ptr(x.device))
+        C, H * W, num_groups, eps, act == "silu",
+        None if work is None else work.data_ptr(), chunk,
+        _cuda.stream_ptr(x.device))
     _cuda.check(err, entry)
     launches[entry] += 1
     return y

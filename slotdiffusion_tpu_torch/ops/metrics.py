@@ -6,14 +6,19 @@ ops/metrics.py:28-293, which follows the upstream eval_utils.py):
 - Hungarian-matched mIoU and FG-mIoU, with the undetected-object penalty;
 - mBO, the mean best overlap of each foreground object;
 - `postproc_mask`, the background-aware argmax;
-- MSE (summed per image), PSNR, and SSIM in skimage's Gaussian variant.
+- MSE (summed per image), PSNR, and SSIM in skimage's Gaussian variant;
+- the COCO overlap preprocessing (`preproc_masks_overlap`, the DINOSAUR
+  protocol): with an `inst_overlap_mask`, every segmentation metric
+  first moves the pixels covered by more than one ground-truth instance
+  to the ground truth's background and to a fresh predicted class (one
+  past the image's largest), which takes them out of every matching.
 
 Masks are integer tensors (or numpy arrays). The contingency tables are
 counted with `torch.bincount` on the masks' device and held in float64, so
 every count is exact and every score equals the JAX package's float64
 numpy. The Hungarian matching runs on the host with
-`scipy.optimize.linear_sum_assignment`, as in the JAX package. The COCO
-overlap preprocessing and `masks_to_boxes` are not ported yet.
+`scipy.optimize.linear_sum_assignment`, as in the JAX package.
+`masks_to_boxes` is not ported yet.
 """
 
 import numpy as np
@@ -41,6 +46,39 @@ def contingency(true_ids, pred_ids, num_true, num_pred):
     flat = (offset + true_ids * num_pred + pred_ids).reshape(-1)
     counts = torch.bincount(flat, minlength=B * num_true * num_pred)
     return counts.reshape(B, num_true, num_pred).double()
+
+
+###########################################
+# COCO overlap preprocessing
+###########################################
+
+
+def preproc_masks_overlap(gt_mask, pred_mask, inst_overlap_mask=None):
+    """One image's integer masks with the pixels of `inst_overlap_mask`
+    (covered by more than one ground-truth instance) set to 0 in the
+    ground truth and to pred.max() + 1 in the prediction; unchanged
+    without a mask. -> (gt, pred) int64 tensors on gt's device."""
+    if inst_overlap_mask is None:
+        return gt_mask, pred_mask
+    gt, pred = _apply_overlap(_ids(gt_mask)[None], _ids(pred_mask)[None],
+                              torch.as_tensor(inst_overlap_mask)[None])
+    return gt[0], pred[0]
+
+
+def _apply_overlap(gt_mask, pred_mask, inst_overlap_mask):
+    """`preproc_masks_overlap` of each image of [B, ...] masks, the fresh
+    class one past each image's own largest predicted id."""
+    if inst_overlap_mask is None:
+        return gt_mask, pred_mask
+    gt = _ids(gt_mask).clone()
+    pred = _ids(pred_mask).to(gt.device)
+    B = gt.shape[0]
+    ov = torch.as_tensor(inst_overlap_mask).to(gt.device).bool().reshape(
+        gt.shape)
+    fresh = (pred.reshape(B, -1).max(1).values + 1).reshape(
+        B, *[1] * (pred.dim() - 1))
+    gt[ov] = 0
+    return gt, torch.where(ov, fresh, pred)
 
 
 ###########################################
@@ -74,14 +112,19 @@ def adjusted_rand_index(true_ids, pred_ids, ignore_background=False):
     return ari.cpu().numpy()
 
 
-def ARI_metric(gt_mask, pred_mask):
-    """Mean ARI of integer masks [B, H, W]."""
+def ARI_metric(gt_mask, pred_mask, inst_overlap_mask=None):
+    """Mean ARI of integer masks [B, H, W] (overlap pixels taken out with
+    `inst_overlap_mask`)."""
+    gt_mask, pred_mask = _apply_overlap(gt_mask, pred_mask,
+                                        inst_overlap_mask)
     return float(adjusted_rand_index(gt_mask, pred_mask).mean())
 
 
-def fARI_metric(gt_mask, pred_mask):
+def fARI_metric(gt_mask, pred_mask, inst_overlap_mask=None):
     """Mean foreground ARI: the ground truth's background (id 0) is
     ignored."""
+    gt_mask, pred_mask = _apply_overlap(gt_mask, pred_mask,
+                                        inst_overlap_mask)
     return float(adjusted_rand_index(gt_mask, pred_mask,
                                      ignore_background=True).mean())
 
@@ -137,20 +180,26 @@ def _nanmean(vals):
     return float(np.nanmean(vals))
 
 
-def miou_metric(gt_mask, pred_mask):
+def miou_metric(gt_mask, pred_mask, inst_overlap_mask=None):
     """Hungarian mIoU with the background; integer masks [B, H, W]."""
+    gt_mask, pred_mask = _apply_overlap(gt_mask, pred_mask,
+                                        inst_overlap_mask)
     return _nanmean([hungarian_miou(m) for m in
                      _pairwise_ious(gt_mask, pred_mask, False)])
 
 
-def fmiou_metric(gt_mask, pred_mask):
+def fmiou_metric(gt_mask, pred_mask, inst_overlap_mask=None):
     """Hungarian mIoU over the foreground ground-truth classes."""
+    gt_mask, pred_mask = _apply_overlap(gt_mask, pred_mask,
+                                        inst_overlap_mask)
     return _nanmean([None if m is None else hungarian_miou(m) for m in
                      _pairwise_ious(gt_mask, pred_mask, True)])
 
 
-def mbo_metric(gt_mask, pred_mask):
+def mbo_metric(gt_mask, pred_mask, inst_overlap_mask=None):
     """Mean best overlap; integer masks [B, H, W]."""
+    gt_mask, pred_mask = _apply_overlap(gt_mask, pred_mask,
+                                        inst_overlap_mask)
     return _nanmean([None if m is None else mean_best_overlap(m) for m in
                      _pairwise_ious(gt_mask, pred_mask, True)])
 

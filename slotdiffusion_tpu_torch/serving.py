@@ -11,8 +11,11 @@ JAX package's fails on `out["masks"]`):
   masks [B, T, S, H, W]); an image [B, H, W, 3] -> (slots [B, S, D],
   masks [B, S, H, W]);
 - ``sample``  (seed, slots [B, T, S, D]) -> imgs [B, T, H, W, 3]: the
-  DPM-Solver++ chain over the B*T frames, then VQ decode; image slots
-  [B, S, D] -> imgs [B, H, W, 3];
+  DPM-Solver++ chain over the B*T frames, then VQ decode (an LDM); a
+  pixel-space decoder samples the images themselves, with its dynamic
+  thresholding as the x0 correction and no decode, as the JAX surface
+  runs `generate_imgs(use_dpm=True)` and decodes only an LDM's; image
+  slots [B, S, D] -> imgs [B, H, W, 3];
 - ``denoise`` (x_t [B*T, h, w, C], t [B*T], slots) -> the UNet output.
 
 Each surface is a module that holds only the submodules it runs (SAVi,
@@ -35,8 +38,9 @@ argument shapes and dtypes, the caller's metadata, the byte length of
 each exported program), then the `torch.export.save` bytes of each
 program. `encode` and `denoise` are one program each. `sample`'s program
 (x_T, slots) -> imgs is three: the UNet step, the VQ quantize (the
-sampler's x0 correction) and the VQ decode, with the sampler's schedule
-in the header; the loaded callable runs the port's DPM-Solver++
+sampler's x0 correction) and the VQ decode (two for a pixel-space
+decoder: the UNet step and the dynamic thresholding), with the sampler's
+schedule in the header; the loaded callable runs the port's DPM-Solver++
 (`ops.dpm_solver.sample_denoiser`, the code the live `sample` runs) over
 them, and on the card replays the whole chain from one CUDA graph. One
 exported program of the unrolled chain would hold the UNet's graph 20
@@ -141,10 +145,12 @@ class _Call(nn.Module):
 class _Sample(nn.Module):
     """(x_T [B*T, h, w, C], slots) -> imgs: DPM-Solver++ from x_T over the
     UNet step `denoise` (x, t, cond [B*T, S, D]) with `quantize` as the
-    x0 correction, then `decode`; video slots [B, T, S, D] give
-    [B, T, H, W, 3]. `sampler`: the schedule's betas, steps, order and
-    model type, and `code`, the `ops.dpm_solver.SAMPLER` it was made for.
-    The three are the LDM's own modules, or their exported programs."""
+    x0 correction, then `decode` (None: the samples are the images);
+    video slots [B, T, S, D] give [B, T, H, W, 3]. `sampler`: the
+    schedule's betas, steps, order and model type, and `code`, the
+    `ops.dpm_solver.SAMPLER` it was made for. The parts are the
+    decoder's own modules (an LDM's VQ quantize and decode, a pixel
+    decoder's dynamic thresholding), or their exported programs."""
 
     def __init__(self, denoise, quantize, decode, sampler):
         super().__init__()
@@ -154,10 +160,12 @@ class _Sample(nn.Module):
 
     def forward(self, x_T, slots):
         s = self.sampler
-        x = self.decode(sample_denoiser(
+        x = sample_denoiser(
             self.denoise, self.betas, x_T, _fold(slots), steps=s["steps"],
             order=s["order"], model_type=s["model_type"],
-            correcting_x0_fn=self.quantize))
+            correcting_x0_fn=self.quantize)
+        if self.decode is not None:
+            x = self.decode(x)
         if slots.dim() == 4:
             x = x.reshape(*slots.shape[:2], *x.shape[1:])
         return x
@@ -165,14 +173,15 @@ class _Sample(nn.Module):
     @classmethod
     def of(cls, model):
         dm = model.dm_decoder
-        if not hasattr(dm, "vae"):
-            raise ValueError("the sample surface serves a latent (LDM) "
-                             "decoder; this one samples pixels")
         latent = (*dm.resolution, dm.channels)
         sampler = {"betas": dm.betas.tolist(), "steps": dm.dpm_steps,
                    "order": 3, "model_type": dm.pred_target,
                    "latent": list(latent), "code": SAMPLER}
-        return cls(_Denoise(model), _Call(dm.vae, dm.correct_x0),
+        if not hasattr(dm, "vae"):  # pixels: no decode
+            return cls(_Denoise(model), _Call(nn.Module(),
+                                              dm.dpm_correct_x0),
+                       None, sampler)
+        return cls(_Denoise(model), _Call(dm.vae, dm.dpm_correct_x0),
                    _Call(dm.vae, dm.decode_latent), sampler)
 
     def noise_shape(self, slots_shape):
@@ -182,9 +191,11 @@ class _Sample(nn.Module):
         """{part: (module, its arguments)} at a request's shapes."""
         B = x_T.shape[0]
         t = torch.zeros((B,), dtype=torch.float32, device=x_T.device)
-        return {"denoise": (self.denoise, (x_T, t, _fold(slots))),
-                "quantize": (self.quantize, (x_T,)),
-                "decode": (self.decode, (x_T,))}
+        parts = {"denoise": (self.denoise, (x_T, t, _fold(slots))),
+                 "quantize": (self.quantize, (x_T,))}
+        if self.decode is not None:
+            parts["decode"] = (self.decode, (x_T,))
+        return parts
 
 
 def _weights_key(module):
@@ -404,7 +415,7 @@ def load_artifact(path, device=None):
                 for name, b in blobs.items()}
     if header["surface"] == "sample":
         module = _Sample(programs["denoise"], programs["quantize"],
-                         programs["decode"], header["sampler"])
+                         programs.get("decode"), header["sampler"])
     else:
         module = programs["main"]
     fn = Surface(header["surface"], module, dev, dev.type == "cuda",

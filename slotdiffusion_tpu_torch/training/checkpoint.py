@@ -86,8 +86,11 @@ def graft_pretrained(model, cfg):
     to the dVAE, a dVAE run's ckpt_last.pt, or prefixed `dvae.`, a SLATE
     or STEVE checkpoint). Each file is port-format; every parameter must
     be present with its shape (the JAX package's training/checkpoint.py:
-    138-150). A config without the paths leaves the model as it is;
-    returns whether it grafted."""
+    138-150). Every DINO encoder of the model takes the pretrained
+    weights of the `.npz` that SLOTDIFFUSION_DINO_WEIGHTS names, when it
+    names a file (`models/dino.py:load_dino_weights`, the JAX package's
+    `apply_dino_pretrained`). A config without the paths leaves the
+    model as it is; returns whether it grafted."""
     vae = (getattr(cfg, "dec_dict", None) or {}).get("vae_dict") or {}
     vq_path = vae.get("vqvae_ckp_path")
     dvae_path = (getattr(cfg, "dvae_dict", None) or {}).get("dvae_ckp_path")
@@ -96,4 +99,11 @@ def graft_pretrained(model, cfg):
                "VQ-VAE")
     if dvae_path:
         _graft(dvae_path, model.dvae, "dvae.", "dVAE")
-    return bool(vq_path or dvae_path)
+    from ..models.dino import WEIGHTS_ENV, DINOEncoder, load_dino_weights
+    dino = False
+    for m in model.modules():
+        if isinstance(m, DINOEncoder) and load_dino_weights(m)[1]:
+            dino = True
+            print(f"DINO: pretrained weights from {os.environ[WEIGHTS_ENV]}",
+                  flush=True)
+    return bool(vq_path or dvae_path or dino)

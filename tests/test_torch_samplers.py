@@ -518,21 +518,27 @@ def test_dynamic_thresholding_matches_jax_at_flagship_frames():
 
 
 def test_gn_kernel_refuses_pixel_groups_over_its_limit():
-    """The GN kernel takes groups of at most MAX_GROUP values. The
-    flagship UNet over pixels has its largest groups after the skip
-    concat at full resolution: 384 channels, 12 a group. Over 48x48 (12 x
-    2,304) the wrapper takes them; over 64x64 (12 x 4,096) and at the
-    first GroupNorm over 128x128 (4 x 16,384) it refuses them (on the
-    card it raises rather than fall back)."""
+    """The GN kernel takes groups of any length: over MAX_GROUP values
+    they take its two-pass path. The wrapper's checks take the shapes
+    that once exceeded the single-read limit (the 384-channel norm at
+    56x56 latents, 12 x 3,136 = 37,632 values a group; the pixel decoder
+    at 64x64, 12 x 4,096; 128 channels at 128x128, 4 x 16,384) and still
+    refuse what the kernel does not take: a dtype other than f32 and
+    bf16, an activation other than SiLU, channels that do not split into
+    the groups."""
     from slotdiffusion_tpu_torch.ops import fused_norm
-    for C, side, fits in ((384, 48, True), (384, 64, False),
-                          (128, 128, False)):
-        x, w = torch.zeros(1, C, side, side), torch.ones(C)
-        if fits:
+    for B, C, side in ((8, 384, 56), (1, 384, 64), (1, 128, 128)):
+        for dt in (torch.float32, torch.bfloat16):
+            x, w = torch.zeros(B, C, side, side, dtype=dt), torch.ones(C)
+            assert C // 32 * side * side > fused_norm.MAX_GROUP
             fused_norm.check_inputs(x, w, w, 32, "silu")
-        else:
-            with pytest.raises(ValueError, match="exceeds"):
-                fused_norm.check_inputs(x, w, w, 32, "silu")
+            fused_norm.check_inputs(x, w, w, 32, None)
+        with pytest.raises(ValueError, match="f32 or bf16"):
+            fused_norm.check_inputs(x.half(), w, w, 32, "silu")
+        with pytest.raises(ValueError, match="act"):
+            fused_norm.check_inputs(x, w, w, 32, "gelu")
+        with pytest.raises(ValueError, match="groups"):
+            fused_norm.check_inputs(x, w, w, 33, "silu")
 
 
 def _bare_pair(jcls, tcls, conditioning, in_channels, context_dim):
