@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port (`slotdiffusion_tpu_torch`) on one CUDA
 card: build the kernels, hold each against its plain version, serve and
 train the flagship SAViDiffusion, the image models (SADiffusion, SA),
-the token and reconstruction baselines (SAVi, the dVAE, STEVE, SLATE)
-and SADiffusion with the frozen DINO ViT on COCO and VOC at full width,
-and report.
+the token and reconstruction baselines (SAVi, the dVAE, STEVE, SLATE),
+SADiffusion with the frozen DINO ViT on COCO and VOC, and the
+video-prediction and VQA stage (LDMSlotFormer, the Physion readout) at
+full width, and report.
 
     python3 chip_smoke.py
 
@@ -218,7 +219,26 @@ Phases (one flushed line each, with elapsed seconds):
      the kernels and the plain versions (phase 6's gates); one training
      step of `SALDMDINOVOC224` (6 slots x 192) with its kernels checked
      at its shapes;
- 14. one JSON line listing every kernel (times per serving request;
+ 14. the video-prediction and VQA stage (`vp_vqa`), random weights:
+     `SAViLDMPhysion128` (8 slots x 192) encodes 2 in-memory videos of
+     150 frames of 128x128 through `chunked_video_apply` in 6-frame
+     chunks (slot attention launched every frame and held against its
+     plain version at that shape; each chunk replayed through the plain
+     versions from the carried slots); `LDMSlotFormerPhysion128` (a
+     12-layer rollouter of 256 over 15 x 8 slot tokens, the flagship's
+     LDM frozen) trains 3 steps at its 128 clips of 25 slot frames 3
+     apart cut from those slots (step seconds, peak memory, every
+     rollouter tensor moved, the LDM bit-identical with no gradient, the
+     loss against the CPU's on 16 clips of the first batch); rolls both
+     videos out by `interleaved_rollout` from 45 observed frames (3
+     offsets of 35 steps; one video against the CPU); decodes 4 rollouts
+     x 10 frames by DPM-Solver++ through the GN and attention kernels
+     (launches per UNet call exact, the kernels at those shapes, the
+     plain twin from the same x_T, every UNet call replayed through the
+     plain versions, MSE/PSNR/SSIM against the videos' frames);
+     `ReadoutPhysion` trains 3 steps at 64 clips of 75 frames and
+     validates 128 (the accuracies; logits against the CPU);
+ 15. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
      `res64_*`: slot attention at the 64x64 model's shape; `img_*`: slot
      attention at the image shape, per image `encode`; `savi_train_*`,
@@ -468,6 +488,28 @@ GN_LONG_TOL = {"f32": 1e-4, "bf16": 2.0 ** -7}
 # sqrt(2 / n), 0.0032 over 64 images' 32x32x3 latents (0.0064 at 16);
 # 0.05 is 8 of those at 16 images
 REF_INIT_LOSS_TOL = 0.05
+# 14: the video-prediction and VQA stage at full width. SAViDiffusion
+# (`SAViLDMPhysion128`, 8 slots x 192) encodes VP_VIDEOS in-memory videos
+# of VP_FRAMES frames in chunks of its 6-frame clip; LDMSlotFormer
+# (`LDMSlotFormerPhysion128`) trains VP_STEPS steps at its 128 clips of
+# 25 slot frames 3 apart, cut from those slots, and rolls the videos out
+# from VP_OBS observed frames; VP_DECODE rollouts of 10 frames are
+# decoded by its LDM (DPM-Solver++, 20 steps); the readout
+# (`ReadoutPhysion`) trains READOUT_STEPS steps at its 64 and validates
+# READOUT_VAL clips. Gates: each chunk of the encode replayed through the
+# plain versions from the kernel path's carried slots within VP_ENC_TOL of
+# each output's scale (phase 4's encode tolerance: a 6-frame chunk of
+# SAVi, each frame's slot attention with bf16 k/v); the card against the
+# CPU, f32 with TF32 off and sums in another order: the slot loss of
+# VP_CPU_CLIPS clips within LOSS_RTOL, the rollout of one video (105
+# autoregressive steps over 3 offsets) within VP_ROLL_TOL of its scale,
+# the readout's logits within VP_ROLL_TOL; the decode as phase 10's DPM
+# runs (CODE_AGREE["dpm"], SAME_CODE_TOL, PER_CALL_TOL["f32"], with the
+# control when outside)
+VP_VIDEOS, VP_FRAMES, VP_OBS = 2, 150, 45
+VP_STEPS, VP_DECODE, VP_CPU_CLIPS = 3, 4, 16
+READOUT_STEPS, READOUT_VAL = 3, 128
+VP_ENC_TOL, VP_ROLL_TOL = 1e-2, 1e-3
 
 
 def log(msg):
@@ -614,8 +656,8 @@ def kernel_cases(shapes, sa_mod, gen, dev):
                # three TF32 ones (3xTF32)
                bound_terms(4 * (2 * q.numel() + 2 * k.numel()),
                            tf32_ops=3 * 4.0 * Bq * nq * nk * hd))
-    p = {key: val.detach().contiguous()
-         for key, val in sa_mod.kernel_weights().items()}
+    p = {key: val.detach().contiguous() for key, val in
+         sa_mod.kernel_weights().items()} if shapes["slot_attention"] else {}
     for (Bs, N, S, D, M, iters, last), calls in sorted(
             shapes["slot_attention"].items()):
         ks = torch.randn(Bs, N, D, generator=gen, device=dev)
@@ -3168,6 +3210,357 @@ def coco_voc(smi, dev, gen, phase="phase 13"):
     return paths, coco_k, gn_res, sdpa
 
 
+
+class SlotClips:
+    """In-memory clips of slots [n, T, N, C], with labels [n] if given."""
+
+    def __init__(self, slots, labels=None):
+        self.slots, self.labels = slots, labels
+
+    def __len__(self):
+        return len(self.slots)
+
+    def __getitem__(self, i):
+        out = {"slots": self.slots[i], "data_idx": i}
+        if self.labels is not None:
+            out["label"] = self.labels[i]
+        return out
+
+
+def vp_encode(cfg, dev, gen, phase):
+    """Phase 14's encode: SAViDiffusion (`cfg`, random weights) over
+    VP_VIDEOS in-memory videos of VP_FRAMES frames through
+    `chunked_video_apply` in chunks of its clip, slot attention held
+    against its plain version at the shapes it took, each chunk replayed
+    through the plain versions from the kernel path's carried slots.
+    -> (the videos, their slots, the launches)."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.methods.inference import chunked_video_apply
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    enc = build_model(cfg, device=dev)
+    init_random_(enc, torch.Generator().manual_seed(0))
+    H, W = cfg.resolution
+    clip, S = cfg.n_sample_frames, cfg.slot_dict["num_slots"]
+    video = torch.rand(VP_VIDEOS, VP_FRAMES, H, W, 3, generator=gen,
+                       device=dev) * 2 - 1
+    apply = lambda x, prev: enc({"img": x}, prev_slots=prev)
+    keys = ("slots", "masks")
+    shapes, handles = record_shapes(enc)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        out = chunked_video_apply(apply, video, clip, keys=keys)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        counts = ops.launch_counts()
+    for hk in handles:
+        hk.remove()
+    check_launches(counts, f"{phase}: encode", False,
+                   need=("slot_attention",))
+    slots, masks = out["slots"], out["masks"]
+    sums = (masks.sum(2) - 1).abs().max().item()
+    if slots.shape != (VP_VIDEOS, VP_FRAMES, S, cfg.slot_dict["slot_size"])\
+            or masks.shape != (VP_VIDEOS, VP_FRAMES, S, H, W) or \
+            not bool(torch.isfinite(slots).all()) or not sums < 1e-4:
+        raise SystemExit(f"{phase}: encode gave slots {tuple(slots.shape)}, "
+                         f"masks {tuple(masks.shape)} (sums off by {sums})")
+    log(f"{phase}: encode of {VP_VIDEOS} videos x {VP_FRAMES} frames of "
+        f"{H}x{W} in {clip}-frame chunks: {secs:.2f} s wall, launches "
+        f"{nonzero(counts)}, slots {tuple(slots.shape)}, masks summing to 1 "
+        f"within {sums:.1e}")
+    check_kernels(shapes, enc.savi.slot_attention, gen, dev,
+                  f"{phase} (encode shapes)", timing=False)
+    # each chunk through the plain versions (slot attention's twin with
+    # bf16 k/v) from the kernel path's slots, and the whole plain path
+    worst = dict.fromkeys(keys, 0.0)
+    with torch.inference_mode(), plain_versions(False):
+        for s0 in range(0, VP_FRAMES, clip):
+            o = apply(video[:, s0:s0 + clip],
+                      slots[:, s0 - 1] if s0 else None)
+            for k in keys:
+                a = out[k][:, s0:s0 + clip]
+                b = o[k][:, :a.shape[1]]
+                worst[k] = max(worst[k], ((a - b).abs().max() /
+                                          b.abs().max()).item())
+        plain = chunked_video_apply(apply, video, clip, keys=("slots",))
+    drift = ((slots - plain["slots"]).abs().max() /
+             plain["slots"].abs().max()).item()
+    ok = all(v <= VP_ENC_TOL for v in worst.values())
+    log(f"{phase}: encode, each of {VP_FRAMES // clip} chunks replayed "
+        f"through the plain versions from the carried slots: largest "
+        f"difference slots {worst['slots']:.2e}, masks {worst['masks']:.2e} "
+        f"of their scale (tol {VP_ENC_TOL:.0e}) {'ok' if ok else 'FAIL'}; "
+        f"the whole plain path's slots after {VP_FRAMES} frames differ by "
+        f"{drift:.2e} of their scale (carried, not gated)")
+    if not ok:
+        raise SystemExit(f"{phase}: the encode disagrees with its plain "
+                         "versions")
+    return video, slots, counts
+
+
+def vp_decode(model, past, gt, roll, dev, gen, phase, smi):
+    """test_vp's path: `model.rollout(past, roll, decode=True,
+    with_gt=False)` from one shared x_T (DPM-Solver++ with the GN and
+    attention kernels, then the VQ decode), its launches, the kernels at
+    its shapes, the plain-path twin from the same x_T, each UNet call
+    replayed through the plain versions, MSE/PSNR/SSIM against `gt`.
+    -> the launches."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.models.diffusion import noise_like
+    from slotdiffusion_tpu_torch.ops import metrics as M
+    dm = model.dm_decoder
+    n = past.shape[0] * roll
+    x_T = noise_like(gen, (n, *dm.resolution, dm.channels), True, dev)
+    z = []
+    shapes, handles = record_shapes(model)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.inference_mode(), unet_calls(dm, [0]) as calls, \
+            sampled_latents(dm, z):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        start.record()
+        out = model.rollout(past, roll, decode=True, with_gt=False, x_T=x_T)
+        end.record()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        counts = ops.launch_counts()
+    for hk in handles:
+        hk.remove()
+    n_calls = len(calls)
+    want = {"gn_silu": GN_PER_UNET * n_calls,
+            "attention": ATTN_PER_UNET * n_calls}
+    if any(counts[k] != v for k, v in want.items()) or n_calls == 0:
+        raise SystemExit(f"{phase}: decode: {n_calls} UNet calls launched "
+                         f"{nonzero(counts)}, not {want}")
+    check_launches(counts, f"{phase}: decode", False,
+                   need=("gn_silu", "attention"))
+    check_kernels(shapes, None, gen, dev, f"{phase} (decode shapes)",
+                  timing=False)
+    frames = out["recon_combined"].flatten(0, 1).float()
+    cond = out["slots"].flatten(0, 1)
+    with torch.inference_mode(), plain_versions(True):
+        t1 = time.time()
+        twin = dm.generate_imgs(None, cond=cond, use_dpm=True,
+                                same_noise=True, x_T=x_T)
+        plain = dm.decode_latent(twin).float()
+        torch.cuda.synchronize()
+        twin_s = time.time() - t1
+        per_call = max(((o - dm.unet(x, t, c)).abs().max() / o.abs().max()
+                        ).item() for x, t, c, o in calls)
+    gate = CODE_AGREE["dpm"]
+    scale = plain.abs().max().item()
+    with torch.inference_mode():
+        score, whole = final_distance(dm, True, z[0], twin)
+    same_err = ((frames[whole] - plain[whole]).abs().max().item() / scale
+                if whole.any() else 0.0)
+    inside = score >= gate and same_err <= SAME_CODE_TOL
+    verdict = (f"codes agree at {score:.6f} (gate >= {gate}), "
+               f"{int(whole.sum())} of {n} frames with every code equal, "
+               f"their largest difference {same_err:.2e} (tol "
+               f"{SAME_CODE_TOL:.0e})")
+    chaotic = False
+    if not inside:  # the control, as phase 10's
+        with torch.inference_mode():
+            again = dm.generate_imgs(None, cond=cond, use_dpm=True,
+                                     same_noise=True,
+                                     x_T=x_T * (1.0 + CONTROL_EPS))
+            control, _ = final_distance(dm, True, again, z[0])
+        chaotic = control < gate
+        verdict += (f"; outside: the kernel path from x_T x (1 + "
+                    f"{CONTROL_EPS:.1e}) agrees with itself at {control:.6g}"
+                    f": " + ("a chaotic chain, not a gate" if chaotic
+                             else "a stable chain"))
+    x = (frames * 0.5 + 0.5).clamp(0, 1)
+    y = (gt.flatten(0, 1).float() * 0.5 + 0.5).clamp(0, 1)
+    scores = {"mse": M.mse_metric(x, y), "psnr": M.psnr_metric(x, y),
+              "ssim": M.ssim_metric(x, y)}
+    ok = (inside or chaotic) and per_call <= PER_CALL_TOL["f32"] and \
+        bool(torch.isfinite(frames).all())
+    log(f"{phase}: decode of {past.shape[0]} rollouts x {roll} frames "
+        f"(test_vp's path): {n_calls} UNet calls, {secs:.2f} s wall, "
+        f"{start.elapsed_time(end):.1f} ms CUDA events, launches "
+        f"{nonzero(counts)}; the plain twin {twin_s:.2f} s; kernels vs "
+        f"plain: {verdict}; {n_calls} calls replayed through the plain "
+        f"versions: largest difference {per_call:.2e} of the output scale "
+        f"(tol {PER_CALL_TOL['f32']:.0e}); against the clips' frames "
+        + " ".join(f"{k} {v:.4f}" for k, v in scores.items())
+        + f" (random weights) {'ok' if ok else 'FAIL'} [{smi}]")
+    if not ok:
+        raise SystemExit(f"{phase}: the decode disagrees with its plain "
+                         "versions")
+    return counts
+
+
+def vp_vqa(smi, dev, gen, phase="phase 14"):
+    """Phase 14: the video-prediction and VQA stage at full width, random
+    weights: SAViDiffusion's encode of whole videos (slot attention),
+    LDMSlotFormer's training on clips of those slots and its rollout of
+    the videos (no kernel: a plain transformer), test_vp's decode (GN
+    and attention), the readout's training and validation (no kernel).
+    -> {path: launches}."""
+    import gc
+
+    import torch
+    from slotdiffusion_tpu_torch import configs, ops
+    from slotdiffusion_tpu_torch.data.loader import DataModule
+    from slotdiffusion_tpu_torch.data.synthetic_slots import \
+        SyntheticSlotsDataset
+    from slotdiffusion_tpu_torch.methods.inference import interleaved_rollout
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    from slotdiffusion_tpu_torch.training.trainer import JSONLLogger
+    t_phase = time.time()
+    paths = {}
+    video, slots, paths["vp_encode"] = vp_encode(
+        configs.SAViLDMPhysion128(), dev, gen, phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # LDMSlotFormer: clips of 25 slot frames 3 apart cut from the videos
+    cfg = configs.LDMSlotFormerPhysion128()
+    model = build_model(cfg, device=dev)
+    init_random_(model, torch.Generator().manual_seed(0))
+    hist, roll = cfg.rollout_dict["history_len"], cfg.loss_dict["rollout_len"]
+    off, span = cfg.frame_offset, (cfg.n_sample_frames - 1) * cfg.frame_offset
+    starts = [(v, s) for s in range(VP_FRAMES - span)
+              for v in range(VP_VIDEOS)]
+    clips = torch.stack([slots[v, s:s + span + 1:off] for v, s in starts])
+    batch = cfg.train_batch_size
+    if len(clips) < batch:
+        raise SystemExit(f"{phase}: {len(clips)} clips make no batch of "
+                         f"{batch}")
+    data = DataModule(SlotClips(clips.cpu()), None, batch, seed=0)
+    for m in model.frozen_modules:
+        m.requires_grad_(False)
+    ldm_start = {n: p.detach().clone()
+                 for n, p in model.dm_decoder.named_parameters()}
+    # the first step's batch: its loss on the card, and on VP_CPU_CLIPS of
+    # it on the card and on the CPU (the port's SlotFormer with the same
+    # rollouter: the loss reads nothing else)
+    first = next(iter(data.train_loader(0)))["slots"]
+    cpu = build_model(cfg.copy(model="SlotFormer", dec_dict={}),
+                      device="cpu")
+    cpu.rollouter.load_state_dict({k: v.cpu() for k, v in
+                                   model.rollouter.state_dict().items()})
+    loss = lambda m, x: m.compute_losses({"slots": x})[1][
+        "slot_recon_loss"].item()
+    with torch.no_grad():
+        full = loss(model, first.to(dev))
+        part = loss(model, first[:VP_CPU_CLIPS].to(dev))
+        ref = loss(cpu, first[:VP_CPU_CLIPS])
+    tcfg = cfg.copy(print_iter=1, save_interval=100.0, num_workers=0)
+    trainer, report, paths["vp_training"], secs, peak = fit_checked(
+        model, tcfg, data, phase, VP_STEPS, need=(), unit="clips of slots",
+        smi=smi)
+    del trainer
+    step1 = report.steps[0]["train/slot_recon_loss"]
+    stale = [n for n, p in model.dm_decoder.named_parameters()
+             if p.grad is not None or not torch.equal(p, ldm_start[n])]
+    rel_cpu, rel_step = abs(part - ref) / abs(ref), abs(step1 - full) / abs(
+        full)
+    n_roll = sum(p.numel() for p in model.rollouter.parameters())
+    log(f"{phase}: LDMSlotFormer {VP_STEPS} steps at {batch} clips x "
+        f"{cfg.n_sample_frames} slot frames ({n_roll / 1e6:.2f}M rollouter "
+        f"parameters): step seconds {' '.join(f'{x:.3f}' for x in secs)}, "
+        f"peak {peak:.2f} GiB; the first step's loss {step1:.6f} vs the "
+        f"card's forward on its batch {full:.6f} (rel {rel_step:.1e}); on "
+        f"{VP_CPU_CLIPS} of its clips card {part:.6f} vs CPU {ref:.6f} (rel "
+        f"{rel_cpu:.1e}, tol {LOSS_RTOL:.0e}); the frozen LDM's "
+        f"{len(ldm_start)} tensors " + ("bit-identical, no gradient"
+                                       if not stale else
+                                       f"CHANGED {stale[:3]}") + f" [{smi}]")
+    if stale or not (rel_cpu <= LOSS_RTOL and rel_step <= LOSS_RTOL):
+        raise SystemExit(f"{phase}: LDMSlotFormer training failed its checks")
+    del ldm_start
+
+    # the rollout of the whole videos: 3 offsets of 35 steps
+    model.eval()
+    cpu.rollouter.load_state_dict({k: v.cpu() for k, v in
+                                   model.rollouter.state_dict().items()})
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        rolled = interleaved_rollout(slots, model.rollout, VP_OBS, hist, off)
+        torch.cuda.synchronize()
+        roll_s = time.time() - t0
+        paths["vp_rollout"] = ops.launch_counts()
+        want = interleaved_rollout(slots[:1].cpu(), cpu.rollout, VP_OBS,
+                                   hist, off)
+    rel = ((rolled[:1].cpu() - want).abs().max() /
+           want.abs().max()).item()
+    ok = rel <= VP_ROLL_TOL and bool(torch.isfinite(rolled).all()) and \
+        torch.equal(rolled[:, :VP_OBS], slots[:, :VP_OBS])
+    log(f"{phase}: interleaved_rollout of {VP_VIDEOS} videos from {VP_OBS} "
+        f"observed frames, frame_offset {off}: {off} offsets of "
+        f"{(VP_FRAMES - VP_OBS) // off} steps in {roll_s:.2f} s wall, "
+        f"launches {nonzero(paths['vp_rollout'])}; one video card vs CPU: "
+        f"{rel:.2e} of its scale (tol {VP_ROLL_TOL:.0e}) "
+        f"{'ok' if ok else 'FAIL'} [{smi}]")
+    if not ok:
+        raise SystemExit(f"{phase}: the rollout disagrees with the CPU")
+    del cpu, rolled, want
+
+    # test_vp's path on VP_DECODE clips, the videos' frames as truth
+    picks = [(i % VP_VIDEOS, (i // VP_VIDEOS) * off)
+             for i in range(VP_DECODE)]
+    past = torch.stack([slots[v, s:s + hist * off:off] for v, s in picks])
+    gt = torch.stack([video[v, s + hist * off:s + span + 1:off]
+                      for v, s in picks])
+    paths["vp_decode"] = vp_decode(model, past, gt, roll, dev, gen, phase,
+                                   smi)
+    del model, past, gt, video, slots
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the readout: READOUT_STEPS steps at its batch, then validation
+    rcfg = configs.ReadoutPhysion()
+    ro = build_model(rcfg, device=dev)
+    init_random_(ro, torch.Generator().manual_seed(0))
+    rd, rb = rcfg.readout_dict, rcfg.train_batch_size
+    sets = [SyntheticSlotsDataset(n, rd["num_slots"], rd["slot_size"],
+                                  rcfg.video_len, with_labels=True, seed=i)
+            for i, n in enumerate((rb * READOUT_STEPS, READOUT_VAL))]
+    data = DataModule(sets[0], None, rb, rcfg.val_batch_size, seed=0)
+    trainer, _, paths["readout_training"], rsecs, rpeak = fit_checked(
+        ro, rcfg.copy(print_iter=1, save_interval=100.0, num_workers=0),
+        data, phase, READOUT_STEPS, need=(), unit="clips of slots", smi=smi)
+    data.val_set = sets[1]
+    trainer.logger = JSONLLogger(None)
+    ops.reset_launch_counts()
+    res = trainer.validate()
+    torch.cuda.synchronize()
+    paths["readout_validate"] = ops.launch_counts()
+    accs = {k: v for k, v in res.items() if "/acc_" in k}
+    val = next(iter(data.val_loader()))
+    cpu = build_model(rcfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in ro.state_dict().items()})
+    with torch.no_grad():
+        a = ro({"slots": val["slots"].to(dev)})["logits"].cpu()
+        b = cpu({"slots": val["slots"]})["logits"]
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    ok = len(accs) == 5 and all(0 <= v <= 1 for v in accs.values()) and \
+        math.isfinite(res.get("val/vqa_loss", math.nan)) and \
+        rel <= VP_ROLL_TOL
+    log(f"{phase}: readout {READOUT_STEPS} steps at {rb} clips x "
+        f"{rcfg.video_len} frames: step seconds "
+        f"{' '.join(f'{x:.3f}' for x in rsecs)}, peak {rpeak:.2f} GiB; "
+        f"validate over {READOUT_VAL} clips: vqa_loss "
+        f"{res.get('val/vqa_loss', math.nan):.5f}, " + ", ".join(
+            f"{k.removeprefix('val/')} {v:.4f}" for k, v in accs.items())
+        + f"; logits card vs CPU {rel:.2e} of their scale (tol "
+        f"{VP_ROLL_TOL:.0e}) {'ok' if ok else 'FAIL'} [{smi}]")
+    if not ok:
+        raise SystemExit(f"{phase}: the readout failed its checks")
+    del trainer, ro, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{phase}: done in {time.time() - t_phase:.1f} s [{smi}]")
+    return paths
+
 def main():
     import gc
 
@@ -3494,7 +3887,10 @@ def main():
     coco_paths, coco_k, gn_long_res, sdpa = coco_voc(smi, dev, gen)
     per_path.update(coco_paths)
 
-    # ---- 14. report -----------------------------------------------------
+    # ---- 14. the video-prediction and VQA stage -------------------------
+    per_path.update(vp_vqa(smi, dev, gen))
+
+    # ---- 15. report -----------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():

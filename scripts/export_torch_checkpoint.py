@@ -20,6 +20,14 @@ read: {"model": state_dict, "config": name, "source": path, "ema": bool}.
     # the repo's SA trained on its generated COCO and VOC trees
     python scripts/export_torch_checkpoint.py --model sa_coco
     python scripts/export_torch_checkpoint.py --model sa_voc
+    # the synthetic video-prediction chain: the extraction model (its raw
+    # dm_decoder, which LDMSlotFormerSynthetic64Long3 grafts), SlotFormer,
+    # LDMSlotFormer (long2, long3) and the two readouts
+    python scripts/export_torch_checkpoint.py --model savi_ldm_long3
+    python scripts/export_torch_checkpoint.py --model slotformer
+    python scripts/export_torch_checkpoint.py --model ldmslotformer_long3
+    python scripts/export_torch_checkpoint.py --model readout
+    python scripts/export_torch_checkpoint.py --model readout_rollout_long
     # a stand-alone stage-1 VQ-VAE run (default: vqvae_synthetic_params-
     # res64's ckpt_last), for the port's VQVAE configs and for
     # train_torch.py --vqvae_ckp_path
@@ -73,7 +81,34 @@ DEFAULTS = {
     "sa_voc": ("configs/sa_voc_file-res64.py",
                "checkpoint/sa_voc_file-res64/ckpt_final",
                "checkpoint/torch_sa_voc_file-res64/model.pt"),
+    "savi_ldm_long3": ("configs/savi_ldm_synthetic_long3-res64.py",
+                       "checkpoint/savi_ldm_synthetic_long3-res64/ckpt_final",
+                       "checkpoint/torch_savi_ldm_synthetic_long3-res64/"
+                       "model.pt"),
+    "slotformer": ("configs/slotformer_synthetic_params.py",
+                   "checkpoint/slotformer_synthetic_params/ckpt_last",
+                   "checkpoint/torch_slotformer_synthetic_params/model.pt"),
+    # (not the params run: its checkpoint holds the VQ-VAE under flax's
+    # old automatic names, Conv_0, ResnetBlock_0, ..., which the JAX
+    # package cannot apply either)
+    **{f"ldmslotformer_{run}": (
+        f"configs/ldmslotformer_synthetic_{run}-res64.py",
+        f"checkpoint/ldmslotformer_synthetic_{run}-res64/ckpt_final",
+        f"checkpoint/torch_ldmslotformer_synthetic_{run}-res64/model.pt")
+       for run in ("long2", "long3")},
+    "readout": ("configs/readout_synthetic_params.py",
+                "checkpoint/readout_synthetic_params/ckpt_last",
+                "checkpoint/torch_readout_synthetic_params/model.pt"),
+    "readout_rollout_long": (
+        "configs/readout_synthetic_rollout_long.py",
+        "checkpoint/readout_synthetic_rollout_long/ckpt_final",
+        "checkpoint/torch_readout_synthetic_rollout_long/model.pt"),
 }
+# exported with the raw dm_decoder whatever --no_ema says: the savi_ldm
+# long3 file is what LDMSlotFormerSynthetic64Long3 grafts (the raw
+# parameters, as the JAX `apply_pretrained` grafts) and what
+# extract_slots_torch.py encodes with (which reads no decoder)
+RAW = ("savi_ldm_long3",)
 # the port's config of each JAX config file
 PORT_CONFIGS = {"savi_ldm_movi_file-res64": "SAViLDMMoviFile64",
                 "vqvae_synthetic_params-res64": "VQVAESynthetic64",
@@ -85,14 +120,26 @@ PORT_CONFIGS = {"savi_ldm_movi_file-res64": "SAViLDMMoviFile64",
                 "slate_synthetic_long-res64": "SLATESyntheticLong64",
                 "steve_synthetic_long-res64": "STEVESyntheticLong64",
                 "sa_coco_file-res64": "SACOCOFile64",
-                "sa_voc_file-res64": "SAVOCFile64"}
+                "sa_voc_file-res64": "SAVOCFile64",
+                "savi_ldm_synthetic_long3-res64": "SAViLDMSyntheticLong3_64",
+                "slotformer_synthetic_params": "SlotFormerSynthetic",
+                "ldmslotformer_synthetic_params-res64":
+                    "LDMSlotFormerSynthetic64",
+                "ldmslotformer_synthetic_long2-res64":
+                    "LDMSlotFormerSynthetic64Long2",
+                "ldmslotformer_synthetic_long3-res64":
+                    "LDMSlotFormerSynthetic64Long3",
+                "readout_synthetic_params": "ReadoutSynthetic",
+                "readout_synthetic_rollout_long":
+                    "ReadoutSyntheticRolloutLong"}
 
 
 def export(params_path, weight, out, config=None, use_ema=True,
            vqvae=False):
     """Restore `weight` (built by the JAX config `params_path`), convert
-    it (SAViDiffusion, SADiffusion, SA, SAVi, the dVAE, SLATE, STEVE)
-    and write `out`; -> the written
+    it (SAViDiffusion, SADiffusion, SA, SAVi, the dVAE, SLATE, STEVE,
+    SlotFormer, LDMSlotFormer, the readout) and write `out`; -> the
+    written
     dict. `config` is the port's name of the model's config (default:
     the `PORT_CONFIGS` entry of the JAX file, else SAViLDMMoviFile64).
     With `vqvae` the checkpoint is a stand-alone VQVAE run (its tree's
@@ -158,7 +205,8 @@ def main(argv=None):
     weight = args.weight or os.path.join(REPO, weight)
     out = args.out or os.path.join(REPO, out)
     state = export(params_path, weight, out, args.config,
-                   use_ema=not args.no_ema, vqvae=what == "vqvae")
+                   use_ema=not args.no_ema and what not in RAW,
+                   vqvae=what == "vqvae")
     n = sum(v.numel() for v in state["model"].values())
     print(f"wrote {out}: {len(state['model'])} tensors, {n} parameters, "
           f"config {state['config']}, ema {state['ema']}, from {weight}",

@@ -8,7 +8,12 @@ pickle of {split: {video name: slots [T, N, C] float32}}.
         --data_root data_local/movi_file --save_path slots.pkl
 
 A split the data root lacks is skipped (said on stdout). `--cpu` runs on
-the CPU.
+the CPU. The synthetic video-prediction chain extracts 8-frame videos of
+the repo's trained model (`--seq_len 8`, as the JAX chain did):
+
+    python scripts/extract_slots_torch.py --params SAViLDMSyntheticLong3_64 \
+        --weight checkpoint/torch_savi_ldm_synthetic_long3-res64/model.pt \
+        --save_path /tmp/slots.pkl --seq_len 8 --cpu --num_workers 0
 """
 
 import argparse
@@ -29,6 +34,10 @@ def main(argv=None):
     parser.add_argument("--bs", type=int, default=4)
     parser.add_argument("--clip_len", type=int, default=-1,
                         help="chunk length (default: the training clip)")
+    parser.add_argument("--seq_len", type=int, default=-1,
+                        help="the clip length of datasets without whole "
+                             "videos (the synthetic ones): sets "
+                             "n_sample_frames, so also the chunk length")
     parser.add_argument("--num_workers", type=int, default=-1,
                         help="loader worker processes (default: the "
                              "config's)")
@@ -45,6 +54,8 @@ def main(argv=None):
 
     params, model, device = eval_setup(args.params, args.weight, args.cpu,
                                        args.data_root)
+    if args.seq_len > 0:
+        params.n_sample_frames = args.seq_len
     clip_len = args.clip_len if args.clip_len > 0 else params.n_sample_frames
     all_slots = {}
     for split in ("train", "val", "test"):

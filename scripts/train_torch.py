@@ -75,6 +75,27 @@ to `--ckp_path` (default `checkpoint/torch_<run>/`, where the run is
 `ckpt_last.pt` is rewritten atomically every `save_interval` of an epoch
 and at the end; `--resume` continues from such a file.
 
+The video-prediction stage (`SlotFormerSynthetic`,
+`LDMSlotFormerSynthetic64` and its `Long2`/`Long3` runs,
+`LDMSlotFormerPhysion128`, `ReadoutSynthetic`,
+`ReadoutSyntheticRolloutLong`, `ReadoutPhysion`) trains on slots: the
+config's synthetic trajectories, an extraction pickle
+(`scripts/extract_slots_torch.py`) or a rollout pickle
+(`scripts/rollout_physion_slots_torch.py`), which `--slots_root`
+replaces; a Physion config reads the tree `--data_root` names. An
+LDMSlotFormer grafts its frozen LDM from the raw `dm_decoder` of the
+port-format SAViDiffusion file `--dm_ckp_path` names
+(`LDMSlotFormerSynthetic64Long3`: by default the repo's trained one as
+`scripts/export_torch_checkpoint.py --model savi_ldm_long3` exports it);
+the slot MSE's loss decay anneals by the step.
+
+    python scripts/train_torch.py --cpu --params SlotFormerSynthetic \
+        --max_steps 3
+    python scripts/train_torch.py --cpu --params \
+        LDMSlotFormerSynthetic64Long3 --max_steps 3
+    python scripts/train_torch.py --cpu --params \
+        ReadoutSyntheticRolloutLong --slots_root /tmp/rollout.pkl
+
 `--bf16` (`use_bf16`, the JAX `scripts/train.py --bf16`) computes in bf16
 with f32 master weights, gradients and Adam state; the checkpoints are
 f32 and interchange with an f32 run's.
@@ -100,6 +121,12 @@ EXPORTED_DVAE = os.path.join(
 TAKES_EXPORTED_DVAE = ("SLATESyntheticLong64", "STEVESyntheticLong64")
 IMAGE_DATASETS = ("synthetic", "synthetic_coco", "clevrtex", "celeba",
                   "coco", "voc")
+# the video-prediction stage: its models read slots (and labels)
+SLOT_STAGE = ("SlotFormer", "LDMSlotFormer", "PhysionReadout")
+# what `scripts/export_torch_checkpoint.py --model savi_ldm_long3` writes
+# (its raw dm_decoder): the frozen LDM of LDMSlotFormerSynthetic64Long3
+EXPORTED_DM = {"LDMSlotFormerSynthetic64Long3": os.path.join(
+    REPO, "checkpoint/torch_savi_ldm_synthetic_long3-res64/model.pt")}
 
 
 def main(argv=None):
@@ -130,6 +157,13 @@ def main(argv=None):
                         help="compute in bf16 (f32 master weights)")
     parser.add_argument("--lpips_weights", default="",
                         help="a VQ-VAE's LPIPS .npz (ops/lpips.py layout)")
+    parser.add_argument("--dm_ckp_path", default="",
+                        help="port-format SAViDiffusion checkpoint whose "
+                             "raw dm_decoder an LDMSlotFormer grafts")
+    parser.add_argument("--slots_root", default="",
+                        help="the slots pickle of a slot-stage config "
+                             "(its slots_root, or rollout_root for "
+                             "synthetic_rollout_slots)")
     args = parser.parse_args(argv)
 
     import torch
@@ -200,13 +234,43 @@ def main(argv=None):
     elif tokens:
         raise SystemExit(f"{cfg.model} trains against a frozen stage-1 "
                          "dVAE: pass --dvae_ckp_path")
+    dm = args.dm_ckp_path
+    if dm and cfg.model != "LDMSlotFormer":
+        raise SystemExit(f"{cfg.model} takes no --dm_ckp_path")
+    if not dm and args.params in EXPORTED_DM:
+        dm = EXPORTED_DM[args.params]
+        if not os.path.isfile(dm):
+            raise SystemExit(
+                f"{dm} is missing: export the repo's trained SAViDiffusion "
+                "with scripts/export_torch_checkpoint.py --model "
+                "savi_ldm_long3, or pass --dm_ckp_path")
+    if dm:
+        print(f"the frozen LDM: the raw dm_decoder of {dm}", flush=True)
+        cfg = cfg.copy(dec_dict=dict(cfg.dec_dict, dm_ckp_path=dm))
+    elif cfg.model == "LDMSlotFormer":
+        raise SystemExit("LDMSlotFormer's decoder is a trained LDM: pass "
+                         "--dm_ckp_path")
+    slot_stage = cfg.model in SLOT_STAGE
+    if args.slots_root and not slot_stage:
+        raise SystemExit(f"{cfg.model} takes no --slots_root")
+    if args.slots_root:
+        key = "rollout_root" if cfg.dataset == "synthetic_rollout_slots" \
+            else "slots_root"
+        cfg = cfg.copy(**{key: args.slots_root})
     batch = cfg.train_batch_size
     model = build_model(cfg, device=device)
     init_reference_(model, torch.Generator().manual_seed(args.seed))
     print(f"initialized from the JAX model's reference init "
           f"(init_reference_, seed {args.seed})", flush=True)
     images = cfg.dataset in IMAGE_DATASETS
-    if args.data_root and images:
+    if slot_stage:
+        if cfg.dataset.startswith("physion"):
+            if not args.data_root:
+                raise SystemExit(f"{cfg.dataset} reads a Physion tree: pass "
+                                 "--data_root")
+            cfg = cfg.copy(data_root=args.data_root)
+        data = build_datamodule(cfg)
+    elif args.data_root and images:
         data = build_datamodule(cfg.copy(data_root=args.data_root))
     elif args.data_root:
         # a MOVi tree, in the STEVE-MOVi layout for the configs that name it
@@ -227,7 +291,8 @@ def main(argv=None):
     trainer = build_method(model, data, cfg, ckp_path=ckp_path)
     print(f"training {name} ({cfg.model}) on {device} in "
           f"{'bf16' if cfg.use_bf16 else 'f32'}: {len(data)} steps per "
-          f"epoch of {batch} {'images' if images else 'clips'}, "
+          f"epoch of {batch} {'images' if images else 'clips'}"
+          f"{' of slots' if slot_stage else ''}, "
           f"checkpoints in {ckp_path}", flush=True)
     trainer.fit(max_steps=args.max_steps if args.max_steps > 0 else None,
                 resume_from=args.resume or None)

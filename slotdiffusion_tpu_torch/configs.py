@@ -19,7 +19,15 @@ frozen DINO ViT-S/8 on COCO and VOC at 224x224 (`SALDMDINOCOCO224`,
 `SALDMDINOVOC224`) with their stage-1 VQ-VAEs (`VQVAECOCO224`,
 `VQVAEVOC224`), and the repo's 64x64 SA on its COCO, VOC and
 synthetic-COCO trees (`SACOCOFile64`, `SAVOCFile64`,
-`SASyntheticCOCO64`, over `SASynthetic64`).
+`SASyntheticCOCO64`, over `SASynthetic64`). The video-prediction and VQA
+stage: on Physion at full width, SAViDiffusion with 8 slots
+(`SAViLDMPhysion128`) and its VQ-VAE (`VQVAEPhysion128`), LDMSlotFormer
+over its slots (`LDMSlotFormerPhysion128`) and the VQA readout
+(`ReadoutPhysion`); the repo's trained synthetic chain: the extraction
+model `SAViLDMSyntheticLong3_64`, `SlotFormerSynthetic`,
+`LDMSlotFormerSynthetic64` and its `Long2` and `Long3` runs,
+`ReadoutSynthetic` and `ReadoutSyntheticRolloutLong`. Each names the
+JAX config it copies.
 
 An own copy of the settings of the JAX package's `configs_base.py:17-140,
 274-330` and `configs/video_based/savi_ldm/savi_ldm_movie_params-res128.py`
@@ -1103,6 +1111,275 @@ class SASyntheticCOCO64(SASynthetic64):
     load_anno = True
 
 
+
+# ---- the video-prediction and VQA stage ----------------------------------
+
+
+class SAViLDMSyntheticLong3_64(SAViLDMMoviFile64):
+    """The extraction model of the repo's synthetic video-prediction chain:
+    an own copy of the JAX package's `configs/savi_ldm_synthetic_long3-
+    res64.py` (over `savi_ldm_synthetic_long-res64.py` and
+    `savi_ldm_synthetic_params-res64.py`), whose checkpoint
+    `checkpoint/savi_ldm_synthetic_long3-res64/ckpt_final` the export
+    script carries into the port (`--model savi_ldm_long3`). The model is
+    `SAViLDMMoviFile64`'s; synthetic 64x64 clips of 2 frames (512 train,
+    32 val), 8 a step, 320 epochs. `scripts/extract_slots_torch.py
+    --seq_len 8` extracts 8-frame videos from it, as the JAX chain did."""
+    max_epochs = 320
+    save_interval = 16.0
+    eval_interval = 8
+    print_iter = 64
+    dataset = "synthetic_video"
+    data_root = ""
+    train_samples = 512
+    val_samples = 32
+    max_objects = 4
+    num_workers = 2
+
+
+class SAViLDMPhysion128(SAViLDMMoviE128):
+    """SAViDiffusion on Physion at 128x128 (`configs/video_based/savi_ldm/
+    savi_ldm_physion_params-res128.py`): the flagship's model with 8 slots
+    of 192, Physion's `training` subset (videos of 150 frames), 48 clips a
+    step, 10 epochs. Its slots feed `LDMSlotFormerPhysion128`."""
+    max_epochs = 10
+    save_interval = 0.05
+    dataset = "physion_training"
+    data_root = "./data/Physion"
+    tasks = ["all"]
+    video_len = 150
+    load_mask = False
+    train_batch_size = 48
+    val_batch_size = 96
+    slot_dict = slot_dict_for(8, 192, 2)
+
+
+class VQVAEPhysion128(VQVAEMoviE128):
+    """SAViLDMPhysion128's stage 1 (`configs/video_based/savi_ldm/
+    vqvae_physion_params-res128.py`): the flagship's VQ-VAE on single
+    Physion frames, Adam at 5e-4, 20 epochs."""
+    max_epochs = 20
+    save_interval = 0.25
+    eval_interval = 1
+    lr = 5e-4
+    dataset = "physion_training"
+    data_root = "./data/Physion"
+    tasks = ["all"]
+    video_len = 150
+
+
+class _SlotStage(BaseParams):
+    """What the configs of the video-prediction stage share: the JAX
+    `_Common` and the port trainer's defaults."""
+    seed = 0
+    min_lr = 0.0
+    grad_accum_steps = 1
+    use_ema = False
+    ema_decay = 0.9999
+    print_iter = 50
+    use_bf16 = False
+    weight_decay = 0.0
+    num_workers = 8
+    resolution = (128, 128)
+    data_root = ""
+
+
+class SlotFormerSynthetic(_SlotStage):
+    """The repo's trained SlotFormer (`configs/slotformer_synthetic_
+    params.py`, checkpoint `checkpoint/slotformer_synthetic_params/
+    ckpt_last`): synthetic trajectories of 6 slots x 64 over 10 frames
+    (256 train, 32 val), 16 a step, 2 epochs; a 2-layer pre-norm
+    rollouter of 64 wide, 4 heads, sine temporal PE, history 6, rollout
+    4, no decoder; the loss decay over the first 40 % of the steps."""
+    max_epochs = 2
+    save_interval = 1.0
+    eval_interval = 1
+    print_iter = 10
+    lr = 2e-4
+    clip_grad = -1
+    warmup_steps_pct = 0.05
+    dataset = "synthetic_slots"
+    train_samples = 256
+    val_samples = 32
+    video_len = 10
+    n_sample_frames = 10
+    train_batch_size = 16
+    val_batch_size = 16
+    num_workers = 2
+    model = "SlotFormer"
+    resolution = (64, 64)
+    slot_size = 64
+    num_slots = 6
+    slot_dict = dict(num_slots=6, slot_size=64)
+    dec_dict = dict()
+    rollout_dict = dict(num_slots=6, slot_size=64, history_len=6, t_pe="sin",
+                        slots_pe="", d_model=64, num_layers=2, num_heads=4,
+                        ffn_dim=256, norm_first=True)
+    loss_dict = dict(rollout_len=4, use_img_recon_loss=False)
+    slot_recon_loss_w = 1.0
+    use_loss_decay = True
+    loss_decay_pct = 0.4
+
+
+class LDMSlotFormerSynthetic64(SlotFormerSynthetic):
+    """The repo's trained LDMSlotFormer (`configs/ldmslotformer_synthetic_
+    params-res64.py`, checkpoint `checkpoint/ldmslotformer_synthetic_
+    params-res64/ckpt_final`): the slots `SAViLDMMoviFile64`'s model
+    extracted from 8-frame synthetic videos (`slots_root`), 16 clips a
+    step, 3 epochs; a 2-layer rollouter of 64, history 4, rollout 4; the
+    frozen LDM is `SAViLDMMoviFile64`'s decoder (the plain GN and
+    attention, as that config keeps them). `dec_dict["dm_ckp_path"]`
+    names the port-format SAViDiffusion file it is grafted from (raw
+    parameters); unset here, `scripts/train_torch.py --dm_ckp_path`
+    sets it."""
+    max_epochs = 3
+    dataset = "synthetic_video_slots"
+    slots_root = ("checkpoint/savi_ldm_synthetic_params-res64/"
+                  "slots_synthetic.pkl")
+    max_objects = 4
+    video_len = 8
+    n_sample_frames = 8
+    model = "LDMSlotFormer"
+    input_frames = 4
+    rollout_dict = dict(SlotFormerSynthetic.rollout_dict, history_len=4)
+    dec_dict = dict(SAViLDMMoviFile64.dec_dict, use_ema=False,
+                    dm_ckp_path="")
+    use_dpm = True
+
+
+class LDMSlotFormerSynthetic64Long2(LDMSlotFormerSynthetic64):
+    """`configs/ldmslotformer_synthetic_long2-res64.py`: the slots and the
+    decoder of the savi_ldm long2 run (`checkpoint/
+    ldmslotformer_synthetic_long2-res64/ckpt_final`)."""
+    slots_root = ("checkpoint/savi_ldm_synthetic_long2-res64/"
+                  "slots_synthetic.pkl")
+
+
+class LDMSlotFormerSynthetic64Long3(LDMSlotFormerSynthetic64Long2):
+    """`configs/ldmslotformer_synthetic_long3-res64.py`: the slots and the
+    decoder of the savi_ldm long3 run (`SAViLDMSyntheticLong3_64`;
+    checkpoint `checkpoint/ldmslotformer_synthetic_long3-res64/
+    ckpt_final`), whose rollouts `ReadoutSyntheticRolloutLong` reads."""
+    slots_root = ("checkpoint/savi_ldm_synthetic_long3-res64/"
+                  "slots_synthetic.pkl")
+
+
+class LDMSlotFormerPhysion128(_SlotStage):
+    """LDMSlotFormer on Physion slots at 128x128 (`configs/vp_vqa/
+    ldmslotformer_physion_params-res128.py`): clips of 15 + 10 slot
+    frames 3 apart (`frame_offset`) of 150-frame videos, 128 a step, 25
+    epochs; a 12-layer pre-norm rollouter of 256 wide, 8 heads, FFN 1024,
+    sine temporal PE, history 15, rollout 10, over `SAViLDMPhysion128`'s 8
+    slots of 192; its frozen LDM (the flagship's, with the GN and
+    attention kernels). `dm_ckp_path` (the SAViLDMPhysion128 file, raw
+    parameters) is unset: the JAX config's names an orbax directory."""
+    max_epochs = 25
+    save_interval = 0.125
+    eval_interval = 2
+    lr = 1e-4
+    clip_grad = -1
+    warmup_steps_pct = 0.05
+    dataset = "physion_slots_training"
+    data_root = "./data/Physion"
+    slots_root = "./data/Physion/slots/physion_training_slots.pkl"
+    tasks = ["all"]
+    n_sample_frames = 15 + 10
+    frame_offset = 3
+    video_len = 150
+    train_batch_size = 128
+    val_batch_size = 256
+    model = "LDMSlotFormer"
+    input_frames = 15
+    slot_size = 192
+    num_slots = 8
+    slot_dict = dict(num_slots=8, slot_size=192, slot_mlp_size=384,
+                     num_iterations=2)
+    rollout_dict = dict(num_slots=8, slot_size=192, history_len=15,
+                        t_pe="sin", slots_pe="", d_model=256, num_layers=12,
+                        num_heads=8, ffn_dim=256 * 4, norm_first=True)
+    dec_dict = dict(ldm_dec_dict((128, 128), 192), use_ema=False,
+                    dm_ckp_path="")
+    loss_dict = dict(rollout_len=10, use_img_recon_loss=False)
+    slot_recon_loss_w = 1.0
+
+
+class ReadoutSynthetic(_SlotStage):
+    """The repo's trained readout (`configs/readout_synthetic_params.py`,
+    checkpoint `checkpoint/readout_synthetic_params/ckpt_last`): labelled
+    synthetic trajectories of 6 slots x 64 over 10 frames, 16 a step, 2
+    epochs, Adam at 1e-3 without warmup; max over the slot pairs."""
+    max_epochs = 2
+    save_interval = 1.0
+    eval_interval = 1
+    print_iter = 10
+    lr = 1e-3
+    clip_grad = -1
+    warmup_steps_pct = 0.0
+    dataset = "synthetic_slots"
+    with_labels = True
+    train_samples = 256
+    val_samples = 32
+    video_len = 10
+    n_sample_frames = 10
+    train_batch_size = 16
+    val_batch_size = 16
+    num_workers = 2
+    model = "PhysionReadout"
+    resolution = (64, 64)
+    slot_size = 64
+    num_slots = 6
+    readout_dict = dict(num_slots=6, slot_size=64, agg_func="max",
+                        feats_dim=64)
+    vqa_loss_w = 1.0
+
+
+class ReadoutSyntheticRolloutLong(ReadoutSynthetic):
+    """The repo's readout trained on rolled-out slots (`configs/
+    readout_synthetic_rollout_long.py` over `readout_synthetic_rollout_
+    params.py`, checkpoint `checkpoint/readout_synthetic_rollout_long/
+    ckpt_final`): `LDMSlotFormerSynthetic64Long3`'s rollouts of 512 train
+    and 256 val and test videos (`rollout_root`), labelled by the source
+    videos' object counts, 32 a step, 200 epochs."""
+    max_epochs = 200
+    eval_interval = 10
+    save_interval = 25.0
+    print_iter = 64
+    dataset = "synthetic_rollout_slots"
+    with_labels = False
+    rollout_root = ("checkpoint/ldmslotformer_synthetic_long3-res64/"
+                    "rollout_slots_big.pkl")
+    max_objects = 4
+    train_batch_size = 32
+    val_batch_size = 32
+
+
+class ReadoutPhysion(_SlotStage):
+    """The Physion VQA readout (`configs/vp_vqa/readout_physion_params.py`):
+    rolled-out slots of 8 x 192 over 75 frames with the readout subset's
+    labels, 64 a step, 50 epochs, Adam at 1e-3 without warmup; max over
+    the slot pairs, 192 features."""
+    max_epochs = 50
+    save_interval = 1.0
+    eval_interval = 2
+    lr = 1e-3
+    clip_grad = -1
+    warmup_steps_pct = 0.0
+    dataset = "physion_slots_label_readout"
+    data_root = "./data/Physion"
+    slots_root = "./data/Physion/slots/rollout-physion_readout_slots.pkl"
+    tasks = ["all"]
+    n_sample_frames = 6
+    frame_offset = 1
+    video_len = 75
+    train_batch_size = 64
+    val_batch_size = 128
+    model = "PhysionReadout"
+    slot_size = 192
+    num_slots = 8
+    readout_dict = dict(num_slots=8, slot_size=192, agg_func="max",
+                        feats_dim=192)
+    vqa_loss_w = 1.0
+
 CONFIGS = {c.__name__: c for c in (
     SAViLDMMoviE128, SAViLDMMoviFile64, SAViLDMMoviD128,
     SAViLDMMoviSolid128, SAViLDMMoviTex128, VQVAEMoviE128, VQVAEMoviD128,
@@ -1116,7 +1393,11 @@ CONFIGS = {c.__name__: c for c in (
     SLATECelebA128, SAViSynthetic64, DVAESyntheticLong64,
     SLATESyntheticLong64, STEVESyntheticLong64, SALDMDINOCOCO224,
     SALDMDINOVOC224, VQVAECOCO224, VQVAEVOC224, SASynthetic64,
-    SACOCOFile64, SAVOCFile64, SASyntheticCOCO64)}
+    SACOCOFile64, SAVOCFile64, SASyntheticCOCO64, SAViLDMSyntheticLong3_64,
+    SAViLDMPhysion128, VQVAEPhysion128, SlotFormerSynthetic,
+    LDMSlotFormerSynthetic64, LDMSlotFormerSynthetic64Long2,
+    LDMSlotFormerSynthetic64Long3, LDMSlotFormerPhysion128,
+    ReadoutSynthetic, ReadoutSyntheticRolloutLong, ReadoutPhysion)}
 
 
 def get_config(name):

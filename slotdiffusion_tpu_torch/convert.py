@@ -6,8 +6,10 @@ returns `{name: torch.Tensor}` for `load_state_dict`. The walks are copies
 of the ones the JAX package's `models/torch_export.py` uses for
 `export_torch_sa` (:225), `export_torch_sa_diffusion` (:260),
 `export_torch_savi_diffusion` (:287-318), `export_torch_slate` and
-`export_torch_steve` (:320-352), `export_torch_savi` (:398-411), the MLP
-and LSTM predictors (:442-479), `export_torch_dvae` (:510-531) and
+`export_torch_steve` (:320-352), `export_torch_ldm_slotformer`
+(:375-396), `export_torch_savi` (:398-411), the MLP and LSTM predictors
+(:442-479), `export_torch_dvae` (:510-531), `export_torch_slot_rollouter`
+(:533-549), `export_torch_physion_readout` (:552-559) and
 `export_torch_steve_transformer` (:562-587); the port's modules carry
 the upstream names those walks emit, so only the prefixes differ.
 
@@ -309,7 +311,10 @@ def convert_model(params, cfg) -> Dict[str, torch.Tensor]:
           "SAViDiffusion": convert_savi_diffusion, "SAVi": convert_savi,
           "SLATE": convert_slate, "STEVE": convert_steve,
           "dVAE": convert_dvae_state_dict,
-          "DVAE": convert_dvae_state_dict}.get(cfg.model)
+          "DVAE": convert_dvae_state_dict,
+          "SlotFormer": convert_slotformer,
+          "LDMSlotFormer": convert_ldm_slotformer,
+          "PhysionReadout": convert_physion_readout}.get(cfg.model)
     if fn is None:
         if cfg.model == "VQVAE":
             return convert_vqvae_state_dict(params, cfg.enc_dec_dict)
@@ -471,22 +476,29 @@ def convert_steve(params, cfg) -> Dict[str, torch.Tensor]:
     return _tensors(out)
 
 
+def _mha(out, prefix, sub):
+    """flax MultiHeadDotProductAttention -> nn.MultiheadAttention's packed
+    `in_proj` and `out_proj` (the JAX exporter's `_inv_mha`,
+    torch_export.py:413)."""
+    D = _np(sub["out"]["bias"]).shape[0]
+    out[f"{prefix}.in_proj_weight"] = np.concatenate(
+        [np.transpose(_np(sub[n]["kernel"]).reshape(D, D))
+         for n in ("query", "key", "value")], axis=0)
+    out[f"{prefix}.in_proj_bias"] = np.concatenate(
+        [_np(sub[n]["bias"]).reshape(D) for n in ("query", "key", "value")],
+        axis=0)
+    out[f"{prefix}.out_proj.weight"] = np.transpose(
+        _np(sub["out"]["kernel"]).reshape(D, D))
+    out[f"{prefix}.out_proj.bias"] = _np(sub["out"]["bias"])
+
+
 def convert_transformer_predictor(params, num_layers):
     """flax TransformerPredictor -> torch TransformerEncoderLayer names
     (packed in_proj)."""
     out: Dict[str, np.ndarray] = {}
     for i in range(num_layers):
-        p, sub = f"transformer_encoder.layers.{i}", params[f"attn{i}"]
-        D = _np(sub["out"]["bias"]).shape[0]
-        out[f"{p}.self_attn.in_proj_weight"] = np.concatenate(
-            [np.transpose(_np(sub[n]["kernel"]).reshape(D, D))
-             for n in ("query", "key", "value")], axis=0)
-        out[f"{p}.self_attn.in_proj_bias"] = np.concatenate(
-            [_np(sub[n]["bias"]).reshape(D)
-             for n in ("query", "key", "value")], axis=0)
-        out[f"{p}.self_attn.out_proj.weight"] = np.transpose(
-            _np(sub["out"]["kernel"]).reshape(D, D))
-        out[f"{p}.self_attn.out_proj.bias"] = _np(sub["out"]["bias"])
+        p = f"transformer_encoder.layers.{i}"
+        _mha(out, f"{p}.self_attn", params[f"attn{i}"])
         _layernorm(out, f"{p}.norm1", params[f"LayerNorm_{2 * i}"])
         _layernorm(out, f"{p}.norm2", params[f"LayerNorm_{2 * i + 1}"])
         _linear(out, f"{p}.linear1", params[f"Dense_{2 * i}"])
@@ -613,3 +625,62 @@ def convert_diffusion_state_dict(params, dec_dict) -> Dict[str,
     """A bare JAX diffusion decoder's params -> the port decoder's
     state_dict (f32 tensors), for a strict `load_state_dict`."""
     return _tensors(convert_diffusion(params, dec_dict))
+
+
+def convert_slot_rollouter(params) -> Dict[str, np.ndarray]:
+    """flax SlotRollouter -> port names (the JAX exporter's
+    `export_torch_slot_rollouter` walk, torch_export.py:533-549): in_proj,
+    out_proj, and per layer `transformer_encoder.layers.i.{self_attn,
+    norm1, norm2, linear1, linear2}`. Unlike that walk, a learnable
+    `enc_t_pe` / `enc_slots_pe` is carried (a sine PE is no parameter on
+    either side), so a learnable-PE model loads strictly."""
+    out: Dict[str, np.ndarray] = {}
+    step = params["step"]
+    _linear(out, "in_proj", step["in_proj"])
+    _linear(out, "out_proj", step["out_proj"])
+    n = sum(1 for k in step if k.startswith("layer"))
+    for i in range(n):
+        p, layer = f"transformer_encoder.layers.{i}", step[f"layer{i}"]
+        _mha(out, f"{p}.self_attn", layer["attn"])
+        _layernorm(out, f"{p}.norm1", layer["LayerNorm_0"])
+        _layernorm(out, f"{p}.norm2", layer["LayerNorm_1"])
+        _linear(out, f"{p}.linear1", layer["Dense_0"])
+        _linear(out, f"{p}.linear2", layer["Dense_1"])
+    for pe in ("enc_t_pe", "enc_slots_pe"):
+        if pe in params:
+            out[pe] = _np(params[pe])
+    return out
+
+
+def convert_slotformer(params, cfg) -> Dict[str, torch.Tensor]:
+    """flax SlotFormer params -> port SlotFormer state_dict: the
+    rollouter, and the spatial broadcast decoder where the config has
+    one."""
+    out = {f"rollouter.{k}": v for k, v in
+           convert_slot_rollouter(params["rollouter"]).items()}
+    if "decoder" in params:
+        out.update({f"decoder.{k}": v for k, v in
+                    convert_spatial_broadcast_decoder(
+                        params["decoder"], cfg.dec_dict).items()})
+    return _tensors(out)
+
+
+def convert_ldm_slotformer(params, cfg) -> Dict[str, torch.Tensor]:
+    """flax LDMSlotFormer params -> port LDMSlotFormer state_dict: the
+    rollouter and the frozen LDM (the walks of the JAX exporter's
+    `export_torch_ldm_slotformer`, torch_export.py:375-396)."""
+    out = {f"rollouter.{k}": v for k, v in
+           convert_slot_rollouter(params["rollouter"]).items()}
+    out.update({f"dm_decoder.{k}": v for k, v in convert_diffusion(
+        params["dm_decoder"], cfg.dec_dict).items()})
+    return _tensors(out)
+
+
+def convert_physion_readout(params, cfg=None) -> Dict[str, torch.Tensor]:
+    """flax PhysionReadout params -> port names (`linear1`, `linear2`;
+    the JAX exporter's torch_export.py:552-559; the pair indices are a
+    buffer outside the state_dict)."""
+    out: Dict[str, np.ndarray] = {}
+    _linear(out, "linear1", params["linear1"])
+    _linear(out, "linear2", params["linear2"])
+    return _tensors(out)

@@ -1,13 +1,18 @@
 """Data of the port (the counterpart of the JAX package's data/builders.py
-:11-157 for `dataset="movi"`, `"steve_movi"`, `"synthetic_video"`,
-`"synthetic"`, `"synthetic_coco"`, `"clevrtex"`, `"celeba"`, `"coco"`
-and `"voc"`): `build_dataset` returns the datasets a config names,
-`collate_fn` the batching they need (COCO's pads its boxes),
-`build_datamodule` batches them with `loader.DataModule`. The other
-datasets are not ported yet."""
+:11-157, every dataset it names: `dataset="movi"`, `"steve_movi"`,
+`"synthetic_video"`, `"synthetic"`, `"synthetic_coco"`, `"clevrtex"`,
+`"celeba"`, `"coco"`, `"voc"`, the slot datasets `"synthetic_slots"`,
+`"synthetic_video_slots"`, `"synthetic_rollout_slots"`, `"physion_slots*"`,
+and the Physion videos `"physion*"`): `build_dataset` returns the
+datasets a config names, `collate_fn` the batching they need (COCO's
+pads its boxes), `build_datamodule` batches them with
+`loader.DataModule`."""
 
 # the datasets whose samples carry variable-length `annos`
 COCO_LIKE = ("coco", "synthetic_coco")
+# the synthetic slot datasets of the video-prediction stage
+SLOT_DATASETS = ("synthetic_slots", "synthetic_video_slots",
+                 "synthetic_rollout_slots")
 
 
 def build_dataset(params, val_only=False):
@@ -43,7 +48,19 @@ def build_dataset(params, val_only=False):
     if name == "voc":
         from .voc import build_voc_dataset
         return build_voc_dataset(params, val_only=val_only)
-    raise ValueError(f"dataset {name!r} is not ported yet")
+    if name in SLOT_DATASETS:
+        from .synthetic_slots import build_slots_dataset
+        return build_slots_dataset(params, val_only=val_only)
+    # the upstream names: `physion_training` (the video model),
+    # `physion_slots_training` (the dynamics), `physion_slots_label_readout`
+    # and `physion_slots_label_test` (the readout); slots before videos
+    if name.startswith("physion_slots"):
+        from .physion_slots import build_physion_slots_dataset
+        return build_physion_slots_dataset(params, val_only=val_only)
+    if name == "physion" or name.startswith("physion_"):
+        from .physion import build_physion_dataset
+        return build_physion_dataset(params, val_only=val_only)
+    raise ValueError(f"unknown dataset {name!r}")
 
 
 def collate_fn(params):

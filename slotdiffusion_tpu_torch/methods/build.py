@@ -1,14 +1,18 @@
 """Trainer configuration per model (mirrors the JAX package's
 methods/build.py:25-131 for SAViDiffusion, SADiffusion, SA, SAVi, SLATE,
-STEVE, the VQVAE and the dVAE): for the diffusion models the
+STEVE, the VQVAE, the dVAE, SlotFormer, LDMSlotFormer and the Physion
+readout): for the diffusion models the
 `dm_decoder` LR group at `dec_lr`, for SLATE and STEVE the
 `trans_decoder` group; for the slot models the segmentation metrics of
 each validation batch (`seg_metrics_fn`; SA's and SAVi's from their
 decoder's masks, SLATE's and STEVE's from slot attention's at the visual
 resolution); for the stage-1 VQVAE and dVAE one LR group and no metrics
 beyond their losses, the dVAE's gumbel temperature annealed by the step;
-the run's seed for all. Each loss is weighted by the config's `<loss>_w` (the trainer's
-lookup: SA's `img_recon_loss_w`). COCO and VOC batches, which carry
+for SlotFormer and LDMSlotFormer the slot MSE's loss-decay factor
+annealed by the step (`use_loss_decay`); for the readout its accuracies,
+which its `compute_losses` gives at eval; the run's seed for all. Each
+loss is weighted by the config's `<loss>_w` (the trainer's lookup: SA's
+`img_recon_loss_w`). COCO and VOC batches, which carry
 instance masks, are scored twice (the dual protocol of upstream
 img_based/test_seg.py): `inst/*` against the instance masks and `sem/*`
 against the semantic ones, both with COCO's overlap pixels taken out."""
@@ -76,7 +80,8 @@ DECODERS = {"SAViDiffusion": "dm_decoder", "SADiffusion": "dm_decoder",
 def build_method(model, datamodule, params, ckp_path=None):
     """-> a `Trainer` for `model` as `params` configures it."""
     name = params.model
-    if name == "VQVAE":
+    if name in ("VQVAE", "PhysionReadout"):
+        # the readout's accuracies come from its `compute_losses` at eval
         return Trainer(model, datamodule, params, ckp_path=ckp_path,
                        seed=params.seed)
     if name in ("dVAE", "DVAE"):
@@ -89,6 +94,19 @@ def build_method(model, datamodule, params, ckp_path=None):
                        seed=params.seed, step_scalars={
                            "gumbel_tau": lambda step: cosine_anneal(
                                step, start, final, 0, tau_steps)})
+    if name in ("SlotFormer", "LDMSlotFormer"):
+        # the loss decay: the factor rises from `loss_decay_min` to 1 by a
+        # cosine over `loss_decay_pct` of the run's micro-steps (the JAX
+        # methods/build.py:107-115), where `use_loss_decay` asks for it
+        scalars = {}
+        if getattr(params, "use_loss_decay", False):
+            total = params.max_epochs * len(datamodule)
+            low = getattr(params, "loss_decay_min", 0.1)
+            decay_steps = getattr(params, "loss_decay_pct", 0.2) * total
+            scalars["loss_decay_factor"] = lambda step: cosine_anneal(
+                step, low, 1.0, 0, decay_steps)
+        return Trainer(model, datamodule, params, ckp_path=ckp_path,
+                       seed=params.seed, step_scalars=scalars)
     if name not in SLOT_MODELS:
         raise ValueError(f"training {name!r} is not ported yet")
     dec_lr = getattr(params, "dec_lr", params.lr)  # SA, SAVi: no decoder

@@ -22,7 +22,9 @@ def is_video(name):
 
 def build_model(params, device="cuda"):
     """Instantiate the model named by `params.model` (SAViDiffusion,
-    SADiffusion, SA, SAVi, STEVE, SLATE, the stage-1 VQVAE from
+    SADiffusion, SA, SAVi, STEVE, SLATE, the video-prediction stage's
+    SlotFormer and LDMSlotFormer, the Physion readout PhysionReadout,
+    the stage-1 VQVAE from
     `params.enc_dec_dict` and `params.vq_dict`, or the stage-1 dVAE
     ("dVAE" or "DVAE") of `params.dvae_dict["vocab_size"]`, else
     `params.vocab_size`) on `device`, in eval mode. Parameters are f32
@@ -74,6 +76,15 @@ def build_model(params, device="cuda"):
         dvae_dict = getattr(params, "dvae_dict", None)
         model = dVAE(dvae_dict["vocab_size"] if dvae_dict else
                      params.vocab_size, compute_dtype=dtype)
+    elif params.model in ("SlotFormer", "LDMSlotFormer"):
+        from . import slotformer
+        model = getattr(slotformer, params.model)(
+            tuple(params.resolution), params.slot_dict,
+            getattr(params, "dec_dict", None) or {}, params.rollout_dict,
+            params.loss_dict, compute_dtype=dtype)
+    elif params.model == "PhysionReadout":
+        from .readout import PhysionReadout
+        model = PhysionReadout(params.readout_dict, compute_dtype=dtype)
     else:
         raise ValueError(f"model {params.model!r} is not ported yet")
     return model.to(device).eval()
@@ -163,7 +174,9 @@ def init_reference_(model, generator):
     `generator` (a seeded CPU `torch.Generator`): a training run starts
     here (`scripts/train_torch.py`). Per parameter, as the JAX module it
     mirrors draws it:
-    - zeros: every bias, each UNet ResBlock's second conv, each
+    - zeros: every bias, a rollouter's learnable PEs (`enc_t_pe`,
+      `enc_slots_pe`, models/slotformer.py:129-144), each UNet
+      ResBlock's second conv, each
       SpatialTransformer's proj_out and the UNet's output conv
       (models/unet.py:210, 299, 617);
     - ones: norm scales (models/blocks.py:43-45, flax LayerNorm/GroupNorm);
@@ -227,7 +240,7 @@ def init_reference_(model, generator):
             ar[id(m.ffn[2].weight)] = (m.self_attn.gain ** 2, "fan_avg",
                                        "uniform")
     for name, p in model.named_parameters():
-        if id(p) in zero:
+        if id(p) in zero or name.endswith(("enc_t_pe", "enc_slots_pe")):
             v = torch.zeros(p.shape)
         elif p.dim() == 1:  # norm scales are "weight", the rest biases
             v = torch.ones(p.shape) if name.endswith("weight") \

@@ -10,7 +10,9 @@ linear2}`; the MLP's `ln` and `mlp.{0, 2}`; the wrapper's
 gates i, f, g, o) and `out_projector`. Everything computes in
 `compute_dtype`, the attention as flax's `MultiHeadDotProductAttention
 (dtype)`: q scaled by 1/sqrt(head width), logits, softmax and the value
-product all in the compute dtype.
+product all in the compute dtype, the softmax in bf16 rounded where
+`jax.nn.softmax` rounds (after the max's difference, the exponential,
+the sum and the quotient).
 
 The LSTM cell is flax's `OptimizedLSTMCell`: the recurrent product with
 its bias, plus the input product (no bias of its own; a converted
@@ -53,11 +55,20 @@ class _SelfAttention(nn.Module):
         q, k, v = (t.reshape(B, S, H, D // H).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
         q = q / self.q_div
-        w = torch.softmax(q @ k.transpose(-1, -2), -1)
+        s = q @ k.transpose(-1, -2)
+        if dt == torch.float32:
+            w = torch.softmax(s, -1)
+        else:  # rounded where jax.nn.softmax rounds: difference, exp, sum
+            e = torch.exp(s - s.amax(-1, keepdim=True))
+            w = e / e.sum(-1, keepdim=True)
         return self.out_proj((w @ v).transpose(1, 2).reshape(B, S, D))
 
 
-class _EncoderLayer(nn.Module):
+class TransformerEncoderLayer(nn.Module):
+    """torch's TransformerEncoderLayer (ReLU FFN, no dropout), pre-norm
+    (`norm_first`) or post-norm, computing as flax's layers of the JAX
+    package in `compute_dtype`."""
+
     def __init__(self, d_model, num_heads, ffn_dim, norm_first=True,
                  compute_dtype=torch.float32):
         super().__init__()
@@ -80,7 +91,9 @@ class _EncoderLayer(nn.Module):
         return self.norm2(x + self._ffn(x))
 
 
-class _Encoder(nn.Module):
+class TransformerEncoder(nn.Module):
+    """The layers under torch's name (`layers.i`)."""
+
     def __init__(self, layers):
         super().__init__()
         self.layers = nn.ModuleList(layers)
@@ -93,9 +106,10 @@ class TransformerPredictor(nn.Module):
     def __init__(self, d_model, num_layers=1, num_heads=4, ffn_dim=256,
                  norm_first=True, compute_dtype=torch.float32):
         super().__init__()
-        self.transformer_encoder = _Encoder(
-            [_EncoderLayer(d_model, num_heads, ffn_dim, norm_first,
-                           compute_dtype) for _ in range(num_layers)])
+        self.transformer_encoder = TransformerEncoder(
+            [TransformerEncoderLayer(d_model, num_heads, ffn_dim,
+                                     norm_first, compute_dtype)
+             for _ in range(num_layers)])
 
     def forward(self, x):
         for layer in self.transformer_encoder.layers:

@@ -18,7 +18,8 @@ counted with `torch.bincount` on the masks' device and held in float64, so
 every count is exact and every score equals the JAX package's float64
 numpy. The Hungarian matching runs on the host with
 `scipy.optimize.linear_sum_assignment`, as in the JAX package.
-`masks_to_boxes` is not ported yet.
+`masks_to_boxes` gives each slot id's box in a frame, at once over
+every frame and id.
 """
 
 import numpy as np
@@ -223,6 +224,25 @@ def postproc_mask(batch_masks):
     sel[low] = 1.0
     m[rows, bg_idx] = sel
     return m.argmax(1).reshape(B, T, H, W)
+
+
+def masks_to_boxes(masks, num_boxes=7):
+    """Integer masks [B, T, H, W] -> float64 boxes [B, T, num_boxes, 4]:
+    the (x1, y1, x2, y2) of the pixels of each id 0..num_boxes-1 in each
+    frame, the last row and column inclusive; -1 four times where an id
+    has no pixel (the JAX package's ops/metrics.py:295-316)."""
+    m = _ids(masks)
+    H, W = m.shape[-2:]
+    onehot = m[..., None] == torch.arange(num_boxes, device=m.device)
+    rows, cols = onehot.any(3), onehot.any(2)  # [B, T, H or W, N]
+    ys = torch.arange(H, device=m.device)[:, None]
+    xs = torch.arange(W, device=m.device)[:, None]
+    boxes = torch.stack([
+        torch.where(cols, xs, W).amin(2), torch.where(rows, ys, H).amin(2),
+        torch.where(cols, xs, -1).amax(2), torch.where(rows, ys, -1).amax(2),
+    ], dim=-1).double()
+    return torch.where(rows.any(2)[..., None], boxes,
+                       torch.full_like(boxes, -1.0))
 
 
 ###########################################

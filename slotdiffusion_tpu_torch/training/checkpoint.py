@@ -7,8 +7,9 @@ A checkpoint is one `torch.save` file of a dict: `model` (state_dict),
 file goes to a temporary name in the same directory and `os.replace`
 swaps it in, so a crash at any instant leaves the old or the new file
 whole. Orbax checkpoints of the JAX package are not read (the card machine
-has no orbax); `graft_pretrained` grafts a frozen VQ-VAE or dVAE from a
-port-format file, the counterpart of the JAX package's `apply_pretrained`.
+has no orbax); `graft_pretrained` grafts a frozen VQ-VAE, diffusion
+decoder or dVAE from a port-format file, the counterpart of the JAX
+package's `apply_pretrained`.
 """
 
 import os
@@ -54,15 +55,22 @@ def load_model_weights(model, path):
     return state
 
 
-def _graft(path, dst, prefix, what):
+def _graft(path, dst, prefix, what, raw=False):
     """Load the entries of `dst` from the port-format file `path`, whose
     `model` holds them relative to `dst` or under `prefix` (a whole
-    model's checkpoint): every entry present, each with its shape."""
+    model's checkpoint): every entry present, each with its shape. A
+    trainer's file keeps its EMA apart, so `model` is the raw parameters;
+    with `raw`, an exported file whose `model` has the EMA swapped in is
+    refused."""
     if not os.path.isfile(path):
         raise FileNotFoundError(
             f"pretrained {what} {path!r} not found: train the stage-1 model "
             "first or clear its checkpoint path")
-    src = load_checkpoint(path)["model"]
+    state = load_checkpoint(path)
+    if raw and state.get("ema") is True:
+        raise ValueError(f"{path} holds the EMA of the {what}, not its raw "
+                         "parameters: export it with --no_ema")
+    src = state["model"]
     src = {k[len(prefix):] if k.startswith(prefix) else k: v
            for k, v in src.items()}
     want = dst.state_dict()
@@ -81,7 +89,12 @@ def graft_pretrained(model, cfg):
     """Copy the frozen stage-1 models a config names into `model`: the
     VQ-VAE of `cfg.dec_dict["vae_dict"]["vqvae_ckp_path"]` into
     `model.dm_decoder.vae.vqvae` (its entries relative to the VQ-VAE or
-    prefixed `dm_decoder.vae.vqvae.`, a SAViDiffusion checkpoint), the
+    prefixed `dm_decoder.vae.vqvae.`, a SAViDiffusion checkpoint), then
+    the whole diffusion decoder of `cfg.dec_dict["dm_ckp_path"]` into
+    `model.dm_decoder` (LDMSlotFormer's frozen LDM, from a SAViDiffusion
+    checkpoint's `dm_decoder.` entries; after the VQ-VAE, so it wins, in
+    the order of the JAX `pretrained_specs`; its raw parameters, not its
+    EMA, as the JAX `apply_pretrained` grafts `params`), the
     dVAE of `cfg.dvae_dict["dvae_ckp_path"]` into `model.dvae` (relative
     to the dVAE, a dVAE run's ckpt_last.pt, or prefixed `dvae.`, a SLATE
     or STEVE checkpoint). Each file is port-format; every parameter must
@@ -93,10 +106,14 @@ def graft_pretrained(model, cfg):
     model as it is; returns whether it grafted."""
     vae = (getattr(cfg, "dec_dict", None) or {}).get("vae_dict") or {}
     vq_path = vae.get("vqvae_ckp_path")
+    dm_path = (getattr(cfg, "dec_dict", None) or {}).get("dm_ckp_path")
     dvae_path = (getattr(cfg, "dvae_dict", None) or {}).get("dvae_ckp_path")
     if vq_path:
         _graft(vq_path, model.dm_decoder.vae.vqvae, "dm_decoder.vae.vqvae.",
                "VQ-VAE")
+    if dm_path:
+        _graft(dm_path, model.dm_decoder, "dm_decoder.", "diffusion decoder",
+               raw=True)
     if dvae_path:
         _graft(dvae_path, model.dvae, "dvae.", "dVAE")
     from ..models.dino import WEIGHTS_ENV, DINOEncoder, load_dino_weights
@@ -106,4 +123,4 @@ def graft_pretrained(model, cfg):
             dino = True
             print(f"DINO: pretrained weights from {os.environ[WEIGHTS_ENV]}",
                   flush=True)
-    return bool(vq_path or dvae_path or dino)
+    return bool(vq_path or dm_path or dvae_path or dino)

@@ -9,14 +9,17 @@ per-group cosine-warmup LRs, k-step accumulation) and, when enabled, the
 EMA tick after each update. Scalars the method schedules by the step
 (`step_scalars`: the dVAE's gumbel temperature) reach `compute_losses`
 as `sched`, in training and validation, as the JAX trainer's
-`_sched_dict` does. One seeded `torch.Generator` on the model's
+`_sched_dict` does; so does SlotFormer's loss-decay factor. A batch
+reaches `compute_losses` as the entries the model names in `batch_keys`
+(the images by default; the slot models of the video-prediction stage
+take slots, labels, `vid_len`). One seeded `torch.Generator` on the model's
 device draws every diffusion timestep, noise, dropout mask and gumbel
 sample of the run;
 its state goes into each checkpoint with the model, the optimizer, the
 EMA and the step, so a resumed run continues the same sequence (bit for
 bit on the CPU). What the model declares frozen (`frozen_modules`:
-SAViDiffusion's `dm_decoder.vae`, SLATE's and STEVE's `dvae`, nothing
-of a VQVAE) takes no gradient
+SAViDiffusion's `dm_decoder.vae`, SLATE's and STEVE's `dvae`,
+LDMSlotFormer's whole `dm_decoder`, nothing of a VQVAE) takes no gradient
 and no update. Metrics go to stdout and `<ckp_path>/train_log.jsonl`.
 
 Under `use_bf16` the model computes in bf16 while its parameters, and
@@ -128,11 +131,19 @@ class Trainer:
         return sum(self.loss_weights.get(f"{k}_w", 1.0) * v
                    for k, v in losses.items() if k.endswith("_loss"))
 
+    def inputs(self, batch):
+        """What `compute_losses` takes of `batch`, on the model's device:
+        the entries the model names in `batch_keys` that the batch has
+        (by default the images alone)."""
+        keys = getattr(self.model, "batch_keys", ("img",))
+        return {k: batch[k].to(self.device, non_blocking=True)
+                for k in keys if k in batch}
+
     def train_step(self, batch):
         """One micro-step on `batch`; -> metrics of the step (floats)."""
         t0 = time.time()
-        img = batch["img"].to(self.device, non_blocking=True)
-        _, losses = self.model.compute_losses({"img": img}, self.generator,
+        _, losses = self.model.compute_losses(self.inputs(batch),
+                                              self.generator,
                                               **self.sched_kwargs())
         total = self.weighted_total(losses)
         micro_norm = self.optimizer.backward(total)
@@ -194,7 +205,7 @@ class Trainer:
         with an EMA, with the EMA swapped in (`*_ema`), both from the
         same draws; the live parameters are restored exactly. Call it in
         eval mode. -> (outputs of the live pass, {loss: float})."""
-        data = {"img": batch["img"].to(self.device, non_blocking=True)}
+        data = self.inputs(batch)
         gen = self._eval_generator(batch_idx)
         state = gen.get_state()
         sched = self.sched_kwargs()
@@ -223,7 +234,8 @@ class Trainer:
             out, losses = self.eval_step(batch, i)
             if self.host_metrics_fn is not None:
                 losses.update(self.host_metrics_fn(batch, out))
-            n = batch["img"].shape[0]
+            n = batch["img"].shape[0] if "img" in batch \
+                else len(batch["data_idx"])
             for k, v in losses.items():
                 meters.setdefault(k, AverageMeter()).update(v, n)
         results = {f"val/{k}": m.avg for k, m in meters.items()}
