@@ -238,7 +238,25 @@ Phases (one flushed line each, with elapsed seconds):
      plain versions, MSE/PSNR/SSIM against the videos' frames);
      `ReadoutPhysion` trains 3 steps at 64 clips of 75 frames and
      validates 128 (the accuracies; logits against the CPU);
- 15. one JSON line listing every kernel (times per serving request;
+ 15. the trainer's optimizers and settings on the flagship at full width
+     (32 clips x 6 frames, f32, random weights): `adam_fused`,
+     `adam_bf16`, `adamw` (weight decay 0.01), `adafactor` and `sgd`
+     train 3 steps each through `Trainer.fit` and the config's
+     `max_steps` (step seconds, peak memory, the optimizer state's bytes,
+     every trainable tensor moved, the frozen VQ-VAE bit-identical, the
+     first update on 6 tensors against the same core's on the CPU from
+     the same gradients: 1e-6 relative, the f32 state 2e-5, bf16 moments
+     within one ulp;
+     `adam_fused` against `adam` too); 3 steps with a save after each,
+     blocking then `async_ckpt` (the seconds the loop blocked, ckpt_last
+     bit-identical to the live model); a torch.profiler trace of 2 steps
+     that must name `sdt::group_norm`, `sdt::mha` and
+     `sdt::sa_iterations`; the model through
+     `export_reference_state_dict`, a DDP-wrapped `.pth` with an LPIPS
+     head and scripts/convert_checkpoint_torch.py into a fresh model,
+     whose graphed `encode` and `denoise` equal the original's bit for
+     bit;
+ 16. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
      `res64_*`: slot attention at the 64x64 model's shape; `img_*`: slot
      attention at the image shape, per image `encode`; `savi_train_*`,
@@ -1129,7 +1147,7 @@ def train(cfg, model, dev, gen, phase, f32_step_seconds=None):
 
     # a log line every step; ckpt_last once per epoch of 4 steps (the
     # config's 0.1 of an epoch would write it after every step here)
-    tcfg = cfg.copy(print_iter=1, save_interval=1.0)
+    tcfg = cfg.copy(print_iter=1, save_interval=1.0, save_epoch_end=False)
     data = SyntheticVideoData(tcfg, batch, num_samples=4 * batch, seed=0)
     trainable = [p for p in model.parameters() if p.requires_grad]
     with tempfile.TemporaryDirectory() as tmp:
@@ -1138,7 +1156,7 @@ def train(cfg, model, dev, gen, phase, f32_step_seconds=None):
             ckp_path=os.path.join(tmp, "run"), unit="clips",
             f32_secs=f32_step_seconds)
         # master weights and Adam's moments stay f32 in either dtype
-        moments = [v for st in trainer.optimizer.adam.state.values()
+        moments = [v for st in trainer.optimizer.core.state.values()
                    for v in st.values() if torch.is_tensor(v) and v.dim()]
         if any(p.dtype != torch.float32 for p in trainable) or \
                 not moments or \
@@ -1152,7 +1170,8 @@ def train(cfg, model, dev, gen, phase, f32_step_seconds=None):
         # no checkpoint directory: the resumed run writes no second file
         resumed = build_method(model, data, tcfg)
         resumed.logger = report
-        last = resumed.fit(max_steps=TRAIN_STEPS + 1, resume_from=ckpt)
+        last = resumed.fit(max_steps=TRAIN_STEPS + 1, resume_from=ckpt,
+                           san_check_val_step=0)
         if resumed.step != TRAIN_STEPS + 1 or \
                 not math.isfinite(last["train/denoise_loss"]):
             raise SystemExit(f"resume from {ckpt} failed: {last}")
@@ -1786,12 +1805,13 @@ def train_stage1(cfg, dev, tmp, smi, phase):
 
     hooks = [p.register_post_accumulate_grad_hook(note_grad(n))
              for n, p in params]
-    trainer = build_method(model, data, cfg, ckp_path=tmp)
+    trainer = build_method(model, data, cfg.copy(save_epoch_end=False),
+                           ckp_path=tmp)
     trainer.logger = report = VQReport(phase, smi)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.time()
-    trainer.fit(max_steps=STAGE1_STEPS)
+    trainer.fit(max_steps=STAGE1_STEPS, san_check_val_step=0)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     log(f"{phase}: Trainer.fit(max_steps={STAGE1_STEPS}) at {B} frames a "
@@ -2338,13 +2358,14 @@ def fit_checked(model, tcfg, data, phase, steps, bf16=False, need=None,
     hooks = [p.register_post_accumulate_grad_hook(note(n))
              for n, p in trainable]
     start = {n: p.detach().clone() for n, p in trainable}
-    trainer = build_method(model, data, tcfg, ckp_path=ckp_path)
+    trainer = build_method(model, data, tcfg.copy(save_epoch_end=False),
+                           ckp_path=ckp_path)
     trainer.logger = report = StepReport(phase)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.time()
-    trainer.fit(max_steps=steps)
+    trainer.fit(max_steps=steps, san_check_val_step=0)
     fit_s = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
     for hk in hooks:
@@ -3561,6 +3582,398 @@ def vp_vqa(smi, dev, gen, phase="phase 14"):
     log(f"{phase}: done in {time.time() - t_phase:.1f} s [{smi}]")
     return paths
 
+# phase 15: the trainer's optimizers and settings, and the reference .pth
+# the cores beside phase 5's adam, each with its weight decay and the
+# factor on the config's LRs: SGD at Adam's LR (1e-4, after the clip to a
+# global norm of 0.05) moves a norm weight by less than half its f32 ulp,
+# so it takes 10^4 times that
+SETTINGS_OPTIMIZERS = (("adam_fused", 0.0, 1.0), ("adam_bf16", 0.0, 1.0),
+                       ("adamw", 0.01, 1.0), ("adafactor", 0.0, 1.0),
+                       ("sgd", 0.0, 1e4))
+SETTINGS_STEPS = 3
+# the flagship tensors whose first update is replayed on the CPU: a
+# ResBlock conv of 128 (its two largest JAX dimensions tie at 128), the
+# middle ResBlock's conv of 512, an attention projection of 512 x 512
+# (adafactor factors all three), the predictor's packed in-projection
+# (in JAX [192, 4, 48]: not factored), the ResNet stem and a GRU bias
+FIXED = ("dm_decoder.unet.input_blocks.1.0.in_layers.2.weight",
+         "dm_decoder.unet.middle_block.0.in_layers.2.weight",
+         "dm_decoder.unet.middle_block.1.transformer_blocks.0.attn1.to_q."
+         "weight",
+         "savi.predictor.transformer_encoder.layers.0.self_attn."
+         "in_proj_weight",
+         "savi.encoder.encoder.conv1.weight",
+         "savi.slot_attention.gru.bias_ih")
+UPDATE_RTOL = 1e-6
+# the f32 state: torch's fused CUDA Adam forms 1 - beta2 in f32 (1.29e-5
+# under 0.001, as its f32 bias correction does, which cancels it in the
+# update), so its second moment sits that far from the CPU's
+STATE_RTOL = 2e-5
+PROFILE_OPS = ("sdt::group_norm", "sdt::mha", "sdt::sa_iterations")
+PTH_CHECKS = ("encode", "denoise")
+
+
+def record_first_update(trainer):
+    """Wrap the trainer's core so that its first update records, for each
+    `FIXED` tensor, the (clipped) gradient, its group's LR, the tensor
+    before and after, and the core's state after. -> the record dict,
+    filled during `fit`."""
+    import torch
+    core = trainer.optimizer.core
+    named = dict(trainer.model.named_parameters())
+    rec = {}
+
+    def first():
+        del core.step  # the class's step from the second update on
+        for n in FIXED:
+            p = named[n]
+            lr = next(g["lr"] for g in core.param_groups
+                      if any(q is p for q in g["params"]))
+            rec[n] = dict(before=p.detach().cpu().clone(),
+                          grad=p.grad.detach().cpu().clone(), lr=lr)
+        core.step()
+        for n in FIXED:
+            p = named[n]
+            rec[n]["after"] = p.detach().cpu().clone()
+            rec[n]["state"] = {k: v.detach().cpu().clone()
+                               for k, v in core.state[p].items()
+                               if torch.is_tensor(v) and v.dim()}
+
+    core.step = first
+    return rec
+
+
+def replay_on_cpu(name, weight_decay, rec, layouts):
+    """The core `name` on the CPU from the recorded tensors, gradients and
+    LRs: one update. -> {tensor name: (after, state)}."""
+    import torch
+    from slotdiffusion_tpu_torch.training.optim import build_core
+    params = {n: torch.nn.Parameter(r["before"].clone())
+              for n, r in rec.items()}
+    core = build_core(
+        name, [{"params": [params[n]], "lr": rec[n]["lr"]} for n in rec],
+        weight_decay, {params[n]: layouts.get(n) for n in rec})
+    for n, p in params.items():
+        p.grad = rec[n]["grad"].clone()
+    core.step()
+    return {n: (p.detach(), {k: v for k, v in core.state[p].items()
+                             if torch.is_tensor(v) and v.dim()})
+            for n, p in params.items()}
+
+
+def bf16_ulps(a, b):
+    """The largest difference of two bf16 tensors in ulps of the larger
+    magnitude of each pair."""
+    import torch
+    big = torch.maximum(a.float().abs(), b.float().abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return ((a.float() - b.float()).abs() / ulp).max().item()
+
+
+def compare_first_update(card, cpu, phase, what):
+    """The card's first update against the CPU's: each tensor after it
+    within `UPDATE_RTOL` of its largest value, each f32 state tensor
+    within `STATE_RTOL` of its largest, each bf16 one within one bf16
+    ulp; each tensor or state entry outside that logged with its worst
+    element. -> whether all held."""
+    import torch
+    worst, ok = [0.0, 0.0, 0.0], True
+    for n, (after, state) in cpu.items():
+        pairs = [("tensor", card[n]["after"], after)] + [
+            (k, card[n]["state"][k], v) for k, v in state.items()]
+        for k, c, v in pairs:
+            if v.dtype == torch.bfloat16:
+                err, slot, tol = bf16_ulps(c, v), 2, 1.0
+            else:
+                err = ((c - v).abs().max() / v.abs().max().clamp_min(
+                    1e-30)).item()
+                slot, tol = (0, UPDATE_RTOL) if k == "tensor" else (
+                    1, STATE_RTOL)
+            worst[slot] = max(worst[slot], err)
+            if err <= tol:
+                continue
+            ok = False
+            i = int((c.float() - v.float()).abs().argmax())
+            g = card[n]["grad"].flatten()[i].item()
+            log(f"{phase}: {what}: {n} {k} off by {err:.3e} (tol "
+                f"{tol:.0e}): worst element {i}: card "
+                f"{c.flatten()[i].item():.9e}, CPU "
+                f"{v.flatten()[i].item():.9e}, gradient {g:.9e}, largest "
+                f"{v.float().abs().max().item():.3e}, elements off "
+                f"{int(((c.float() - v.float()).abs() > tol * v.float().abs().max()).sum())} "
+                f"of {v.numel()}")
+    log(f"{phase}: {what}: first update card vs CPU on {len(cpu)} tensors: "
+        f"tensors {worst[0]:.2e} (tol {UPDATE_RTOL:.0e} relative), f32 "
+        f"state {worst[1]:.2e} (tol {STATE_RTOL:.0e}), bf16 state "
+        f"{worst[2]:.0f} ulp (tol 1) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def settings_fit(model, tcfg, data, phase, label, ckp_path=None):
+    """`build_method` on the settings `tcfg`, its logger a `StepReport`.
+    -> (trainer, report)."""
+    from slotdiffusion_tpu_torch.methods.build import build_method
+    trainer = build_method(model, data, tcfg, ckp_path=ckp_path)
+    trainer.logger = report = StepReport(f"{phase} {label}")
+    return trainer, report
+
+
+def run_fit(trainer, report, phase, label):
+    """`Trainer.fit()` (the config's `max_steps` ends it): finite losses,
+    the three kernels launched in every step. -> ({kernel: launches} over
+    the steps, fit seconds on the host clock, peak GiB)."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    for st in report.steps:
+        check_launches(st["launches"], f"{phase} {label}: a step", False)
+        for k, n in st["launches"].items():
+            totals[k] += n
+    losses = [st["train/total_loss"] for st in report.steps]
+    if len(losses) != trainer.max_steps or \
+            not all(map(math.isfinite, losses)):
+        raise SystemExit(f"{phase} {label}: losses {losses}")
+    return totals, fit_s, peak
+
+
+def settings(smi, dev, phase="phase 15"):
+    """Phase 15: the JAX trainer's optimizers and settings on the flagship
+    at full width (32 clips x 6 frames, f32, random weights): each core
+    of `SETTINGS_OPTIMIZERS` trains `SETTINGS_STEPS` steps through
+    `Trainer.fit` and the config's `max_steps` (step seconds, peak memory,
+    the state's bytes, every trainable tensor moved, the frozen VQ-VAE
+    bit-identical, the first update against the CPU's); 3 steps with a
+    save after each, blocking then async (the seconds the loop blocked,
+    the last file bit-identical); a torch.profiler trace of 2 steps (it
+    must name the three kernels' `sdt::` operators); the reference-layout
+    `.pth` round trip through scripts/convert_checkpoint_torch.py into a
+    fresh model, whose graphed `encode` and `denoise` must equal the
+    original's bit for bit. -> {path: {kernel: launches}}."""
+    import gc
+    import importlib.util
+    import tempfile
+
+    import torch
+    from slotdiffusion_tpu_torch import configs, ops
+    from slotdiffusion_tpu_torch.convert import export_reference_state_dict
+    from slotdiffusion_tpu_torch.data.synthetic import SyntheticVideoData
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    from slotdiffusion_tpu_torch.serving import build_serving_fn
+    from slotdiffusion_tpu_torch.training.checkpoint import load_checkpoint
+    from slotdiffusion_tpu_torch.training.optim import flax_layouts
+
+    t_phase = time.time()
+    cfg = configs.SAViLDMMoviE128()
+    model = build_model(cfg, device=dev)
+    init_random_(model, torch.Generator().manual_seed(0))
+    init = {k: v.detach().cpu().clone()
+            for k, v in model.state_dict().items()}
+    layouts = flax_layouts(model)
+    batch = cfg.train_batch_size
+    # no warmup (the first update at the full LR), a log line every step,
+    # no mid-run save; max_steps ends each run
+    base = cfg.copy(max_steps=SETTINGS_STEPS, print_iter=1,
+                    warmup_steps_pct=0.0, save_interval=1000.0,
+                    save_epoch_end=False)
+    data = SyntheticVideoData(base, batch, num_samples=4 * batch, seed=0)
+    paths = {"settings_optimizers": dict.fromkeys(ops.launch_counts(), 0)}
+    failed = []  # checks that failed; the phase runs on and raises last
+    for name, wd, lr_x in SETTINGS_OPTIMIZERS:
+        model.load_state_dict(init)
+        tcfg = base.copy(optimizer=name, weight_decay=wd, lr=cfg.lr * lr_x,
+                         dec_lr=cfg.dec_lr * lr_x)
+        trainer, report = settings_fit(model, tcfg, data, phase, name)
+        vae = {n: p.detach().clone()
+               for n, p in model.dm_decoder.vae.named_parameters()}
+        start = {n: p.detach().clone() for n, p in model.named_parameters()
+                 if p.requires_grad}
+        rec = record_first_update(trainer)
+        counts, fit_s, peak = run_fit(trainer, report, phase, name)
+        for k, n in counts.items():
+            paths["settings_optimizers"][k] += n
+        secs = [st["step_seconds"] for st in report.steps]
+        still = [n for n, p in model.named_parameters()
+                 if n in start and torch.equal(p, start[n])]
+        if name == "sgd":
+            # SGD's last update is the LR times its trace: a tensor where
+            # that stays below each element's f32 ulp (eps |p| bounds it)
+            # cannot move; every other one must
+            core, named = trainer.optimizer.core, dict(
+                model.named_parameters())
+            lr_of = {id(p): g["lr"] for g in core.param_groups
+                     for p in g["params"]}
+            small = [n for n in still if not (
+                (core.state[named[n]]["momentum_buffer"] *
+                 lr_of[id(named[n])]).abs() >=
+                torch.finfo(torch.float32).eps * named[n].abs()).any()]
+            still = [n for n in still if n not in small]
+            log(f"{phase}: sgd: {len(small)} trainable tensors' last "
+                f"update stays under their f32 ulp: {small[:4]}")
+        vae_moved = [n for n, p in model.dm_decoder.vae.named_parameters()
+                     if not torch.equal(p, vae[n])]
+        state_bytes = trainer.optimizer.state_bytes()
+        n_bytes = sum(p.numel() * 4 for p in start.values())
+        log(f"{phase}: {name}{f' (weight_decay {wd})' if wd else ''}"
+            f"{f' at {lr_x:g}x the LRs' if lr_x != 1 else ''}: "
+            f"{trainer.optimizer.name} core, Trainer.fit() to max_steps "
+            f"{SETTINGS_STEPS} at {batch} clips took {fit_s:.1f}s, steps "
+            + " ".join(f"{x:.3f}" for x in secs) + " s, median of steps "
+            f"2-3 {statistics.median(secs[1:]):.3f} s, max allocated "
+            f"{peak:.2f} GiB, optimizer state {state_bytes / 2.0 ** 30:.3f}"
+            f" GiB ({state_bytes / n_bytes:.3f}x the trainable f32 "
+            f"tensors), launches {counts} [{smi}]")
+        if still or vae_moved:
+            log(f"{phase}: {name}: {len(still)} trainable tensors did not "
+                f"move ({still[:4]}), the frozen VQ-VAE moved in "
+                f"{vae_moved[:4]}: FAIL")
+            failed.append(f"{name}'s tensors")
+        else:
+            log(f"{phase}: {name}: all {len(start)} trainable tensors moved,"
+                " the frozen VQ-VAE is bit-identical")
+        del trainer, report, start, vae
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not compare_first_update(
+                rec, replay_on_cpu(name, wd, rec, layouts), phase, name):
+            failed.append(f"{name}'s first update")
+        # adam_fused: the same update as adam's (the JAX fused_adam is
+        # optax.adam)
+        if name == "adam_fused" and not compare_first_update(
+                rec, replay_on_cpu("adam", 0.0, rec, layouts), phase,
+                "adam_fused against adam"):
+            failed.append("adam_fused against adam")
+        del rec
+
+    # async against blocking saves: 3 steps, a save after each
+    blocked = {}
+    paths["settings_async_ckpt"] = dict.fromkeys(ops.launch_counts(), 0)
+    for flag in (False, True):
+        model.load_state_dict(init)
+        tcfg = base.copy(async_ckpt=flag, save_interval=1.0 / len(data))
+        with tempfile.TemporaryDirectory() as tmp:
+            label = f"async_ckpt={flag}"
+            trainer, report = settings_fit(model, tcfg, data, phase, label,
+                                           ckp_path=tmp)
+            counts, fit_s, _ = run_fit(trainer, report, phase, label)
+            for k, n in counts.items():
+                paths["settings_async_ckpt"][k] += n
+            steps_s = sum(st["step_seconds"] for st in report.steps)
+            blocked[flag] = fit_s - steps_s
+            path = os.path.join(tmp, "ckpt_last.pt")
+            size = os.path.getsize(path) / 2.0 ** 30
+            last = load_checkpoint(path)
+            same = last["step"] == SETTINGS_STEPS and all(
+                torch.equal(last["model"][k], v.cpu())
+                for k, v in model.state_dict().items())
+            log(f"{phase}: {label}: 3 steps with a save of {size:.2f} GiB "
+                f"after each: fit {fit_s:.2f}s, the steps {steps_s:.2f}s, "
+                f"the loop blocked {blocked[flag]:.2f}s outside the steps; "
+                f"ckpt_last reloads bit-identical to the live model: "
+                f"{'ok' if same else 'FAIL'} [{smi}]")
+            if not same:
+                failed.append(f"{label}'s ckpt_last")
+            del trainer, report, last
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"{phase}: async saves blocked the loop {blocked[True]:.2f}s "
+        f"against {blocked[False]:.2f}s blocking")
+
+    # a trace of 2 steps
+    model.load_state_dict(init)
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = base.copy(max_steps=2, profile_dir=tmp, profile_steps=(0, 2))
+        trainer, report = settings_fit(model, tcfg, data, phase, "profile")
+        paths["settings_profile"], fit_s, _ = run_fit(trainer, report,
+                                                      phase, "profile")
+        path = os.path.join(tmp, "trace_steps0-2.json")
+        with open(path) as f:
+            text = f.read()
+        named = {op: text.count(f'"{op}"') for op in PROFILE_OPS}
+        kernels = text.count('"cat": "kernel"')
+        log(f"{phase}: torch.profiler trace of micro-steps [0, 2): "
+            f"{os.path.getsize(path) / 2.0 ** 20:.1f} MiB, fit {fit_s:.1f}s;"
+            f" the operators' names {named} times in it; {kernels} device "
+            "kernel events")
+        if not all(named.values()):
+            failed.append(f"the trace's operators {named}")
+        del trainer, report, text
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the reference-layout .pth round trip, through the converter script
+    spec = importlib.util.spec_from_file_location(
+        "convert_checkpoint_torch", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "scripts",
+            "convert_checkpoint_torch.py"))
+    convert = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(convert)
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        ref = {f"module.{k}": v for k, v in
+               export_reference_state_dict(sd, cfg).items()}
+        ref["module.loss.perceptual_loss.lin0.model.1.weight"] = \
+            torch.ones(1, 64, 1, 1)
+        src, out = os.path.join(tmp, "ref.pth"), os.path.join(tmp, "m.pt")
+        torch.save({"state_dict": ref}, src)
+        t0 = time.time()
+        if convert.main(["--params", "SAViLDMMoviE128", "--weight", src,
+                         "--out", out]) != 0:
+            raise SystemExit(f"{phase}: the converter failed")
+        conv_s = time.time() - t0
+        fresh = build_model(cfg, device=dev)
+        fresh.load_state_dict(load_checkpoint(out)["model"], strict=True)
+    del sd, ref
+    model.eval()
+    fresh.eval()
+    same_sd = all(torch.equal(a, b) for a, b in zip(
+        model.state_dict().values(), fresh.state_dict().values()))
+    video, x_t, t_model = serving_inputs(cfg, dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs, counts = {}, dict.fromkeys(ops.launch_counts(), 0)
+        for which, m in (("original", model), ("converted", fresh)):
+            encode, denoise = (build_serving_fn(m, s) for s in PTH_CHECKS)
+            slots, masks = encode(video)
+            d = denoise(x_t, t_model, slots)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            slots, masks = encode(video)  # replays, counted
+            d = denoise(x_t, t_model, slots)
+            torch.cuda.synchronize()
+            for k, n in ops.launch_counts().items():
+                counts[k] += n
+            outs[which] = (slots, masks, d)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = [torch.equal(a, b) for a, b in zip(outs["original"],
+                                                outs["converted"])]
+    log(f"{phase}: the flagship through export_reference_state_dict, a "
+        f"DDP-wrapped .pth with an LPIPS head, and convert_checkpoint_torch"
+        f".py ({conv_s:.1f}s) into a fresh model: state_dict "
+        f"{'identical' if same_sd else 'DIFFERS'}; graphed encode slots, "
+        f"masks and denoise bit-identical {same}; launches {counts}")
+    check_launches(counts, f"{phase}: the .pth round trip", False)
+    if not (same_sd and all(same)):
+        failed.append("the converted model")
+    paths["settings_pth"] = counts
+    del model, fresh, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{phase}: took {time.time() - t_phase:.1f}s")
+    if failed:
+        raise SystemExit(f"{phase}: {failed}")
+    return paths
+
+
 def main():
     import gc
 
@@ -3890,7 +4303,10 @@ def main():
     # ---- 14. the video-prediction and VQA stage -------------------------
     per_path.update(vp_vqa(smi, dev, gen))
 
-    # ---- 15. report -----------------------------------------------------
+    # ---- 15. the trainer's optimizers and settings, the reference .pth --
+    per_path.update(settings(smi, dev))
+
+    # ---- 16. report -----------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():

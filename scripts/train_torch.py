@@ -73,7 +73,14 @@ SAViDiffusion) runs every
 to `--ckp_path` (default `checkpoint/torch_<run>/`, where the run is
 `savi_ldm_movie` for the flagship, `tiny`, or the config's name):
 `ckpt_last.pt` is rewritten atomically every `save_interval` of an epoch
-and at the end; `--resume` continues from such a file.
+and at the end (on a background thread unless the config's `async_ckpt`
+is False), `ckpt_epoch{n}.pt` at each epoch's end where the config's
+`save_epoch_end` says so; `--resume` continues from such a file. Before
+the first step `--san_check_val_step` val batches are validated (2, as
+the JAX script); `--max_steps` ends the run at that step with
+`ckpt_last` and 4 val batches; `--profile_dir` writes a torch.profiler
+trace of the config's `profile_steps`. The optimizer is the config's
+`optimizer` (`weight_decay > 0`: adamw; `training/optim.py`).
 
 The video-prediction stage (`SlotFormerSynthetic`,
 `LDMSlotFormerSynthetic64` and its `Long2`/`Long3` runs,
@@ -132,8 +139,15 @@ EXPORTED_DM = {"LDMSlotFormerSynthetic64Long3": os.path.join(
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--max_steps", type=int, default=-1,
-                        help="stop after this many steps (default: the "
-                             "config's epochs)")
+                        help="stop after this many steps, then write "
+                             "ckpt_last and validate 4 batches (the "
+                             "config's max_steps; default: its epochs)")
+    parser.add_argument("--san_check_val_step", type=int, default=2,
+                        help="val batches to validate before the first "
+                             "step (0: none)")
+    parser.add_argument("--profile_dir", default="",
+                        help="write a torch.profiler Chrome trace of the "
+                             "config's profile_steps micro-steps here")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (the kernels' plain versions)")
@@ -182,6 +196,10 @@ def main(argv=None):
     cfg = configs.tiny_config() if args.tiny else \
         configs.get_config(args.params)
     cfg = cfg.copy(seed=args.seed, use_bf16=args.bf16 or cfg.use_bf16)
+    if args.max_steps > 0:
+        cfg = cfg.copy(max_steps=args.max_steps)
+    if args.profile_dir:
+        cfg = cfg.copy(profile_dir=args.profile_dir)
     stage1 = cfg.model == "VQVAE"
     ldm = cfg.model in ("SAViDiffusion", "SADiffusion")
     if stage1:
@@ -294,8 +312,8 @@ def main(argv=None):
           f"epoch of {batch} {'images' if images else 'clips'}"
           f"{' of slots' if slot_stage else ''}, "
           f"checkpoints in {ckp_path}", flush=True)
-    trainer.fit(max_steps=args.max_steps if args.max_steps > 0 else None,
-                resume_from=args.resume or None)
+    trainer.fit(resume_from=args.resume or None,
+                san_check_val_step=args.san_check_val_step)
     return 0
 
 

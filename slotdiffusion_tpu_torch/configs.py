@@ -64,7 +64,19 @@ import copy
 
 class BaseParams:
     """Mutable attribute-bag config: class attributes are defaults,
-    keyword arguments override them."""
+    keyword arguments override them. The trainer's settings below are
+    the JAX package's (`configs_base.py:_Common`, and the defaults its
+    trainer reads with `params.get`); `training/trainer.py` says what each
+    does."""
+    project = "SlotDiffusionTPU"  # the wandb project
+    optimizer = "Adam"     # a core of `training.optim.CORES`, any case
+    weight_decay = 0.0     # > 0 selects adamw, as in the JAX package
+    max_steps = -1         # > 0: stop there (ckpt_last, 4 val batches)
+    save_epoch_end = False  # ckpt_epoch{n}.pt at each epoch's end
+    use_wandb = False
+    profile_dir = ""       # a torch.profiler trace of micro-steps
+    profile_steps = (10, 15)  # [a, b)
+    async_ckpt = True      # saves written on a background thread
 
     def __init__(self, **overrides):
         for k, v in overrides.items():
@@ -113,6 +125,7 @@ def ldm_dec_dict(resolution, slot_size, latent_ch=3, timesteps=1000):
 
 class SAViLDMMoviE128(BaseParams):
     """SAViDiffusion on MOVi-E at 128x128 (savi_ldm_movie_params-res128)."""
+    save_epoch_end = True
     # training (SAViLDMBase, and the JAX trainer's defaults)
     seed = 0
     max_epochs = 30
@@ -207,6 +220,7 @@ class SAViLDMMoviFile64(SAViLDMMoviE128):
     checkpoint carries its VQ-VAE, and a training run names a port-format
     VQ-VAE file (`scripts/train_torch.py --vqvae_ckp_path`).
     """
+    save_epoch_end = False
     max_epochs = 32
     save_interval = 8.0
     eval_interval = 2
@@ -287,6 +301,7 @@ class VQVAEMoviE128(BaseParams):
     `vqvae_ckp_path`. `lpips_weights` names the LPIPS `.npz` (None: the
     file `SLOTDIFFUSION_LPIPS_WEIGHTS` names; without one the perceptual
     term is off, as in the JAX package)."""
+    save_epoch_end = True
     seed = 0
     max_epochs = 50
     save_interval = 0.5
@@ -346,6 +361,7 @@ class VQVAESynthetic64(VQVAEMoviE128):
     carries into the port (`--vqvae`). Single 64x64 synthetic frames, 128
     train and 16 val, 16 a step, 2 epochs; ch 32, ch_mult (1, 2), 1 res
     block, 512 codes of 3, no perceptual term."""
+    save_epoch_end = False
     max_epochs = 2
     save_interval = 1.0
     eval_interval = 1
@@ -445,6 +461,7 @@ class SALDMCLEVRTex128(_ImageCommon):
     port's leaves `vqvae_ckp_path` unset (a random VQ-VAE), and a run
     takes a port-format file (`VQVAECLEVRTex128`'s ckpt_last.pt,
     `scripts/train_torch.py --vqvae_ckp_path`)."""
+    save_epoch_end = True
     max_epochs = 400
     save_interval = 2
     eval_interval = 4
@@ -506,6 +523,7 @@ class SASyntheticLong64(_ImageCommon):
     encoder (3 -> 64 x 4, 5x5, no norm); the decoder 128 -> 64 x 4 from
     8x8; Adam at 4e-4, clipping at 0.05. The JAX config runs no Pallas
     kernel: `use_pallas="auto"` (the f32 formula), as `SAViLDMMoviFile64`."""
+    save_epoch_end = True
     max_epochs = 320
     save_interval = 16.0
     eval_interval = 8
@@ -545,6 +563,7 @@ class SALDMSyntheticLong64(_ImageCommon):
     512 codes). Its knobs keep the JAX config's computation, as
     `SAViLDMMoviFile64`'s: `use_pallas="auto"`, `fused_gn=False`,
     `attn_backend="einsum"`."""
+    save_epoch_end = True
     max_epochs = 192
     save_interval = 16.0
     eval_interval = 8
@@ -624,6 +643,7 @@ class SAViMoviE128(_VideoCommon):
     (192 -> 64 x 4 from 8x8), the MSE reconstruction loss; Adam at 1e-4,
     2.5 % warmup, clipping at 0.05, 32 clips of 3 frames a step, 30
     epochs."""
+    save_epoch_end = True
     max_epochs = 30
     save_interval = 0.25
     eval_interval = 1
@@ -670,6 +690,7 @@ class STEVEMoviE128(_VideoCommon):
     blocks of 192 with 4 heads; the token cross-entropy; Adam at 1e-4,
     the decoder at 3e-4, 5 % warmup, clipping at 0.05, 32 clips of 3
     frames a step, 30 epochs."""
+    save_epoch_end = True
     max_epochs = 30
     save_interval = 0.1
     eval_interval = 1
@@ -714,6 +735,7 @@ class DVAEImg128(_ImageCommon):
     228-247): 4096 tokens, gumbel temperature from 1 to 0.1 by a cosine
     over the first 15 % of the steps; Adam at 1e-3, 5 % warmup, no
     clipping, 64 images a step, 100 epochs."""
+    save_epoch_end = True
     max_epochs = 100
     save_interval = 0.5
     eval_interval = 4
@@ -783,6 +805,7 @@ class SLATECLEVRTex128(_ImageCommon):
     the AR decoder of 8 blocks of 192; the token cross-entropy; Adam at
     1e-4, the decoder at 3e-4, 5 % warmup, clipping at 1.0, 64 images a
     step, 200 epochs."""
+    save_epoch_end = True
     max_epochs = 200
     save_interval = 0.5
     eval_interval = 4
@@ -862,6 +885,7 @@ class DVAESyntheticLong64(DVAEMoviE128):
     carries into the port (`--model dvae`). Single 64x64 synthetic frames
     (512 train, 32 val), 16 a step, 128 epochs; 512 tokens; the
     temperature annealed over the first 30 % of the steps."""
+    save_epoch_end = False
     max_epochs = 128
     save_interval = 16.0
     eval_interval = 8
@@ -1273,6 +1297,7 @@ class LDMSlotFormerPhysion128(_SlotStage):
     slots of 192; its frozen LDM (the flagship's, with the GN and
     attention kernels). `dm_ckp_path` (the SAViLDMPhysion128 file, raw
     parameters) is unset: the JAX config's names an orbax directory."""
+    save_epoch_end = True
     max_epochs = 25
     save_interval = 0.125
     eval_interval = 2
@@ -1358,6 +1383,7 @@ class ReadoutPhysion(_SlotStage):
     rolled-out slots of 8 x 192 over 75 frames with the readout subset's
     labels, 64 a step, 50 epochs, Adam at 1e-3 without warmup; max over
     the slot pairs, 192 features."""
+    save_epoch_end = True
     max_epochs = 50
     save_interval = 1.0
     eval_interval = 2

@@ -1,4 +1,6 @@
-"""JAX-package parameters -> the port's `state_dict`.
+"""JAX-package parameters -> the port's `state_dict`; and the original
+SlotDiffusion's torch layout <-> the port's (`load_reference_state_dict`,
+`export_reference_state_dict`, at the end).
 
 Takes the flax param tree of a JAX-package model as nested dicts
 of numpy arrays (e.g. `jax.tree_util.tree_map(np.asarray, params)`) and
@@ -684,3 +686,124 @@ def convert_physion_readout(params, cfg=None) -> Dict[str, torch.Tensor]:
     _linear(out, "linear1", params["linear1"])
     _linear(out, "linear2", params["linear2"])
     return _tensors(out)
+
+
+# ---- the reference's torch layout (original SlotDiffusion checkpoints) ----
+#
+# The port's modules carry the reference's names; only the prefixes of
+# the wrapping modules differ. Each family's rules are (port prefix,
+# reference prefix) pairs, the first that matches wins; a name no rule
+# matches is the same on both sides. The families are the JAX package's
+# `scripts/convert_checkpoint.py:_dispatch` ones (:81-168).
+
+_ENCODE = (("encoder.encoder.", "encoder."),
+           ("encoder.encoder_pos_embedding.", "encoder_pos_embedding."),
+           ("encoder.encoder_out_layer.", "encoder_out_layer."))
+_SAVI_ENCODE = tuple((f"savi.{p}", r) for p, r in _ENCODE) + (
+    ("savi.init_latents", "init_latents"),
+    ("savi.slot_attention.", "slot_attention."),
+    ("savi.predictor.", "predictor."))
+_BROADCAST = (("decoder.decoder_pos_embedding.", "decoder_pos_embedding."),
+              ("decoder.decoder.", "decoder."))
+_UNET = (("dm_decoder.unet.", "dm_decoder.model.diffusion_model."),)
+REFERENCE_RULES = {
+    "SA": _ENCODE + _BROADCAST, "SAVi": _ENCODE + _BROADCAST,
+    "SADiffusion": _ENCODE + _UNET, "SAViDiffusion": _SAVI_ENCODE + _UNET,
+    "SLATE": _ENCODE, "STEVE": _SAVI_ENCODE, "VQVAE": (), "dVAE": (),
+    "DVAE": (), "SlotFormer": _BROADCAST, "LDMSlotFormer": _UNET,
+    "PhysionReadout": ()}
+# port tensors a reference file does not carry, each with the reason; the
+# port's state_dict holds no buffer (the tables the reference keeps as
+# buffers, the schedules, causal masks and pair indices, the port
+# recomputes outside it), so none is named for that
+NOT_IN_REFERENCE = (
+    (".dino.", "the frozen DINO ViT: the public pretrained weights, which "
+     "the reference reloads and its checkpoints do not carry (the JAX "
+     "exporter's _strip_dino)"),
+    ("rollouter.enc_t_pe", "a learnable PE of the rollouter, which the "
+     "JAX exporter drops"),
+    ("rollouter.enc_slots_pe", "a learnable PE of the rollouter, which "
+     "the JAX exporter drops"))
+
+
+def _reference_rules(cfg):
+    if cfg.model not in REFERENCE_RULES:
+        raise ValueError(f"no converter dispatch for model {cfg.model!r}")
+    return REFERENCE_RULES[cfg.model]
+
+
+def clean_reference_state_dict(sd):
+    """The JAX converter's `_clean_torch_sd` rules (scripts/
+    convert_checkpoint.py:32-42): unwrap `{"state_dict": ...}`, strip
+    `module.` (DDP) and drop the `loss.` LPIPS/VGG heads."""
+    if "state_dict" in sd and not hasattr(sd["state_dict"], "shape"):
+        sd = sd["state_dict"]
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if k.startswith("loss."):
+            continue
+        out[k] = v
+    return out
+
+
+def _not_in_reference(name):
+    return next((why for pat, why in NOT_IN_REFERENCE if pat in name), None)
+
+
+def load_reference_state_dict(sd, cfg, target):
+    """A reference-layout state dict (an original SlotDiffusion `.pth`,
+    or what `export_reference_state_dict` or the JAX package's
+    `models/torch_export.py` writes) -> the port's state_dict for a
+    strict `load_state_dict` of the model `cfg` builds, whose own
+    state_dict is `target`. The tensors the reference does not carry
+    (`NOT_IN_REFERENCE`) keep `target`'s values; a VQ-VAE 3x3 shortcut
+    (`conv_shortcut`) is the port's `nin_shortcut`. Any other name the
+    model has and the file lacks, any the file has and the model lacks,
+    and any shape that differs raises with the names."""
+    rules = _reference_rules(cfg)
+    got = {}
+    for k, v in clean_reference_state_dict(sd).items():
+        name = next((p + k[len(r):] for p, r in rules if k.startswith(r)),
+                    k).replace(".conv_shortcut.", ".nin_shortcut.")
+        got[name] = torch.as_tensor(v)
+    unexpected = sorted(set(got) - set(target))
+    if unexpected:
+        raise KeyError(f"{len(unexpected)} names the {cfg.model} model "
+                       f"does not have: {unexpected[:8]}")
+    out = {}
+    missing = []
+    for k, t in target.items():
+        if k in got:
+            if got[k].shape != t.shape:
+                raise ValueError(f"{k}: the file's {tuple(got[k].shape)}, "
+                                 f"the model's {tuple(t.shape)}")
+            out[k] = got[k].to(t.dtype)
+        elif _not_in_reference(k):
+            out[k] = t
+        else:
+            missing.append(k)
+    if missing:
+        raise KeyError(f"the file lacks {len(missing)} tensors of the "
+                       f"{cfg.model} model: {missing[:8]}")
+    return out
+
+
+def export_reference_state_dict(port_sd, cfg):
+    """The port's state_dict -> the reference's names (the inverse of
+    `load_reference_state_dict`), what the JAX package's
+    `models/torch_convert.py` reads: the frozen DINO ViT is left out (the
+    reference reloads the public weights); a VQ-VAE 3x3 shortcut is named
+    `conv_shortcut`, as the reference (and the JAX exporter) names it."""
+    rules = _reference_rules(cfg)
+    out = {}
+    for k, v in port_sd.items():
+        if ".dino." in k:
+            continue
+        name = next((r + k[len(p):] for p, r in rules if k.startswith(p)),
+                    k)
+        if ".nin_shortcut." in name and v.dim() == 4 and v.shape[-1] == 3:
+            name = name.replace(".nin_shortcut.", ".conv_shortcut.")
+        out[name] = v
+    return out

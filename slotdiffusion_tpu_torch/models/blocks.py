@@ -38,6 +38,16 @@ def dropout(x, p, generator):
     return x * keep / (1.0 - p)
 
 
+def sigmoid(x):
+    """The logistic function in x's dtype. Below f32 it rounds where
+    `jax.nn.sigmoid` does on the CPU, after each of its ops: exp(-x),
+    1 + e, 1 / (1 + e) (`torch.sigmoid`, one rounding, differs from it in
+    ~1/3 of bf16 values)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def linear(x, weight, bias, compute_dtype):
     """x @ weight^T + bias in `compute_dtype` (flax `nn.Dense(dtype)`): the
     input and the f32 weight cast at use, the bias added after the

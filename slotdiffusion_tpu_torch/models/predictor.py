@@ -30,7 +30,7 @@ import math
 import torch
 from torch import nn
 
-from .blocks import LayerNorm, Linear, linear
+from .blocks import LayerNorm, Linear, linear, sigmoid
 
 
 class _SelfAttention(nn.Module):
@@ -167,7 +167,8 @@ class RNNPredictorWrapper(nn.Module):
 
     def _cell(self, layer, state, x):
         """flax OptimizedLSTMCell: gates = (h W_h + b) + x W_i, in the
-        order i, f, g, o; -> (c', h')."""
+        order i, f, g, o; -> (c', h'). Under bf16 each op rounds where
+        flax's does, the gates' logistic too (`blocks.sigmoid`)."""
         c, h = state
         r, dt = self.rnn, self.compute_dtype
         bias = getattr(r, f"bias_ih_l{layer}") + \
@@ -175,8 +176,8 @@ class RNNPredictorWrapper(nn.Module):
         gates = linear(h, getattr(r, f"weight_hh_l{layer}"), bias, dt) + \
             linear(x, getattr(r, f"weight_ih_l{layer}"), None, dt)
         i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        return c, torch.sigmoid(o) * torch.tanh(c)
+        c = sigmoid(f) * c + sigmoid(i) * torch.tanh(g)
+        return c, sigmoid(o) * torch.tanh(c)
 
     def forward(self, x, carry=None):
         """x [B, N, C] -> (prediction [B, N, C], the next carry)."""

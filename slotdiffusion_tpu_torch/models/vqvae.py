@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import lpips
-from .blocks import Conv2d, GroupNorm32, dropout
+from .blocks import Conv2d, GroupNorm32, dropout, sigmoid
 
 _GN_EPS = 1e-6
 
@@ -44,7 +44,7 @@ def _silu(x):
     values)."""
     if x.dtype == torch.float32:
         return F.silu(x)
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    return x * sigmoid(x)
 
 
 class ResnetBlock(nn.Module):

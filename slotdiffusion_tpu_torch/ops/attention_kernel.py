@@ -80,6 +80,7 @@ def check_inputs(q, k, v, num_heads):
                              "device")
 
 
+@_cuda.traced("sdt::mha")
 def _launch(q, k, v, num_heads, scale):
     """The CUDA kernel on CUDA q, k, v."""
     check_inputs(q, k, v, num_heads)

@@ -100,6 +100,7 @@ def check_inputs(x, weight, bias, num_groups, act):
                              "contiguous f32 [C] on the input's device")
 
 
+@_cuda.traced("sdt::group_norm")
 def _launch(x, weight, bias, num_groups, eps, act):
     """The CUDA kernel on a CUDA `x`; a run over MAX_GROUP values gets the
     long path's plan and workspace."""

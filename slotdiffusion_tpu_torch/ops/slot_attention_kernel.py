@@ -199,6 +199,7 @@ def check_inputs(k, v, slots, p, num_iterations, kv_dtype):
                              f"{expect[key]} on {k.device}")
 
 
+@_cuda.traced("sdt::sa_iterations")
 def _launch(k, v, slots, p, num_iterations, eps, return_last_attn,
             kv_dtype):
     """The CUDA kernel on CUDA tensors."""

@@ -4,9 +4,10 @@ model the port builds.
 
 One step: the model's `compute_losses` on a batch, the weighted total of
 its `*_loss` entries (`{k}_w` weights from the config, 1.0 by default),
-backward, then `training.optim.Optimizer` (global-norm clip, Adam with
-per-group cosine-warmup LRs, k-step accumulation) and, when enabled, the
-EMA tick after each update. Scalars the method schedules by the step
+backward, then `training.optim.Optimizer` (global-norm clip, the core the
+config's `optimizer` and `weight_decay` name, per-group cosine-warmup
+LRs, k-step accumulation) and, when enabled, the EMA tick after each
+update. Scalars the method schedules by the step
 (`step_scalars`: the dVAE's gumbel temperature) reach `compute_losses`
 as `sched`, in training and validation, as the JAX trainer's
 `_sched_dict` does; so does SlotFormer's loss-decay factor. A batch
@@ -26,6 +27,25 @@ Under `use_bf16` the model computes in bf16 while its parameters, and
 so the gradients, the clipping norm (`train/grad_norm`) and Adam's
 state, stay f32: the master weights of mixed precision.
 
+The JAX trainer's settings, read from the config with its defaults
+(training/trainer.py:148, 162, 370-386, 466-468, 483-541):
+
+- `max_steps` (-1: off): at that many micro-steps `fit` writes
+  `ckpt_last`, validates at most 4 val batches and returns;
+- `fit(san_check_val_step=2)` validates that many val batches before the
+  first step (`scripts/train.py`'s default);
+- `save_epoch_end`: `ckpt_epoch{n}.pt` at the end of each epoch n;
+- `profile_dir` / `profile_steps` ((10, 15)): a `torch.profiler` trace of
+  micro-steps [a, b), CUDA activity too on the card, written as a Chrome
+  trace `<profile_dir>/trace_steps{a}-{b}.json`;
+- `use_wandb` / `wandb_id` / `wandb_name` / `project`: the records go to
+  wandb too (`WandbLogger`), or, where `wandb` cannot be imported, to the
+  JSONL log alone, said on stdout once;
+- `async_ckpt` (True): a save copies the state to host memory at once and
+  writes it on one background thread, one save in flight at a time;
+  `wait_for_checkpoints()` runs before a load and at the end of `fit`;
+  False: the save blocks. Both write the same file.
+
 `validate` runs every `eval_interval` epochs and at the end of `fit`:
 each val batch's `compute_losses` in eval mode with the live parameters
 and, with an EMA, again with the EMA swapped in (`denoise_loss_ema`),
@@ -38,6 +58,7 @@ trainer). The means are weighted by batch size and logged with the
 
 import json
 import os
+import threading
 import time
 
 import torch
@@ -45,7 +66,7 @@ import torch
 from ..utils import AverageMeter
 from .checkpoint import graft_pretrained, load_checkpoint, save_checkpoint
 from .ema import ExponentialMovingAverage
-from .optim import Optimizer
+from .optim import Optimizer, flax_layouts
 
 
 class JSONLLogger:
@@ -65,6 +86,60 @@ class JSONLLogger:
         if self.path:
             with open(self.path, "a") as f:
                 f.write(json.dumps(record) + "\n")
+        return record
+
+
+class WandbLogger(JSONLLogger):
+    """`JSONLLogger` plus wandb (the JAX package's WandbLogger,
+    training/trainer.py:83-110): each record, without its time, goes to
+    `wandb.log` at its step; a run id (`run_id`) resumes that run. Where
+    `wandb` cannot be imported or its `init` fails, the records go to the
+    JSONL log alone, and one line says so."""
+
+    def __init__(self, log_dir, name="train", project=None, run_name=None,
+                 run_id=None, config=None):
+        super().__init__(log_dir, name)
+        self.wandb = None
+        try:
+            import wandb
+            wandb.init(project=project or "SlotDiffusionTPU", name=run_name,
+                       id=run_id, resume="allow" if run_id else None,
+                       config=config)
+        except Exception as e:  # any failure: the JSONL log alone
+            print(f"[wandb] not logging to wandb ({type(e).__name__}: {e});"
+                  " the JSONL log alone", flush=True)
+            return
+        self.wandb = wandb
+
+    def log(self, record, step):
+        record = super().log(record, step)
+        if self.wandb is not None:
+            self.wandb.log({k: v for k, v in record.items() if k != "time"},
+                           step=int(step))
+        return record
+
+
+def _config_dict(params):
+    """The config's settings, plain values only (wandb's run config)."""
+    out = {}
+    for k in dir(params):
+        v = getattr(params, k)
+        if not k.startswith("_") and not callable(v):
+            out[k] = v
+    return out
+
+
+def _to_host(tree):
+    """A copy of every tensor of `tree` in host memory (nested dicts,
+    lists and tuples kept), so training can go on changing the live
+    ones."""
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
 
 
 class Trainer:
@@ -92,7 +167,10 @@ class Trainer:
             model.named_parameters(), lr=params.lr, total_steps=total,
             warmup_steps=int(params.warmup_steps_pct * total),
             min_lr=params.min_lr, clip_grad=params.clip_grad,
-            grad_accum_steps=k, lr_groups=lr_groups)
+            grad_accum_steps=k, lr_groups=lr_groups,
+            optimizer=getattr(params, "optimizer", "adam"),
+            weight_decay=getattr(params, "weight_decay", 0.0),
+            layouts=flax_layouts(model))
         # either switch turns the EMA on, as in the JAX trainer
         # (training/trainer.py:181-182): the model's (dec_dict["use_ema"])
         # or the run's (params.use_ema); it covers the model's
@@ -116,8 +194,23 @@ class Trainer:
         self.print_iter = params.print_iter
         self.save_every = max(int(params.save_interval *
                                   self.steps_per_epoch), 1)
-        self.logger = JSONLLogger(ckp_path)
+        self.max_steps = int(getattr(params, "max_steps", -1))
+        self.save_epoch_end = bool(getattr(params, "save_epoch_end", False))
+        self.profile_dir = getattr(params, "profile_dir", "")
+        self.profile_steps = tuple(getattr(params, "profile_steps",
+                                           (10, 15)))
+        self.async_ckpt = bool(getattr(params, "async_ckpt", True))
+        if getattr(params, "use_wandb", False):
+            self.logger = WandbLogger(
+                ckp_path, project=getattr(params, "project", None),
+                run_name=getattr(params, "wandb_name", None),
+                run_id=getattr(params, "wandb_id", None),
+                config=_config_dict(params))
+        else:
+            self.logger = JSONLLogger(ckp_path)
         self.step = 0
+        self._profiler = None
+        self._saving = None  # (thread, [exception]) of the save in flight
 
     def sched_kwargs(self):
         """`{"sched": {name: value at this step}}` for `compute_losses`,
@@ -158,38 +251,86 @@ class Trainer:
         metrics["train/grad_norm"] = float(
             norm if micro_norm is None else micro_norm)
         if updated:
-            metrics["lr"] = self.optimizer.adam.param_groups[0]["lr"]
+            metrics["lr"] = self.optimizer.lr
         metrics["step_seconds"] = time.time() - t0
         return metrics
 
-    def fit(self, max_steps=None, resume_from=None):
+    def fit(self, max_steps=None, resume_from=None, san_check_val_step=2):
         """Train until `max_steps` micro-steps in all (default: the
-        config's epochs), from `resume_from` when given, then write
-        `ckpt_last`. -> the metrics of the last step taken."""
+        config's epochs), from `resume_from` when given, after validating
+        `san_check_val_step` val batches; then validate and write
+        `ckpt_last`. The config's `max_steps` ends the run sooner, as the
+        JAX trainer's does: `ckpt_last`, then at most 4 val batches.
+        -> the metrics of the last step taken."""
         if resume_from:
             self.load_checkpoint(resume_from)
+        if san_check_val_step:
+            self.validate(max_steps=san_check_val_step)
         self.model.train()
         end = self.max_epochs * self.steps_per_epoch \
             if max_steps is None else max_steps
         metrics = None
-        while self.step < end:
-            epoch, start = divmod(self.step, self.steps_per_epoch)
-            for batch in self.data.train_loader(epoch, start):
-                metrics = self.train_step(batch)
-                if self.step % self.print_iter == 0 or self.step == end:
-                    self.logger.log(dict(metrics, epoch=epoch), self.step)
-                if self.step >= end:
-                    break
-                if self.step % self.save_every == 0:
-                    self.save_checkpoint()
-            epochs, rest = divmod(self.step, self.steps_per_epoch)
-            if self.step < end and rest == 0 and \
-                    epochs % self.eval_interval == 0:
-                self.validate()
-                self.model.train()
-        self.validate()
-        self.save_checkpoint()
-        return metrics
+        try:
+            while self.step < end:
+                epoch, start = divmod(self.step, self.steps_per_epoch)
+                for batch in self.data.train_loader(epoch, start):
+                    self._start_trace()
+                    metrics = self.train_step(batch)
+                    self._stop_trace()
+                    capped = 0 < self.max_steps <= self.step
+                    if self.step % self.print_iter == 0 or \
+                            self.step == end or capped:
+                        self.logger.log(dict(metrics, epoch=epoch),
+                                        self.step)
+                    if capped:
+                        print(f"[max_steps {self.max_steps} reached]",
+                              flush=True)
+                        self.save_checkpoint()
+                        self.validate(max_steps=4)
+                        return metrics
+                    if self.step >= end:
+                        break
+                    if self.step % self.save_every == 0:
+                        self.save_checkpoint()
+                epochs, rest = divmod(self.step, self.steps_per_epoch)
+                if rest == 0 and self.save_epoch_end:
+                    self.save_checkpoint(f"epoch{epochs}")
+                if self.step < end and rest == 0 and \
+                        epochs % self.eval_interval == 0:
+                    self.validate()
+                    self.model.train()
+            self.validate()
+            self.save_checkpoint()
+            return metrics
+        finally:
+            self._stop_trace(end=True)
+            self.wait_for_checkpoints()
+
+    def _start_trace(self):
+        """Before micro-step `profile_steps[0]`: start the trace."""
+        if self.profile_dir and self._profiler is None and \
+                self.step == self.profile_steps[0]:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.start()
+
+    def _stop_trace(self, end=False):
+        """After micro-step `profile_steps[1] - 1` (or at the end of `fit`,
+        `end`): stop the trace and write it."""
+        a, b = self.profile_steps
+        if self._profiler is None or not (end or self.step == b):
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, f"trace_steps{a}-{b}.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        print(f"[profile] micro-steps [{a}, {b}) -> {path}", flush=True)
 
     def _eval_generator(self, batch_idx):
         """A generator for val batch `batch_idx` at this step, seeded from
@@ -220,17 +361,19 @@ class Trainer:
             losses.update({f"{k}_ema": v.item() for k, v in ema.items()})
         return out, losses
 
-    def validate(self):
-        """Losses and host metrics over the datamodule's val loader, in
-        eval mode; the means weighted by batch size are logged as
-        `val/<name>` and returned. {} without a val loader. The model is
-        left in eval mode."""
+    def validate(self, max_steps=None):
+        """Losses and host metrics over the datamodule's val loader (its
+        first `max_steps` batches, when given), in eval mode; the means
+        weighted by batch size are logged as `val/<name>` and returned. {}
+        without a val loader. The model is left in eval mode."""
         loader = getattr(self.data, "val_loader", lambda: None)()
         if loader is None:
             return {}
         self.model.eval()
         meters = {}
         for i, batch in enumerate(loader):
+            if max_steps is not None and i >= max_steps:
+                break
             out, losses = self.eval_step(batch, i)
             if self.host_metrics_fn is not None:
                 losses.update(self.host_metrics_fn(batch, out))
@@ -250,16 +393,46 @@ class Trainer:
                 "ema": None if self.ema is None else self.ema.state_dict(),
                 "generator": self.generator.get_state()}
 
-    def save_checkpoint(self):
-        """Write `<ckp_path>/ckpt_last.pt` (atomically); -> its path, or
-        None without a checkpoint directory."""
+    def save_checkpoint(self, tag="last"):
+        """Write `<ckp_path>/ckpt_{tag}.pt` (atomically): with `async_ckpt`
+        the state is copied to host memory now and written on a
+        background thread (after the save in flight, if any, is done);
+        else the save blocks. -> its path, or None without a checkpoint
+        directory."""
         if not self.ckp_path:
             return None
-        path = os.path.join(self.ckp_path, "ckpt_last.pt")
-        save_checkpoint(path, self.state_dict())
+        path = os.path.join(self.ckp_path, f"ckpt_{tag}.pt")
+        self.wait_for_checkpoints()
+        state = _to_host(self.state_dict())
+        if not self.async_ckpt:
+            save_checkpoint(path, state)
+            return path
+        error = []
+
+        def write():
+            try:
+                save_checkpoint(path, state)
+            except Exception as e:  # raised again by the waiter
+                error.append(e)
+
+        thread = threading.Thread(target=write, name="ckpt-writer")
+        thread.start()
+        self._saving = (thread, error)
         return path
 
+    def wait_for_checkpoints(self):
+        """Block until the save in flight (if any) is on disk; a failed
+        save raises here."""
+        if self._saving is None:
+            return
+        thread, error = self._saving
+        thread.join()
+        self._saving = None
+        if error:
+            raise error[0]
+
     def load_checkpoint(self, path):
+        self.wait_for_checkpoints()
         state = load_checkpoint(path)
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])

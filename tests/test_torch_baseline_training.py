@@ -80,7 +80,7 @@ def test_trainer_step_and_grad_norm_match_jax(family):
     np.testing.assert_allclose(m[f"train/{loss}"], float(value), rtol=1e-5)
     np.testing.assert_allclose(m["train/grad_norm"],
                                float(optax.global_norm(grads)), rtol=1e-5)
-    groups = trainer.optimizer.adam.param_groups
+    groups = trainer.optimizer.core.param_groups
     if family == "SAVi":
         assert len(groups) == 1
         frozen = {}

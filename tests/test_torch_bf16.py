@@ -541,7 +541,7 @@ def test_trainer_step_keeps_f32_master_weights():
     assert np.isfinite(metrics["train/grad_norm"])
     assert np.isfinite(metrics["train/denoise_loss"])
     assert all(p.dtype == torch.float32 for p in model.parameters())
-    moments = [t for st in trainer.optimizer.adam.state.values()
+    moments = [t for st in trainer.optimizer.core.state.values()
                for t in st.values() if torch.is_tensor(t) and t.dim()]
     assert moments and all(t.dtype == torch.float32 for t in moments)
     moved = [n for n, p in model.named_parameters()

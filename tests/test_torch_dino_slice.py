@@ -97,7 +97,7 @@ def test_trainer_step_matches_jax_and_leaves_dino_frozen(dsad):
     trainer = build_method(model, build_datamodule(cfg.copy(num_workers=0)),
                            cfg)
     assert dino in model.frozen_modules
-    in_opt = {id(p) for g in trainer.optimizer.adam.param_groups
+    in_opt = {id(p) for g in trainer.optimizer.core.param_groups
               for p in g["params"]}
     assert not any(id(p) in in_opt for p in dino.parameters())
     r = np.random.RandomState(7)

@@ -403,9 +403,11 @@ def test_synthetic_video_sets_are_the_jax_builders():
 
 
 def test_fit_validates_every_eval_interval_and_at_the_end():
-    """A tiny model, 1 step an epoch, 3 epochs, eval_interval 2: one
-    validation after epoch 2 and one at the end; two calls of validate at
-    one step give the same numbers (fresh draws per batch, seeded)."""
+    """A tiny model, 1 step an epoch, 3 epochs, eval_interval 2: the
+    sanity validation before the first step (`san_check_val_step`, 2 val
+    batches, as the JAX trainer's), one validation after epoch 2 and one
+    at the end; two calls of validate at one step give the same numbers
+    (fresh draws per batch, seeded)."""
     from slotdiffusion_tpu_torch.data.synthetic import SyntheticVideoData
     from slotdiffusion_tpu_torch.methods.build import build_method
     from slotdiffusion_tpu_torch.models import build_model, init_random_
@@ -419,7 +421,7 @@ def test_fit_validates_every_eval_interval_and_at_the_end():
     trainer.logger.log = lambda rec, step: records.append((step, rec))
     trainer.fit()
     val_steps = [s for s, r in records if "val/ari" in r]
-    assert val_steps == [2, 3]
+    assert val_steps == [0, 2, 3]
     again = trainer.validate()
     assert again == [r for s, r in records if "val/ari" in r][-1]
     assert set(again) == {"val/denoise_loss", "val/ari", "val/fari",

@@ -90,7 +90,7 @@ def test_sa_trainer_step_weights_and_grad_norm_match_jax(sa):
     trainer = build_method(model, build_datamodule(cfg.copy(num_workers=0)),
                            cfg)
     assert trainer.ema is None and \
-        len(trainer.optimizer.adam.param_groups) == 1
+        len(trainer.optimizer.core.param_groups) == 1
     m = trainer.train_step({"img": torch.from_numpy(images())})
     want, jgrads = _value_and_grad(jm, _sa_loss)(jv["params"], images())
     want = float(want)
@@ -122,7 +122,7 @@ def test_sadiffusion_trainer_step_and_grad_norm_match_jax(sad):
     model = copy.deepcopy(tm)
     trainer = build_method(model, build_datamodule(cfg.copy(num_workers=0)),
                            cfg)
-    lrs = sorted(g["lr"] for g in trainer.optimizer.adam.param_groups)
+    lrs = sorted(g["lr"] for g in trainer.optimizer.core.param_groups)
     assert trainer.ema is not None and len(lrs) == 2
     r = np.random.RandomState(7)
     t = r.randint(0, 10, size=2).astype(np.int32)

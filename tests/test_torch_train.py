@@ -152,28 +152,54 @@ def _nest(flat):
     return out
 
 
-@pytest.mark.parametrize("clip,accum", [(0.5, 2), (None, 1), (50.0, 3)])
-def test_optimizer_matches_optax(clip, accum):
-    """Adam, the warmup-cosine schedule, the dm_decoder LR group,
-    global-norm clipping and k-step accumulation: 5 updates against the
-    JAX package's `build_optimizer` on the same gradients, to 1e-6."""
+# the cores of the JAX `build_optimizer` besides "adam" (adamw with its
+# weight decay), each with clipping and accumulation
+CORES = (("adam_fused", 0.0), ("adamw", 0.01), ("adam_bf16", 0.0),
+         ("adafactor", 0.0), ("sgd", 0.0))
+
+
+@pytest.mark.parametrize("clip,accum,optimizer,weight_decay", [
+    pytest.param(0.5, 2, "adam", 0.0, id="0.5-2"),
+    pytest.param(None, 1, "adam", 0.0, id="None-1"),
+    pytest.param(50.0, 3, "adam", 0.0, id="50.0-3")] + [
+    pytest.param(0.5, 2, name, wd, id=f"{name}-0.5-2")
+    for name, wd in CORES])
+def test_optimizer_matches_optax(clip, accum, optimizer, weight_decay):
+    """Each core, the warmup-cosine schedule, the dm_decoder LR group,
+    global-norm clipping and k-step accumulation: 20 updates against the
+    JAX package's `build_optimizer(optimizer=...)` on the same gradients,
+    to 1e-6. adam_bf16 and adafactor keep a bf16 moment: the port's
+    schedule (double) and global norm (another summation order) differ
+    from the JAX ones by an f32 ulp, which flips a bf16 rounding of the
+    moment now and then, and each flip moves that element's later updates
+    by up to 2^-8 of the moment; so they are held to 5 % of the largest
+    LR (3e-2) here (measured: up to 0.7 %), and on equal inputs in
+    tests/test_torch_optimizers.py (adam_bf16 bit for bit)."""
+    atol = 0.05 * 3e-2 if optimizer in ("adam_bf16", "adafactor") else 1e-6
     init = _named(0)
-    kw = dict(lr=1e-2, total_steps=5, warmup_steps=2, min_lr=1e-4,
+    kw = dict(lr=1e-2, total_steps=20, warmup_steps=2, min_lr=1e-4,
               clip_grad=clip, grad_accum_steps=accum,
-              lr_groups={"dm_decoder": 3e-2})
+              lr_groups={"dm_decoder": 3e-2}, optimizer=optimizer,
+              weight_decay=weight_decay)
     tx, _ = build_optimizer(_nest(init), **kw)
     jparams = jax.tree_util.tree_map(jnp.asarray, _nest(init))
     state = tx.init(jparams)
+    # one compiled update, with XLA's excess precision off so that the
+    # bf16 moments round where optax's program says
+    update = None
     params = {n: nn.Parameter(torch.from_numpy(v.copy()))
               for n, v in init.items()}
     opt = Optimizer(list(params.items()), **kw)
     r = np.random.RandomState(1)
-    for micro in range(5 * accum):
+    for micro in range(20 * accum):
         scale = (0.05, 1.0, 3.0)[micro % 3]  # below and above the clip
         grads = {n: (r.randn(*v.shape) * scale).astype(np.float32)
                  for n, v in init.items()}
-        upd, state = tx.update(jax.tree_util.tree_map(
-            jnp.asarray, _nest(grads)), state, jparams)
+        jgrads = jax.tree_util.tree_map(jnp.asarray, _nest(grads))
+        update = update or jax.jit(tx.update).lower(
+            jgrads, state, jparams).compile(
+            compiler_options={"xla_allow_excess_precision": False})
+        upd, state = update(jgrads, state, jparams)
         jparams = optax.apply_updates(jparams, upd)
         for n, p in params.items():
             g = torch.from_numpy(grads[n]) * opt.backward_scale()
@@ -184,7 +210,7 @@ def test_optimizer_matches_optax(clip, accum):
             a, b = n.split(".")
             np.testing.assert_allclose(p.detach().numpy(),
                                        np.asarray(jparams[a][b]),
-                                       rtol=1e-6, atol=1e-6, err_msg=n)
+                                       rtol=1e-6, atol=atol, err_msg=n)
 
 
 def test_schedule_matches_jax():
