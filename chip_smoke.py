@@ -5,7 +5,9 @@ train the flagship SAViDiffusion, the image models (SADiffusion, SA),
 the token and reconstruction baselines (SAVi, the dVAE, STEVE, SLATE),
 SADiffusion with the frozen DINO ViT on COCO and VOC, and the
 video-prediction and VQA stage (LDMSlotFormer, the Physion readout) at
-full width, and report.
+full width, evaluate the flagship (compositional generation, FID, FVD,
+test_recon with LPIPS and its cache, the epoch-end visualisation), and
+report.
 
     python3 chip_smoke.py
 
@@ -256,7 +258,33 @@ Phases (one flushed line each, with elapsed seconds):
      head and scripts/convert_checkpoint_torch.py into a fresh model,
      whose graphed `encode` and `denoise` equal the original's bit for
      bit;
- 16. one JSON line listing every kernel (times per serving request;
+ 16. what evaluation lacked until now, on the flagship at full width
+     (random weights, seed 0): 2 in-memory videos of 16 frames encoded
+     (slot attention at those shapes against its plain version), their
+     slots recombined by `shuffle_slots` (slot k of video b is slot k of
+     video (b - k) mod 2, checked exactly) and decoded by `decode_slots`
+     (20 DPM-Solver++ steps, the VQ decode; 61 GN and 32 attention
+     launches a UNet call exactly; GN and attention at those shapes
+     against their plain versions; one video against its plain twin from
+     the same x_T, every UNet call replayed, as phase 14's decode); FID
+     and FVD of the 32 composed frames against the 32 real ones on seeded
+     stand-in networks (`save_random_inception_npz`,
+     `save_random_i3d_npz`, whose arrays the converters give bit for bit
+     from the same state dicts), their features on the card against the
+     CPU, ms an image or clip, the distances under
+     `fid(untrained-weights)` and `fvd(untrained-weights)`; test_recon's
+     loop (`methods.evaluation.recon_eval`) over 2 batches of those clips
+     with a seeded LPIPS `.npz`, FID and FVD, then again over its cache
+     (no kernel, no UNet call, the same FINAL line), its 64 frame dumps
+     read back by the port's PNG reader; the viz: the flagship's callback
+     through its config's 1000-step ancestral chain on 2 videos x 6
+     frames (launches per UNet call exact), SA's (`SACLEVRTex128`) on 8
+     images, and one `Trainer.validate` with a checkpoint directory that
+     draws it, each PNG / APNG read back at its expected size. The
+     earlier phases that train or validate with a checkpoint directory
+     (5, 7, 9, 11-15) set `use_viz=False`: the flagship's chain takes ~30
+     s a validation, and this phase draws every kind of viz;
+ 17. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
      `res64_*`: slot attention at the 64x64 model's shape; `img_*`: slot
      attention at the image shape, per image `encode`; `savi_train_*`,
@@ -1805,7 +1833,9 @@ def train_stage1(cfg, dev, tmp, smi, phase):
 
     hooks = [p.register_post_accumulate_grad_hook(note_grad(n))
              for n, p in params]
-    trainer = build_method(model, data, cfg.copy(save_epoch_end=False),
+    # phase 16 draws the epoch-end visualisation: use_viz off here
+    trainer = build_method(model, data, cfg.copy(save_epoch_end=False,
+                                                 use_viz=False),
                            ckp_path=tmp)
     trainer.logger = report = VQReport(phase, smi)
     torch.cuda.reset_peak_memory_stats()
@@ -2358,7 +2388,9 @@ def fit_checked(model, tcfg, data, phase, steps, bf16=False, need=None,
     hooks = [p.register_post_accumulate_grad_hook(note(n))
              for n, p in trainable]
     start = {n: p.detach().clone() for n, p in trainable}
-    trainer = build_method(model, data, tcfg.copy(save_epoch_end=False),
+    # phase 16 draws the epoch-end visualisation: use_viz off here
+    trainer = build_method(model, data, tcfg.copy(save_epoch_end=False,
+                                                  use_viz=False),
                            ckp_path=ckp_path)
     trainer.logger = report = StepReport(phase)
     torch.cuda.synchronize()
@@ -3321,13 +3353,71 @@ def vp_encode(cfg, dev, gen, phase):
     return video, slots, counts
 
 
+def dpm_twin(dm, z0, cond, x_T, calls, frames):
+    """The plain-version twin of `frames` (decoded by the kernels from the
+    final latents `z0` of DPM-Solver++ on `cond` from `x_T`): the same
+    sampler from the same x_T through the plain versions, its VQ codes
+    against the kernels' (CODE_AGREE, SAME_CODE_TOL; outside them, the
+    kernel path from an x_T one rounding away tells a chaotic chain, as
+    phase 10's control), and the recorded UNet `calls` replayed through
+    the plain versions (PER_CALL_TOL). -> (ok, verdict)."""
+    import torch
+    with torch.inference_mode(), plain_versions(True):
+        t1 = time.time()
+        twin = dm.generate_imgs(None, cond=cond, use_dpm=True,
+                                same_noise=True, x_T=x_T)
+        plain = dm.decode_latent(twin).float()
+        torch.cuda.synchronize()
+        twin_s = time.time() - t1
+        per_call = max(((o - dm.unet(x, t, c)).abs().max() / o.abs().max()
+                        ).item() for x, t, c, o in calls)
+    gate, scale = CODE_AGREE["dpm"], plain.abs().max().item()
+    with torch.inference_mode():
+        score, whole = final_distance(dm, True, z0, twin)
+    same_err = ((frames[whole] - plain[whole]).abs().max().item() / scale
+                if whole.any() else 0.0)
+    inside = score >= gate and same_err <= SAME_CODE_TOL
+    verdict = (f"the plain twin {twin_s:.2f} s: codes agree at {score:.6f} "
+               f"(gate >= {gate}), {int(whole.sum())} of {len(cond)} frames "
+               f"with every code equal, their largest difference "
+               f"{same_err:.2e} (tol {SAME_CODE_TOL:.0e})")
+    chaotic = False
+    if not inside:
+        with torch.inference_mode():
+            again = dm.generate_imgs(None, cond=cond, use_dpm=True,
+                                     same_noise=True,
+                                     x_T=x_T * (1.0 + CONTROL_EPS))
+            control, _ = final_distance(dm, True, again, z0)
+        chaotic = control < gate
+        verdict += (f"; outside: the kernel path from x_T x (1 + "
+                    f"{CONTROL_EPS:.1e}) agrees with itself at {control:.6g}"
+                    ": " + ("a chaotic chain, not a gate" if chaotic
+                            else "a stable chain"))
+    ok = (inside or chaotic) and per_call <= PER_CALL_TOL["f32"]
+    return ok, (f"{verdict}; {len(calls)} calls replayed through the plain "
+                f"versions: largest difference {per_call:.2e} of the output "
+                f"scale (tol {PER_CALL_TOL['f32']:.0e})")
+
+
+def unet_launches(counts, n_calls, sa, what):
+    """`counts` are exactly GN_PER_UNET GN and ATTN_PER_UNET attention
+    launches a UNet call of `n_calls` and `sa` slot attention launches, and
+    nothing else. Raises SystemExit otherwise."""
+    want = dict.fromkeys(counts, 0)
+    want.update(gn_silu=GN_PER_UNET * n_calls,
+                attention=ATTN_PER_UNET * n_calls, slot_attention=sa)
+    if counts != want or not any(want.values()):
+        raise SystemExit(f"{what}: {n_calls} UNet calls launched "
+                         f"{nonzero(counts)}, not {nonzero(want)}")
+
+
 def vp_decode(model, past, gt, roll, dev, gen, phase, smi):
     """test_vp's path: `model.rollout(past, roll, decode=True,
     with_gt=False)` from one shared x_T (DPM-Solver++ with the GN and
     attention kernels, then the VQ decode), its launches, the kernels at
     its shapes, the plain-path twin from the same x_T, each UNet call
-    replayed through the plain versions, MSE/PSNR/SSIM against `gt`.
-    -> the launches."""
+    replayed through the plain versions (`dpm_twin`), MSE/PSNR/SSIM
+    against `gt`. -> the launches."""
     import torch
     from slotdiffusion_tpu_torch import ops
     from slotdiffusion_tpu_torch.models.diffusion import noise_like
@@ -3351,63 +3441,21 @@ def vp_decode(model, past, gt, roll, dev, gen, phase, smi):
         counts = ops.launch_counts()
     for hk in handles:
         hk.remove()
-    n_calls = len(calls)
-    want = {"gn_silu": GN_PER_UNET * n_calls,
-            "attention": ATTN_PER_UNET * n_calls}
-    if any(counts[k] != v for k, v in want.items()) or n_calls == 0:
-        raise SystemExit(f"{phase}: decode: {n_calls} UNet calls launched "
-                         f"{nonzero(counts)}, not {want}")
-    check_launches(counts, f"{phase}: decode", False,
-                   need=("gn_silu", "attention"))
+    unet_launches(counts, len(calls), 0, f"{phase}: decode")
     check_kernels(shapes, None, gen, dev, f"{phase} (decode shapes)",
                   timing=False)
     frames = out["recon_combined"].flatten(0, 1).float()
-    cond = out["slots"].flatten(0, 1)
-    with torch.inference_mode(), plain_versions(True):
-        t1 = time.time()
-        twin = dm.generate_imgs(None, cond=cond, use_dpm=True,
-                                same_noise=True, x_T=x_T)
-        plain = dm.decode_latent(twin).float()
-        torch.cuda.synchronize()
-        twin_s = time.time() - t1
-        per_call = max(((o - dm.unet(x, t, c)).abs().max() / o.abs().max()
-                        ).item() for x, t, c, o in calls)
-    gate = CODE_AGREE["dpm"]
-    scale = plain.abs().max().item()
-    with torch.inference_mode():
-        score, whole = final_distance(dm, True, z[0], twin)
-    same_err = ((frames[whole] - plain[whole]).abs().max().item() / scale
-                if whole.any() else 0.0)
-    inside = score >= gate and same_err <= SAME_CODE_TOL
-    verdict = (f"codes agree at {score:.6f} (gate >= {gate}), "
-               f"{int(whole.sum())} of {n} frames with every code equal, "
-               f"their largest difference {same_err:.2e} (tol "
-               f"{SAME_CODE_TOL:.0e})")
-    chaotic = False
-    if not inside:  # the control, as phase 10's
-        with torch.inference_mode():
-            again = dm.generate_imgs(None, cond=cond, use_dpm=True,
-                                     same_noise=True,
-                                     x_T=x_T * (1.0 + CONTROL_EPS))
-            control, _ = final_distance(dm, True, again, z[0])
-        chaotic = control < gate
-        verdict += (f"; outside: the kernel path from x_T x (1 + "
-                    f"{CONTROL_EPS:.1e}) agrees with itself at {control:.6g}"
-                    f": " + ("a chaotic chain, not a gate" if chaotic
-                             else "a stable chain"))
+    ok, verdict = dpm_twin(dm, z[0], out["slots"].flatten(0, 1), x_T, calls,
+                           frames)
     x = (frames * 0.5 + 0.5).clamp(0, 1)
     y = (gt.flatten(0, 1).float() * 0.5 + 0.5).clamp(0, 1)
     scores = {"mse": M.mse_metric(x, y), "psnr": M.psnr_metric(x, y),
               "ssim": M.ssim_metric(x, y)}
-    ok = (inside or chaotic) and per_call <= PER_CALL_TOL["f32"] and \
-        bool(torch.isfinite(frames).all())
+    ok = ok and bool(torch.isfinite(frames).all())
     log(f"{phase}: decode of {past.shape[0]} rollouts x {roll} frames "
-        f"(test_vp's path): {n_calls} UNet calls, {secs:.2f} s wall, "
+        f"(test_vp's path): {len(calls)} UNet calls, {secs:.2f} s wall, "
         f"{start.elapsed_time(end):.1f} ms CUDA events, launches "
-        f"{nonzero(counts)}; the plain twin {twin_s:.2f} s; kernels vs "
-        f"plain: {verdict}; {n_calls} calls replayed through the plain "
-        f"versions: largest difference {per_call:.2e} of the output scale "
-        f"(tol {PER_CALL_TOL['f32']:.0e}); against the clips' frames "
+        f"{nonzero(counts)}; kernels vs {verdict}; against the clips' frames "
         + " ".join(f"{k} {v:.4f}" for k, v in scores.items())
         + f" (random weights) {'ok' if ok else 'FAIL'} [{smi}]")
     if not ok:
@@ -3713,7 +3761,9 @@ def settings_fit(model, tcfg, data, phase, label, ckp_path=None):
     """`build_method` on the settings `tcfg`, its logger a `StepReport`.
     -> (trainer, report)."""
     from slotdiffusion_tpu_torch.methods.build import build_method
-    trainer = build_method(model, data, tcfg, ckp_path=ckp_path)
+    # phase 16 draws the epoch-end visualisation: use_viz off here
+    trainer = build_method(model, data, tcfg.copy(use_viz=False),
+                           ckp_path=ckp_path)
     trainer.logger = report = StepReport(f"{phase} {label}")
     return trainer, report
 
@@ -3972,6 +4022,414 @@ def settings(smi, dev, phase="phase 15"):
     if failed:
         raise SystemExit(f"{phase}: {failed}")
     return paths
+
+
+# phase 16: what evaluation lacked until now, on the flagship at full width
+# (random weights, seed 0). Compositional generation of EVAL_VIDEOS
+# in-memory videos of EVAL_FRAMES frames (I3D takes >= 9): their slots
+# shuffled across the videos and decoded by DPM-Solver++ (20 steps) and
+# the VQ decode, one video held against the plain twin from the same x_T
+# as phase 14's decode (CODE_AGREE, SAME_CODE_TOL, every UNet call
+# replayed within PER_CALL_TOL). FID and FVD on seeded stand-in networks
+# (`save_random_inception_npz`, `save_random_i3d_npz`, the converter's
+# arrays of the same state dicts bit for bit): the features of the
+# composed and real frames at 299 x 299 (clips at 224 x 224) on the card
+# against the CPU within EVAL_FEATURE_TOL of their scale: f32 convolutions
+# (TF32 off) whose sums cuDNN takes in another order, and may take by
+# Winograd or FFT, through ~20 layers. test_recon's loop over
+# RECON_BATCHES batches of those clips with LPIPS, FID and FVD, then again
+# over its cache (no kernel, the same FINAL line). The viz callbacks
+# (the flagship's ancestral chain over 2 videos x 6 frames, SA's image
+# grids) and one `Trainer.validate` that draws them.
+EVAL_VIDEOS, EVAL_FRAMES, VIZ_FRAMES, RECON_BATCHES = 2, 16, 6, 2
+EVAL_FEATURE_TOL = 1e-3
+VIZ_STEP = 7
+
+
+def card_vs_cpu(fn, x, what, unit, phase):
+    """`fn` (a feature function) on `x` on the card, timed after a warm
+    call on the same items, against the CPU. -> (features on the card, ms
+    an item)."""
+    import torch
+    fn(x)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    card = fn(x)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.time() - t0) / len(x)
+    cpu = fn(x.cpu())
+    rel = ((card.cpu() - cpu).abs().max() / cpu.abs().max()).item()
+    ok = rel <= EVAL_FEATURE_TOL and bool(torch.isfinite(card).all())
+    log(f"{phase}: {what} of {len(x)} {unit} {tuple(card.shape)}: "
+        f"{ms:.2f} ms a{'n' if unit[0] in 'aeiou' else ''} "
+        f"{unit.rstrip('s')} on the card (host clock, after a warm call); "
+        f"card vs CPU {rel:.2e} of their scale (tol "
+        f"{EVAL_FEATURE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{phase}: {what} on the card disagrees with the "
+                         "CPU")
+    return card, ms
+
+
+def read_back(path, shape, frames=1):
+    """A PNG / APNG the port wrote, read by its own reader: -> True if it
+    holds `frames` frames of `shape`."""
+    from slotdiffusion_tpu_torch.utils.png import read_png
+    data, _ = read_png(path)
+    return data.shape == (frames, *shape) and data.dtype.name == "uint8"
+
+
+def evaluation(smi, dev, gen, phase="phase 16"):
+    """Phase 16: compositional generation, native FID and FVD, test_recon
+    with LPIPS and its cache, frame dumps and the epoch-end visualisation
+    on the flagship at full width. -> {path: launches}."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+    from slotdiffusion_tpu_torch import configs, ops
+    from slotdiffusion_tpu_torch.methods.comp_gen import (decode_slots,
+                                                          encode_slots,
+                                                          shuffle_slots)
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    from slotdiffusion_tpu_torch.models.diffusion import noise_like
+    from slotdiffusion_tpu_torch.ops import fid, fvd, lpips
+    from slotdiffusion_tpu_torch.utils.png import read_png, save_image, \
+        to_uint8
+    t_phase, secs, paths = time.time(), {}, {}
+    cfg = configs.SAViLDMMoviE128()
+    model = build_model(cfg, device=dev)
+    init_random_(model, torch.Generator().manual_seed(0))
+    model.eval()
+    dm, (H, W) = model.dm_decoder, cfg.resolution
+    B, T, S = EVAL_VIDEOS, EVAL_FRAMES, cfg.slot_dict["num_slots"]
+    g = torch.Generator(device=dev).manual_seed(16)
+    video = torch.rand(B, T, H, W, 3, generator=g, device=dev) * 2 - 1
+
+    # ---- compositional generation: encode, shuffle, decode --------------
+    shapes, handles = record_shapes(model)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        slots = encode_slots(model, cfg, video)
+        torch.cuda.synchronize()
+        secs["encode"] = time.time() - t0
+        paths["comp_gen_encode"] = ops.launch_counts()
+    for hk in handles:
+        hk.remove()
+    unet_launches(paths["comp_gen_encode"], 0, T, f"{phase}: encode")
+    check_kernels(shapes, model.savi.slot_attention, gen, dev,
+                  f"{phase} (encode shapes)", timing=False)
+    mixed = shuffle_slots(slots)
+    exact = mixed.shape == slots.shape and all(
+        torch.equal(mixed[b, :, k], slots[(b - k) % B, :, k])
+        for b in range(B) for k in range(S))
+    log(f"{phase}: encode of {B} videos x {T} frames of {H}x{W}: "
+        f"{secs['encode']:.2f} s, launches "
+        f"{nonzero(paths['comp_gen_encode'])}; shuffle_slots: slot k of "
+        f"video b is slot k of video (b - k) mod {B} for all {S} slots "
+        f"{'exactly' if exact else 'NOT'}")
+    if not exact:
+        raise SystemExit(f"{phase}: shuffle_slots moved the wrong slots")
+    x_T = noise_like(g, (B * T, *dm.resolution, dm.channels), True, dev)
+    z = []
+    shapes, handles = record_shapes(model)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.inference_mode(), unet_calls(dm, [0]) as calls, \
+            sampled_latents(dm, z):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        start.record()
+        frames = decode_slots(model, cfg, mixed, x_T=x_T).float()
+        end.record()
+        torch.cuda.synchronize()
+        secs["decode"] = time.time() - t0
+        paths["comp_gen_decode"] = ops.launch_counts()
+    for hk in handles:
+        hk.remove()
+    unet_launches(paths["comp_gen_decode"], len(calls), 0,
+                  f"{phase}: decode")
+    check_kernels(shapes, None, gen, dev, f"{phase} (decode shapes)",
+                  timing=False)
+    ok, verdict = dpm_twin(dm, z[0][:T], mixed.reshape(B * T, S, -1)[:T],
+                           x_T[:T], calls, frames[:T])
+    ok = ok and frames.shape == (B * T, H, W, 3) and \
+        bool(torch.isfinite(frames).all())
+    log(f"{phase}: decode_slots of the composed slots: {len(calls)} UNet "
+        f"calls, {secs['decode']:.2f} s wall, {start.elapsed_time(end):.1f} "
+        f"ms CUDA events, launches {nonzero(paths['comp_gen_decode'])}, "
+        f"frames {tuple(frames.shape)}; the first video against {verdict} "
+        f"{'ok' if ok else 'FAIL'} [{smi}]")
+    if not ok:
+        raise SystemExit(f"{phase}: the composed video disagrees with its "
+                         "plain twin")
+    del z, calls
+
+    env = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the seeded stand-in networks, and their converters ----------
+        for name, mod, make, fold_save in (
+                ("inception", fid, fid.random_inception_state_dict,
+                 fid.save_random_inception_npz),
+                ("i3d", fvd, fvd.random_i3d_state_dict,
+                 fvd.save_random_i3d_npz)):
+            pth = os.path.join(tmp, f"{name}.pth")
+            torch.save(make(0), pth)
+            convert = fid.convert_torch_inception_npz if mod is fid else \
+                fvd.convert_torch_i3d_npz
+            conv = convert(pth, os.path.join(tmp, f"{name}_converted.npz"))
+            env[mod.WEIGHTS_ENV] = fold_save(os.path.join(tmp, f"{name}.npz"))
+            with np.load(conv) as a, np.load(env[mod.WEIGHTS_ENV]) as b:
+                same = set(a.files) - set(b.files) == {
+                    "__source_sha256__"} and all(
+                    (a[k] == b[k]).all() for k in b.files)
+            log(f"{phase}: {name}: the converter's .npz of the seeded "
+                f"state dict equals the stand-in's array for array "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise SystemExit(f"{phase}: the {name} converter disagrees")
+        env[lpips.WEIGHTS_ENV] = lpips.save_random_lpips_npz(
+            os.path.join(tmp, "lpips.npz"), seed=0)
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            secs.update(metrics_and_recon(
+                cfg, model, video, frames, dev, smi, tmp, paths, phase))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        # a frame written and read back by the port's PNG writer and reader
+        frame = to_uint8(frames[0] * 0.5 + 0.5)
+        back, _ = read_png(save_image(frame, os.path.join(tmp, "f.png")))
+        if not (back[0] == frame).all():
+            raise SystemExit(f"{phase}: a PNG did not read back as written")
+    del video, frames, slots, mixed, x_T
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the epoch-end visualisation ------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        secs.update(visualise(cfg, model, dev, smi, tmp, paths, phase))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{phase}: done in {time.time() - t_phase:.1f} s: " + ", ".join(
+        f"{k} {v:.2f} {'ms' if '_ms_' in k else 's'}"
+        for k, v in secs.items()) + f" [{smi}]")
+    return paths
+
+
+def metrics_and_recon(cfg, model, video, frames, dev, smi, tmp, paths,
+                      phase):
+    """FID and FVD of the composed frames, then test_recon's loop cold and
+    warm, with the stand-in networks the environment names. -> {part:
+    seconds}."""
+    import contextlib as ctx
+    import io
+
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.methods.evaluation import (feature_fns,
+                                                            recon_eval)
+    from slotdiffusion_tpu_torch.ops import fid, fvd
+    secs = {}
+    B, T, (H, W) = EVAL_VIDEOS, EVAL_FRAMES, cfg.resolution
+    composed = (frames * 0.5 + 0.5).clamp(0, 1)
+    real = (video.float() * 0.5 + 0.5).clamp(0, 1).reshape(B * T, H, W, 3)
+    feats = {}
+    for what, x in (("composed", composed), ("real", real)):
+        feats[what], secs[f"fid_ms_per_{what}_image"] = card_vs_cpu(
+            fid.inception_pool3_features, x, f"pool3 features ({what})",
+            "images", phase)
+    t0 = time.time()
+    value = fid.fid_from_features(feats["composed"].cpu().numpy(),
+                                  feats["real"].cpu().numpy())
+    secs["fid_distance"] = time.time() - t0
+    label = fid.weights_label("fid")
+    log(f"{phase}: {label} of {B * T} composed vs {B * T} real frames at "
+        f"299x299: {value:.4f} (the Frechet distance "
+        f"{secs['fid_distance']:.2f} s on the host) [{smi}]")
+    if label != "fid(untrained-weights)" or not math.isfinite(value):
+        raise SystemExit(f"{phase}: FID {label} = {value}")
+    clips = {}
+    for what, x in (("composed", composed), ("real", real)):
+        clips[what], secs[f"fvd_ms_per_{what}_clip"] = card_vs_cpu(
+            fvd.i3d_features, x.reshape(B, T, H, W, 3),
+            f"I3D features ({what})", "clips", phase)
+    value = fvd.fvd_from_features(clips["composed"].cpu().numpy(),
+                                  clips["real"].cpu().numpy())
+    label = fvd.weights_label("fvd")
+    log(f"{phase}: {label} of {B} composed vs {B} real clips of {T} frames "
+        f"at 224x224: {value:.4f} [{smi}]")
+    if label != "fvd(untrained-weights)" or not math.isfinite(value):
+        raise SystemExit(f"{phase}: FVD {label} = {value}")
+
+    # ---- test_recon, cold then warm -------------------------------------
+    g = torch.Generator(device=dev).manual_seed(17)
+    batches = [{"img": video.cpu()}] + [
+        {"img": (torch.rand(B, T, H, W, 3, generator=g, device=dev) * 2 - 1
+                 ).cpu()} for _ in range(RECON_BATCHES - 1)]
+    cache = os.path.join(tmp, "recon", f"{cfg.__class__.__name__}.metrics.pkl")
+    frames_dir = os.path.join(tmp, "frames")
+    fid_fn, fvd_fn = feature_fns(True, True)
+    runs = {}
+    for run in ("cold", "warm"):
+        out = io.StringIO()
+        with torch.inference_mode(), unet_calls(model.dm_decoder, [0]) as \
+                calls, ctx.redirect_stdout(out):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.time()
+            final = recon_eval(model, cfg, batches, cache, dev, fid_fn,
+                               fvd_fn, frames_dir=frames_dir if run == "cold"
+                               else "", total=len(batches))
+            torch.cuda.synchronize()
+            secs[f"test_recon_{run}"] = time.time() - t0
+            counts = ops.launch_counts()
+        paths[f"test_recon_{run}"] = counts
+        text = out.getvalue()
+        print(text, end="", flush=True)
+        finals = [ln for ln in text.splitlines() if ln.startswith("FINAL ")]
+        runs[run] = (final, finals, len(calls), counts)
+    (cold, cold_line, n_calls, counts), (warm, warm_line, warm_calls,
+                                         warm_counts) = runs.values()
+    unet_launches(counts, n_calls, RECON_BATCHES * T,
+                  f"{phase}: test_recon (cold)")
+    keys = {"mse", "psnr", "ssim", "lpips(untrained-weights)",
+            "fid(untrained-weights)", "fvd(untrained-weights)"}
+    dumps = sorted(os.listdir(frames_dir))
+    read = all(read_back(os.path.join(frames_dir, f), (H, W, 3))
+               for f in dumps)
+    ok = (set(cold) == keys and all(math.isfinite(v) for v in cold.values())
+          and len(cold_line) == 1 and warm_line == cold_line and warm == cold
+          and warm_calls == 0 and not any(warm_counts.values())
+          and len(dumps) == RECON_BATCHES * B * T and read)
+    log(f"{phase}: test_recon over {RECON_BATCHES} batches of {B} clips x "
+        f"{T} frames: cold {secs['test_recon_cold']:.2f} s ({n_calls} UNet "
+        f"calls, launches {nonzero(counts)}), warm over its cache "
+        f"{secs['test_recon_warm']:.2f} s ({warm_calls} UNet calls, launches "
+        f"{nonzero(warm_counts) or 'none'}); the same FINAL line "
+        f"{'yes' if warm_line == cold_line else 'NO'}: "
+        f"{cold_line[0] if cold_line else None}; {len(dumps)} frame dumps "
+        f"{'read back' if read else 'DO NOT read back'} through the port's "
+        f"PNG reader {'ok' if ok else 'FAIL'} [{smi}]")
+    if not ok:
+        raise SystemExit(f"{phase}: test_recon's cache, keys or dumps are "
+                         "wrong")
+    return secs
+
+
+def visualise(cfg, model, dev, smi, tmp, paths, phase):
+    """The flagship's video viz (its config's sampler, the 1000-step
+    ancestral chain) and SA's image viz called directly, then one
+    `Trainer.validate` of SA that draws its viz. -> {part: seconds}."""
+    import types
+
+    import torch
+    from slotdiffusion_tpu_torch import configs, ops
+    from slotdiffusion_tpu_torch.data.loader import DataModule
+    from slotdiffusion_tpu_torch.data.synthetic import SyntheticImageDataset
+    from slotdiffusion_tpu_torch.methods import viz
+    from slotdiffusion_tpu_torch.methods.build import build_method
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    secs, (H, W) = {}, cfg.resolution
+    g = torch.Generator(device=dev).manual_seed(18)
+    clips = torch.rand(EVAL_VIDEOS, VIZ_FRAMES, H, W, 3, generator=g,
+                       device=dev) * 2 - 1
+    fake = types.SimpleNamespace(params=cfg, model=model, device=dev,
+                                 logger=types.SimpleNamespace())
+    vdir = os.path.join(tmp, "video")
+    with unet_calls(model.dm_decoder, [0]) as calls:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        viz.build_viz_fn(cfg)(fake, {"img": clips.cpu()}, {}, VIZ_STEP, vdir)
+        torch.cuda.synchronize()
+        secs["viz_video"] = time.time() - t0
+        paths["viz_video"] = ops.launch_counts()
+    n_calls = len(calls)
+    del calls
+    unet_launches(paths["viz_video"], n_calls, VIZ_FRAMES,
+                  f"{phase}: viz (video)")
+    stem = os.path.join(vdir, f"step{VIZ_STEP}_video_samples")
+    ok = n_calls == model.dm_decoder.num_timesteps and read_back(
+        stem + ".png", (3 * H + 4, VIZ_FRAMES * W, 3)) and read_back(
+        stem + ".apng", (H, W, 3), VIZ_FRAMES)
+    log(f"{phase}: the flagship's viz (use_dpm {cfg.use_dpm}: the ancestral "
+        f"chain) on {EVAL_VIDEOS} videos x {VIZ_FRAMES} frames: "
+        f"{secs['viz_video']:.2f} s, {n_calls} UNet calls, launches "
+        f"{nonzero(paths['viz_video'])}; its grid and APNG read back "
+        f"{'ok' if ok else 'FAIL'} [{smi}]")
+    if not ok:
+        raise SystemExit(f"{phase}: the video viz is wrong")
+
+    scfg = configs.SACLEVRTex128()
+    sa = build_model(scfg, device=dev)
+    init_random_(sa, torch.Generator().manual_seed(0))
+    sa.eval()
+    n, S = IMG_SERVE, scfg.slot_dict["num_slots"]
+    imgs = torch.rand(n, *scfg.resolution, 3, generator=g, device=dev) * 2 - 1
+    fake = types.SimpleNamespace(params=scfg, model=sa, device=dev,
+                                 logger=types.SimpleNamespace())
+    idir = os.path.join(tmp, "image")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    with torch.no_grad():
+        out = sa({"img": imgs})
+    viz.build_viz_fn(scfg)(fake, {"img": imgs.cpu()}, out, VIZ_STEP, idir)
+    torch.cuda.synchronize()
+    secs["viz_image"] = time.time() - t0
+    paths["viz_image"] = ops.launch_counts()
+    unet_launches(paths["viz_image"], 0, 1, f"{phase}: viz (image)")
+    h, w = scfg.resolution
+    grid = (3 * h + 4, n * w, 3)
+    ok = read_back(os.path.join(idir, f"step{VIZ_STEP}_recon.png"), grid) \
+        and read_back(os.path.join(idir, f"step{VIZ_STEP}_slots.png"),
+                      (h, S * w, 3))
+    log(f"{phase}: SA's viz (`SACLEVRTex128`) of {n} images: "
+        f"{secs['viz_image']:.2f} s with the encode, launches "
+        f"{nonzero(paths['viz_image'])}; its grids read back "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{phase}: the image viz is wrong")
+
+    # one validate with a checkpoint directory and use_viz on
+    data = DataModule(SyntheticImageDataset(scfg.resolution, n, seed=0),
+                      SyntheticImageDataset(scfg.resolution, n, seed=1),
+                      n, n, seed=0)
+    ckp = os.path.join(tmp, "run")
+    trainer = build_method(sa, data, scfg.copy(num_workers=0,
+                                               val_batch_size=n),
+                           ckp_path=ckp)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    res = trainer.validate(max_steps=1)
+    torch.cuda.synchronize()
+    secs["validate_with_viz"] = time.time() - t0
+    paths["viz_validate"] = ops.launch_counts()
+    vz = os.path.join(ckp, "viz")
+    files = sorted(os.listdir(vz)) if os.path.isdir(vz) else []
+    ok = files == ["step0_recon.png", "step0_slots.png"] and read_back(
+        os.path.join(vz, files[0]), grid) and read_back(
+        os.path.join(vz, files[1]), (h, S * w, 3)) and \
+        paths["viz_validate"]["slot_attention"] == 1 and \
+        math.isfinite(res.get("val/img_recon_loss", math.nan))
+    log(f"{phase}: Trainer.validate of SA with ckp_path and use_viz: "
+        f"{secs['validate_with_viz']:.2f} s, launches "
+        f"{nonzero(paths['viz_validate'])}, {files} read back "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{phase}: validate drew no viz, or a wrong one")
+    del trainer, sa
+    return secs
 
 
 def main():
@@ -4306,7 +4764,10 @@ def main():
     # ---- 15. the trainer's optimizers and settings, the reference .pth --
     per_path.update(settings(smi, dev))
 
-    # ---- 16. report -----------------------------------------------------
+    # ---- 16. evaluation: comp gen, FID/FVD, test_recon, the viz ---------
+    per_path.update(evaluation(smi, dev, gen))
+
+    # ---- 17. report -----------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():

@@ -77,6 +77,13 @@ class BaseParams:
     profile_dir = ""       # a torch.profiler trace of micro-steps
     profile_steps = (10, 15)  # [a, b)
     async_ckpt = True      # saves written on a background thread
+    # the epoch-end visualisation (`methods/viz.py`) after each validate
+    # with a checkpoint directory; its diffusion sampler (DPM-Solver++, or
+    # the config's own: False takes the 1000-step ancestral chain) and the
+    # image family's DDIM denoise row
+    use_viz = True
+    use_dpm = True
+    viz_denoise_rows = True
 
     def __init__(self, **overrides):
         for k, v in overrides.items():
@@ -144,6 +151,7 @@ class SAViLDMMoviE128(BaseParams):
     eval_interval = 1     # epochs between validations
     denoise_loss_w = 1.0
     use_bf16 = False      # compute dtype bf16, parameters f32
+    use_dpm = False       # the viz sampler: the ancestral chain
     # data (configs_base.py:_VideoCommon, _Common)
     dataset = "movi"
     movi_level = "e"
@@ -226,6 +234,7 @@ class SAViLDMMoviFile64(SAViLDMMoviE128):
     eval_interval = 2
     print_iter = 64
     use_ema = False
+    use_dpm = True  # savi_ldm_synthetic_params-res64's viz sampler
     train_batch_size = 8
     val_batch_size = 8
     dataset = "movi"

@@ -15,13 +15,16 @@ loss is weighted by the config's `<loss>_w` (the trainer's lookup: SA's
 `img_recon_loss_w`). COCO and VOC batches, which carry
 instance masks, are scored twice (the dual protocol of upstream
 img_based/test_seg.py): `inst/*` against the instance masks and `sem/*`
-against the semantic ones, both with COCO's overlap pixels taken out."""
+against the semantic ones, both with COCO's overlap pixels taken out.
+Every family but the readout gets its epoch-end visualisation
+(`methods/viz.py:build_viz_fn`)."""
 
 import torch
 
 from ..models.blocks import cosine_anneal
 from ..ops import metrics as M
 from ..training.trainer import Trainer
+from .viz import build_viz_fn
 
 
 def _mask_metrics(gt, pred_id, overlap=None, prefix=""):
@@ -80,10 +83,11 @@ DECODERS = {"SAViDiffusion": "dm_decoder", "SADiffusion": "dm_decoder",
 def build_method(model, datamodule, params, ckp_path=None):
     """-> a `Trainer` for `model` as `params` configures it."""
     name = params.model
+    viz = dict(viz_fn=build_viz_fn(params))
     if name in ("VQVAE", "PhysionReadout"):
         # the readout's accuracies come from its `compute_losses` at eval
         return Trainer(model, datamodule, params, ckp_path=ckp_path,
-                       seed=params.seed)
+                       seed=params.seed, **viz)
     if name in ("dVAE", "DVAE"):
         # the gumbel temperature: `init_tau` -> `final_tau` by a cosine
         # over `tau_decay_pct` of the run's micro-steps
@@ -93,7 +97,7 @@ def build_method(model, datamodule, params, ckp_path=None):
         return Trainer(model, datamodule, params, ckp_path=ckp_path,
                        seed=params.seed, step_scalars={
                            "gumbel_tau": lambda step: cosine_anneal(
-                               step, start, final, 0, tau_steps)})
+                               step, start, final, 0, tau_steps)}, **viz)
     if name in ("SlotFormer", "LDMSlotFormer"):
         # the loss decay: the factor rises from `loss_decay_min` to 1 by a
         # cosine over `loss_decay_pct` of the run's micro-steps (the JAX
@@ -106,7 +110,7 @@ def build_method(model, datamodule, params, ckp_path=None):
             scalars["loss_decay_factor"] = lambda step: cosine_anneal(
                 step, low, 1.0, 0, decay_steps)
         return Trainer(model, datamodule, params, ckp_path=ckp_path,
-                       seed=params.seed, step_scalars=scalars)
+                       seed=params.seed, step_scalars=scalars, **viz)
     if name not in SLOT_MODELS:
         raise ValueError(f"training {name!r} is not ported yet")
     dec_lr = getattr(params, "dec_lr", params.lr)  # SA, SAVi: no decoder
@@ -114,7 +118,7 @@ def build_method(model, datamodule, params, ckp_path=None):
         if name in DECODERS and dec_lr != params.lr else None
     return Trainer(model, datamodule, params, ckp_path=ckp_path,
                    lr_groups=lr_groups, seed=params.seed,
-                   host_metrics_fn=seg_metrics_fn)
+                   host_metrics_fn=seg_metrics_fn, **viz)
 
 
 def eval_setup(config, weight, cpu=False, data_root=""):

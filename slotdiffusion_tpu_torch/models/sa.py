@@ -183,13 +183,19 @@ class SA(SlotEncoding):
             init_slots = self.init_slots(img.shape[0])
         return self.slot_attention(feats, init_slots)
 
+    def decode(self, slots):
+        """slots [B, S, D] -> (image [B, H, W, 3], per-slot RGB [B, S, H,
+        W, 3], masks [B, S, H, W, 1]): the spatial broadcast decoder on
+        given slots (compositional generation decodes shuffled ones)."""
+        return self.decoder(slots)
+
     def forward(self, data_dict, train=True, testing=False):
         """-> {"slots"} with `testing`, else also "recon_img", "recons"
         and "masks" (the decoder's)."""
         slots = self.encode(data_dict["img"])
         if testing:
             return {"slots": slots}
-        recon_img, recons, masks = self.decoder(slots)
+        recon_img, recons, masks = self.decode(slots)
         return {"recon_img": recon_img, "recons": recons, "masks": masks,
                 "slots": slots}
 

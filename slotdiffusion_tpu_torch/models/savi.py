@@ -76,6 +76,12 @@ class SAVi(SlotEncoding):
             return torch.stack(slots, 1), torch.stack(masks, 1), vis_res
         return torch.stack(slots, 1), vis_res
 
+    def decode(self, slots):
+        """The baseline's spatial broadcast decoder on given slots: [BT,
+        S, D] -> (image [BT, H, W, 3], per-slot RGB [BT, S, H, W, 3],
+        masks [BT, S, H, W, 1])."""
+        return self.decoder(slots)
+
     def forward(self, data_dict, prev_slots=None, train=True,
                 testing=False):
         """The baseline: {"slots"} with `testing`, else also the
@@ -86,7 +92,7 @@ class SAVi(SlotEncoding):
         slots = self.encode(img, prev_slots)[0]
         if testing:
             return {"slots": slots}
-        recon_img, recons, masks = self.decoder(
+        recon_img, recons, masks = self.decode(
             slots.reshape(B * T, self.num_slots, self.slot_size))
         unf = lambda x: x.reshape(B, T, *x.shape[1:])
         return {"recon_img": unf(recon_img), "recons": unf(recons),

@@ -11,9 +11,11 @@ package has no kernel here.
 Weights come from an `.npz` in the JAX package's layout (`conv{i}_w`
 OIHW or HWIO, `conv{i}_b`, `lin{j}_w`), named by an explicit path or by
 `SLOTDIFFUSION_LPIPS_WEIGHTS`. The real VGG16/LPIPS weights are not in
-the repository; `save_random_lpips_npz` writes the JAX function's seeded
-stand-in bit for bit. The net is frozen: its weights are buffers, so a
-gradient reaches the inputs and never the weights.
+the repository: `convert_torch_lpips_npz` writes the `.npz` from a local
+torchvision VGG16 and `lpips` state dict, and `save_random_lpips_npz`
+writes the JAX function's seeded stand-in bit for bit. The net is frozen:
+its weights are buffers, so a gradient reaches the inputs and never the
+weights. A metric prints under `weights_label` (`ops/_provenance.py`).
 """
 
 import functools
@@ -23,6 +25,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ._provenance import file_sha256
+from ._provenance import weights_label as _weights_label
 
 # VGG16 features: conv channels per block, "M" a 2x2 max pool; the ReLU
 # outputs of these conv indices (0-based) are the taps
@@ -43,6 +48,14 @@ def weights_path(path=None):
 
 def lpips_available(path=None):
     return os.path.isfile(weights_path(path))
+
+
+def weights_label(name, path=None):
+    """The metric's name with its weights' provenance (`ops/_provenance`):
+    `lpips(untrained-weights)` for a seeded stand-in; the pin is the sha
+    of the published torchvision VGG16 state dict (vgg16-397923af.pth)."""
+    return _weights_label(name, weights_path(path),
+                          pinned_sha_prefix="397923af")
 
 
 class LPIPS(nn.Module):
@@ -138,5 +151,28 @@ def save_random_lpips_npz(out_path, seed=0):
     for j, tap in enumerate(_TAPS):
         ch = [c for c in _VGG_CFG if c != "M"][tap]
         out[f"lin{j}_w"] = rng.uniform(0, 2.0 / ch, (ch,)).astype(np.float32)
+    np.savez(out_path, **out)
+    return out_path
+
+
+def convert_torch_lpips_npz(vgg_state_path, lpips_state_path, out_path):
+    """A torchvision VGG16 state dict and the `lpips` package's linear
+    heads (`lin{j}.model.1.weight`) -> the loader's `.npz` (OIHW convs),
+    with the VGG file's sha256 (`__source_sha256__`). The `features.N`
+    keys are taken in numeric order: a lexicographic sort would put
+    `features.10` before `features.2` and scramble the convs. The JAX
+    package's converter writes the same arrays."""
+    vgg = torch.load(vgg_state_path, map_location="cpu")
+    lp = torch.load(lpips_state_path, map_location="cpu")
+    conv_keys = sorted((k for k in vgg if k.startswith("features")
+                        and k.endswith(".weight")),
+                       key=lambda k: int(k.split(".")[1]))
+    out = {}
+    for i, k in enumerate(conv_keys):
+        out[f"conv{i}_w"] = vgg[k].numpy()
+        out[f"conv{i}_b"] = vgg[k.replace("weight", "bias")].numpy()
+    for j in range(len(_TAPS)):
+        out[f"lin{j}_w"] = lp[f"lin{j}.model.1.weight"].numpy()
+    out["__source_sha256__"] = file_sha256(vgg_state_path)
     np.savez(out_path, **out)
     return out_path

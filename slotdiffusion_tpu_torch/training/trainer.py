@@ -53,7 +53,11 @@ both from one generator seeded from (seed + 1, step, batch index); then
 the host metrics (FG-ARI, mIoU, ...) of its outputs, where the method
 gives a function for them (a VQVAE: losses only, as in the JAX
 trainer). The means are weighted by batch size and logged with the
-`val/` prefix.
+`val/` prefix. Then, with a checkpoint directory and the config's
+`use_viz` (True by default), `viz_fn(trainer, first val batch, its
+outputs, step, <ckp_path>/viz)` draws them (`methods/viz.py`); an error
+there is printed and training goes on, as in the JAX trainer
+(training/trainer.py:625-634).
 """
 
 import json
@@ -151,10 +155,12 @@ class Trainer:
 
     def __init__(self, model, datamodule, params, ckp_path=None,
                  lr_groups=None, seed=0, host_metrics_fn=None,
-                 step_scalars=None):
+                 step_scalars=None, viz_fn=None):
         self.model = model
         self.data = datamodule
+        self.params = params
         self.ckp_path = ckp_path
+        self.viz_fn = viz_fn  # the epoch-end visualisation
         self.device = next(model.parameters()).device
         graft_pretrained(model, params)
         for module in model.frozen_modules:
@@ -370,11 +376,15 @@ class Trainer:
         if loader is None:
             return {}
         self.model.eval()
-        meters = {}
+        meters, first = {}, None
+        viz = self.viz_fn is not None and bool(self.ckp_path) and getattr(
+            self.params, "use_viz", True)
         for i, batch in enumerate(loader):
             if max_steps is not None and i >= max_steps:
                 break
             out, losses = self.eval_step(batch, i)
+            if i == 0 and viz:
+                first = (batch, out)
             if self.host_metrics_fn is not None:
                 losses.update(self.host_metrics_fn(batch, out))
             n = batch["img"].shape[0] if "img" in batch \
@@ -384,6 +394,12 @@ class Trainer:
         results = {f"val/{k}": m.avg for k, m in meters.items()}
         if results:
             self.logger.log(results, self.step)
+        if first is not None:
+            viz_dir = os.path.join(self.ckp_path, "viz")
+            try:
+                self.viz_fn(self, *first, self.step, viz_dir)
+            except Exception as e:  # a drawing never stops training
+                print(f"[viz] skipped: {type(e).__name__}: {e}", flush=True)
         return results
 
     def state_dict(self):

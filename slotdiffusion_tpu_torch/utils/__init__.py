@@ -1,6 +1,7 @@
 """Host-side helpers of the port (own copies of the JAX package's
 utils/misc.py:17-75): the running mean of a metric, pickle/JSON files,
-sorted globs, the datasets' cache directory."""
+sorted globs, the datasets' cache directory. `utils.vis` draws masks and
+grids, `utils.png` writes and reads PNG and APNG files."""
 
 import glob
 import json
@@ -9,7 +10,8 @@ import os
 import pickle
 
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def cache_dir():

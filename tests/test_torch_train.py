@@ -317,9 +317,11 @@ def test_whole_train_step_matches_jax(pair, jax_loss_and_grads):
 # ---- the trainer on the CPU ----------------------------------------------
 
 def _trainer(tmp_path, seed=0, ckp="ck", **overrides):
+    # no epoch-end viz: each `fit` here validates twice, and the tiny
+    # flagship's viz is a 50-step chain (tests/test_torch_viz.py holds it)
     cfg = tiny_config(use_pallas=True).copy(
         max_epochs=2, print_iter=1, save_interval=0.5, use_ema=True,
-        seed=seed, **overrides)
+        seed=seed, use_viz=False, **overrides)
     cfg.dec_dict["unet_dict"]["dropout"] = 0.1  # dropout from the generator
     model = build_model(cfg, device="cpu")
     init_random_(model, torch.Generator().manual_seed(0))

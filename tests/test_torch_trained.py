@@ -300,9 +300,10 @@ def test_entry_points_on_the_tree(trained, tree, jax_val, tmp_path, capsys):
         all(np.isfinite(v) for v in seg[1].values())
 
     rec = _script("test_recon_torch").main(
-        common + ["--bs", "2", "--max_batches", "1"])
+        common + ["--bs", "2", "--max_batches", "1", "--out_dir",
+                  str(tmp_path / "recon")])
     out = capsys.readouterr().out
-    assert "LPIPS, FID and FVD are not computed" in out and "FINAL mse=" in out
+    assert "LPIPS is not computed" in out and "FINAL mse=" in out
     assert set(rec) == {"mse", "psnr", "ssim"} and \
         all(np.isfinite(v) for v in rec.values())
 

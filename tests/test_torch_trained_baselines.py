@@ -207,7 +207,7 @@ def _jax_val_metrics(t, batches):
 
 
 @pytest.mark.parametrize("key", ["savi", "slate", "steve"])
-def test_validate_and_test_seg_match_jax(trained, key, capsys):
+def test_validate_and_test_seg_match_jax(trained, key, capsys, tmp_path):
     """`Trainer.validate` and `scripts/test_seg_torch.py` (video: the
     training clip length, then the whole video in chunks with the slots
     carried over) on the config's validation split: FG-ARI, ARI, mIoU,
@@ -242,6 +242,7 @@ def test_validate_and_test_seg_match_jax(trained, key, capsys):
         assert abs(seg[0][k] - w) <= VAL_METRIC_TOL, (k, seg[0][k], w)
     assert all(np.isfinite(v) for v in seg[-1].values())
     rec = _script("test_recon_torch").main(
-        common + ["--bs", "2", "--max_batches", "1"])
+        common + ["--bs", "2", "--max_batches", "1", "--out_dir",
+                  str(tmp_path)])
     assert set(rec) == {"mse", "psnr", "ssim"} and \
         all(np.isfinite(v) for v in rec.values())

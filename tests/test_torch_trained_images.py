@@ -221,7 +221,7 @@ def _jax_val_metrics(t, batches):
 
 
 @pytest.mark.parametrize("key", ["sa", "sa_ldm"])
-def test_validate_and_test_seg_match_jax(trained, key, capsys):
+def test_validate_and_test_seg_match_jax(trained, key, capsys, tmp_path):
     """`Trainer.validate` and `scripts/test_seg_torch.py` on the config's
     32 validation images: FG-ARI, ARI, mIoU, FG-mIoU and mBO within 1e-4
     of the JAX `seg_metrics_fn` on the JAX model's outputs for the same
@@ -251,6 +251,7 @@ def test_validate_and_test_seg_match_jax(trained, key, capsys):
             (k, res[f"val/{k}"], w)
         assert abs(seg[k] - w) <= VAL_METRIC_TOL, (k, seg[k], w)
     rec = _script("test_recon_torch").main(
-        common + ["--bs", "2", "--max_batches", "1"])
+        common + ["--bs", "2", "--max_batches", "1", "--out_dir",
+                  str(tmp_path)])
     assert set(rec) == {"mse", "psnr", "ssim"} and \
         all(np.isfinite(v) for v in rec.values())

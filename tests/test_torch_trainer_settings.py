@@ -124,6 +124,24 @@ def test_trainer_keys_match_the_jax_config(name):
             tuple(want) if k == "profile_steps" else want), (name, k)
 
 
+# the epoch-end visualisation's keys and the default the JAX package reads
+# each with (methods/viz.py, training/trainer.py)
+VIZ_KEYS = {"use_dpm": True, "use_viz": True, "viz_denoise_rows": True}
+
+
+@pytest.mark.parametrize("name", sorted(JAX_CONFIGS))
+def test_viz_keys_match_the_jax_config(name):
+    """use_dpm (the viz sampler: False on the MOVi and Physion
+    SAViDiffusion configs, whose JAX base `SAViLDMBase` takes the
+    ancestral chain; True on the synthetic res64 ones), use_viz and
+    viz_denoise_rows: each port config's value is what the JAX package
+    reads from its JAX config."""
+    ref = load_params(os.path.join(REPO, "configs", JAX_CONFIGS[name]))
+    mine = configs.get_config(name)
+    for k, default in VIZ_KEYS.items():
+        assert getattr(mine, k) == ref.get(k, default), (name, k)
+
+
 # ---- the JAX trainer and the port's on the same settings -----------------
 
 N_VAL = 6  # val batches of 8
