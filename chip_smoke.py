@@ -128,8 +128,9 @@ Phases (one flushed line each, with elapsed seconds):
      with the launch counts set to 0 before and read after (61 GN and
      32 attention a UNet call through the model dtype's entries, 6 slot
      attention): DPM-Solver++ multistep, singlestep_fixed and adaptive
-     (order 3), noise prediction, taylor and logSNR (20 steps), DDIM (200
-     steps) and the ancestral chain (1000) in f32; multistep and DDIM in
+     (order 3), noise prediction, taylor and logSNR (20 steps), DDIM (50
+     steps, `FLAGSHIP_DDIM_STEPS`; 200 before phase 17 took their time)
+     and the ancestral chain (1000) in f32; multistep and DDIM in
      bf16; DPM (dynamic thresholding) and DDIM (clamp, 50 steps) of the
      flagship UNet over 64x64 pixels (its 49,152-value GN groups through the GN
      kernel's two-pass path), and that decoder's `sample` serving surface
@@ -277,14 +278,34 @@ Phases (one flushed line each, with elapsed seconds):
      with a seeded LPIPS `.npz`, FID and FVD, then again over its cache
      (no kernel, no UNet call, the same FINAL line), its 64 frame dumps
      read back by the port's PNG reader; the viz: the flagship's callback
-     through its config's 1000-step ancestral chain on 2 videos x 6
-     frames (launches per UNet call exact), SA's (`SACLEVRTex128`) on 8
+     through DPM-Solver++ (`VIZ_DPM`; its config's 1000-step ancestral
+     chain, 30-43 s, gave way to phase 17's time, and phase 10 runs that
+     chain) on 2 videos x 6 frames (launches per UNet call exact), SA's
+     (`SACLEVRTex128`) on 8
      images, and one `Trainer.validate` with a checkpoint directory that
      draws it, each PNG / APNG read back at its expected size. The
      earlier phases that train or validate with a checkpoint directory
      (5, 7, 9, 11-15) set `use_viz=False`: the flagship's chain takes ~30
      s a validation, and this phase draws every kind of viz;
- 17. one JSON line listing every kernel (times per serving request;
+ 17. scale-out and cross-device export (`parallel/`, `serving.py`): the
+     flagship at full width (random weights, seed 0) trains SCALE_STEPS
+     steps at SCALE_CLIPS clips a global step in
+     `torch.cuda.device_count()` ranks over NCCL (one process a card,
+     started through `parallel.maybe_initialize_distributed` from
+     torchrun's variables), data parallel (DDP), each rank's launches of
+     GN, attention and slot attention counted in every step, its step
+     seconds and one all-reduce of the step's gradient bytes timed
+     alone; the losses against one process on the same global batch
+     (SCALE_LOSS_RTOL), rank 0's ckpt_last loaded into that one-process
+     trainer and its state read back bit for bit; with 2 or more cards
+     TP = 2 and FSDP runs too, with one card 2 ranks of DDP on that card
+     over gloo (CUDA tensors) at 2 clips a rank; the world size, backend
+     and plans on a line of their own. Then `encode`, `denoise` and
+     `sample` exported for `cuda` by a process that sees no card
+     (`CUDA_VISIBLE_DEVICES=""`, `save_artifact(devices=("cuda",))`),
+     loaded on the card beside the same surfaces exported on the card:
+     the answers must be bit-identical; export and load seconds;
+ 18. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
      `res64_*`: slot attention at the 64x64 model's shape; `img_*`: slot
      attention at the image shape, per image `encode`; `savi_train_*`,
@@ -413,9 +434,11 @@ STAGE2_CLIPS = 4
 # pixel decoder's DDIM (the widths never are). The pixel decoder's DDIM
 # takes PIXEL_DDIM_STEPS steps, not the default 200: at 64x64 a UNet call
 # over the 12 frames takes 0.22 s, and 200 of them put the script past
-# half its time limit (the flagship's DDIM keeps its 200)
+# half its time limit; the flagship's DDIM takes FLAGSHIP_DDIM_STEPS too
+# since phase 17 came (its 200 steps with their twins and controls took
+# ~30 s a dtype)
 DPM = dict(use_dpm=True, steps=20, order=3)
-PIXEL_DDIM_STEPS = 50
+PIXEL_DDIM_STEPS = FLAGSHIP_DDIM_STEPS = 50
 SAMPLER_RUNS = (
     ("dpm++ multistep", "f32", dict(DPM, method="multistep"), None),
     ("dpm++ singlestep_fixed", "f32", dict(DPM, method="singlestep_fixed"),
@@ -426,10 +449,12 @@ SAMPLER_RUNS = (
      dict(DPM, algorithm_type="dpmsolver"), None),
     ("dpm++ taylor", "f32", dict(DPM, solver_type="taylor"), None),
     ("dpm++ logSNR", "f32", dict(DPM, skip_type="logSNR"), None),
-    ("ddim", "f32", dict(use_dpm=False, use_ddim=True), None),
+    ("ddim", "f32", dict(use_dpm=False, use_ddim=True,
+                         steps=FLAGSHIP_DDIM_STEPS), None),
     ("ancestral", "f32", dict(use_dpm=False), 2),
     ("dpm++ multistep", "bf16", dict(DPM, method="multistep"), None),
-    ("ddim", "bf16", dict(use_dpm=False, use_ddim=True), None),
+    ("ddim", "bf16", dict(use_dpm=False, use_ddim=True,
+                          steps=FLAGSHIP_DDIM_STEPS), None),
     ("dpm++ (dynamic thresholding)", "pixel", dict(use_dpm=True), None),
     ("ddim (clamp)", "pixel", dict(use_dpm=False, use_ddim=True,
                                    steps=PIXEL_DDIM_STEPS), 2),
@@ -4044,6 +4069,9 @@ def settings(smi, dev, phase="phase 15"):
 EVAL_VIDEOS, EVAL_FRAMES, VIZ_FRAMES, RECON_BATCHES = 2, 16, 6, 2
 EVAL_FEATURE_TOL = 1e-3
 VIZ_STEP = 7
+# the flagship's viz samples with DPM-Solver++ (20 UNet calls) here, not
+# its config's 1000-step chain: the script's time limit (phase 17)
+VIZ_DPM = True
 
 
 def card_vs_cpu(fn, x, what, unit, phase):
@@ -4326,8 +4354,9 @@ def metrics_and_recon(cfg, model, video, frames, dev, smi, tmp, paths,
 
 
 def visualise(cfg, model, dev, smi, tmp, paths, phase):
-    """The flagship's video viz (its config's sampler, the 1000-step
-    ancestral chain) and SA's image viz called directly, then one
+    """The flagship's video viz (through DPM-Solver++, VIZ_DPM: its
+    config's sampler, the 1000-step ancestral chain, took 30-43 s here and
+    phase 10 runs that chain) and SA's image viz called directly, then one
     `Trainer.validate` of SA that draws its viz. -> {part: seconds}."""
     import types
 
@@ -4342,14 +4371,16 @@ def visualise(cfg, model, dev, smi, tmp, paths, phase):
     g = torch.Generator(device=dev).manual_seed(18)
     clips = torch.rand(EVAL_VIDEOS, VIZ_FRAMES, H, W, 3, generator=g,
                        device=dev) * 2 - 1
-    fake = types.SimpleNamespace(params=cfg, model=model, device=dev,
+    vcfg = cfg.copy(use_dpm=VIZ_DPM)
+    fake = types.SimpleNamespace(params=vcfg, model=model, device=dev,
                                  logger=types.SimpleNamespace())
     vdir = os.path.join(tmp, "video")
     with unet_calls(model.dm_decoder, [0]) as calls:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.time()
-        viz.build_viz_fn(cfg)(fake, {"img": clips.cpu()}, {}, VIZ_STEP, vdir)
+        viz.build_viz_fn(vcfg)(fake, {"img": clips.cpu()}, {}, VIZ_STEP,
+                               vdir)
         torch.cuda.synchronize()
         secs["viz_video"] = time.time() - t0
         paths["viz_video"] = ops.launch_counts()
@@ -4358,11 +4389,13 @@ def visualise(cfg, model, dev, smi, tmp, paths, phase):
     unet_launches(paths["viz_video"], n_calls, VIZ_FRAMES,
                   f"{phase}: viz (video)")
     stem = os.path.join(vdir, f"step{VIZ_STEP}_video_samples")
-    ok = n_calls == model.dm_decoder.num_timesteps and read_back(
+    dm = model.dm_decoder
+    want_calls = dm.dpm_steps if VIZ_DPM else dm.num_timesteps
+    ok = n_calls == want_calls and read_back(
         stem + ".png", (3 * H + 4, VIZ_FRAMES * W, 3)) and read_back(
         stem + ".apng", (H, W, 3), VIZ_FRAMES)
-    log(f"{phase}: the flagship's viz (use_dpm {cfg.use_dpm}: the ancestral "
-        f"chain) on {EVAL_VIDEOS} videos x {VIZ_FRAMES} frames: "
+    log(f"{phase}: the flagship's viz (use_dpm {vcfg.use_dpm}) on "
+        f"{EVAL_VIDEOS} videos x {VIZ_FRAMES} frames: "
         f"{secs['viz_video']:.2f} s, {n_calls} UNet calls, launches "
         f"{nonzero(paths['viz_video'])}; its grid and APNG read back "
         f"{'ok' if ok else 'FAIL'} [{smi}]")
@@ -4430,6 +4463,363 @@ def visualise(cfg, model, dev, smi, tmp, paths, phase):
         raise SystemExit(f"{phase}: validate drew no viz, or a wrong one")
     del trainer, sa
     return secs
+
+
+# phase 17: scale-out and cross-device export (see the module docstring)
+SCALE_STEPS, SCALE_CLIPS, GLOO_RANKS = 3, 4, 2
+# the ranks' losses against one process on the same global batch: the
+# batch is split, so cuBLAS and cuDNN may take other algorithms and sum
+# in another order; the worst reading was 4.12e-06 (2 gloo ranks on one
+# card) and 3.51e-06 (TP 2 x 2 on four), so about 12x that
+SCALE_LOSS_RTOL = 5e-5
+# each run's trained state (rank 0's ckpt_last: parameters, EMA, Adam's
+# moments) against the one process's, each kind within this share of its
+# largest value (`state_distance`), as the CPU tests' STATE_TOL: the
+# warm-up's small LR hides a gradient left unsynchronised (or summed, not
+# averaged) from the losses, not from Adam's moments
+SCALE_STATE_TOL = 1e-3
+# the CPU side of the cross-device export: a process that sees no card
+# builds the flagship (seed 0) and exports each surface for `cuda`
+CROSS_EXPORT = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+assert not torch.cuda.is_available(), "the exporting process sees a card"
+from slotdiffusion_tpu_torch import configs, serving
+from slotdiffusion_tpu_torch.models import build_model, init_random_
+cfg = configs.SAViLDMMoviE128()
+model = build_model(cfg, device="cpu")
+init_random_(model, torch.Generator().manual_seed(0))
+secs = {}
+for what in ("encode", "sample"):
+    fn, example = serving.build_serving_fn(
+        model, what, serving.data_shape(cfg, 2))
+    t = time.time()
+    serving.save_artifact(os.path.join(sys.argv[2], what + "_cpu.pt2"), fn,
+                          example, devices=("cuda",))
+    secs[what] = time.time() - t
+print("CROSS_EXPORT " + json.dumps(secs), flush=True)
+"""
+
+
+def scale_fit(dev, spec, mesh, label):
+    """The flagship (seed 0) trained SCALE_STEPS steps of `spec["clips"]`
+    global clips through `build_method` on `mesh` (None: one process),
+    with a `StepReport` logger on every rank. -> (trainer, report)."""
+    import torch
+    from slotdiffusion_tpu_torch import configs, ops
+    from slotdiffusion_tpu_torch.data.loader import DataModule
+    from slotdiffusion_tpu_torch.data.synthetic import synthetic_video_splits
+    from slotdiffusion_tpu_torch.methods.build import build_method
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    from slotdiffusion_tpu_torch.parallel import data_coords
+    cfg = configs.SAViLDMMoviE128().copy(
+        print_iter=1, max_steps=SCALE_STEPS, use_viz=False,
+        async_ckpt=False, save_interval=100.0, save_epoch_end=False,
+        train_batch_size=spec["clips"], fsdp=spec.get("fsdp", False))
+    t0 = time.time()
+    model = build_model(cfg, device=dev)
+    init_random_(model, torch.Generator().manual_seed(0))
+    train, _ = synthetic_video_splits(cfg, spec["clips"] * SCALE_STEPS, 0)
+    index, count = data_coords(mesh)
+    data = DataModule(train, None, spec["clips"], seed=0,
+                      process_index=index, process_count=count)
+    trainer = build_method(model, data, cfg, ckp_path=spec.get("ckp"),
+                           mesh=mesh)
+    trainer.logger = report = StepReport(label)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    ops.reset_launch_counts()
+    trainer.fit(san_check_val_step=0)
+    log(f"{label}: built, initialised and laid out in {t1 - t0:.1f}s, "
+        f"fit (with its ckpt_last) {time.time() - t1:.1f}s")
+    return trainer, report
+
+
+def allreduce_ms(numel, dev, reps=5):
+    """CUDA-event ms of one all-reduce of `numel` f32 values over the
+    default group, the median of `reps` after a warm-up."""
+    import torch
+    import torch.distributed as dist
+    buf = torch.ones(numel, device=dev)
+    dist.all_reduce(buf)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        dist.all_reduce(buf)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
+def scale_rank(rank, world, port, spec):
+    """One rank of a phase 17 run (spawned by `torch.multiprocessing`):
+    joins the group through `maybe_initialize_distributed` from
+    torchrun's variables (NCCL on the card of its local rank; gloo with
+    CUDA tensors where `spec["backend"]` says so), trains, checks its
+    launches in every step, and writes its result as JSON."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # torchrun's variables, and the explicit opt-in that a one-rank run
+    # needs (WORLD_SIZE 1 is a single process to the detection)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank % torch.cuda.device_count()),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      SLOTDIFFUSION_MULTIHOST="1")
+    from slotdiffusion_tpu_torch.parallel import (
+        make_mesh, maybe_initialize_distributed)
+    gloo = spec["backend"] == "gloo"
+    if gloo:  # every rank on the one card
+        torch.cuda.set_device(0)
+    if not maybe_initialize_distributed(cpu=gloo, verbose=False):
+        raise SystemExit(f"rank {rank}: no multi-process launch detected")
+    if dist.get_backend() != spec["backend"]:
+        raise SystemExit(f"rank {rank}: backend {dist.get_backend()}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    label = f"phase 17 {spec['name']} rank {rank}/{world}"
+    trainer, report = scale_fit(dev, spec, make_mesh(model=spec["tp"]),
+                                label)
+    totals = {}
+    for st in report.steps:
+        check_launches(st["launches"], f"{label}: a training step", False)
+        for k, n in st["launches"].items():
+            totals[k] = totals.get(k, 0) + n
+    numel = sum(p.numel() for p in trainer.model.parameters()
+                if p.requires_grad)
+    result = {"rank": rank, "plan": trainer.plan.kind,
+              "losses": [st["train/total_loss"] for st in report.steps],
+              "step_seconds": [st["step_seconds"] for st in report.steps],
+              "launches": totals, "grad_values": numel,
+              "allreduce_ms": allreduce_ms(numel, dev)}
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def state_distance(saved, live):
+    """How far two trainer states are apart, by kind: the parameters, the
+    EMA shadow and each of the optimizer's per-parameter moments. For
+    each kind, the largest |saved - live| of its tensors over the largest
+    |live| of them: a gradient that is zero but for rounding (a bias
+    before a GroupNorm) gives Adam's moments of that tensor no scale of
+    their own. -> {kind: (that share, the tensor with the largest
+    difference)}."""
+    import torch
+    kinds = {"parameters": [(k, v, live["model"][k])
+                            for k, v in saved["model"].items()]}
+    if saved["ema"] is not None:
+        kinds["EMA"] = [(k, v, live["ema"]["shadow"][k])
+                        for k, v in saved["ema"]["shadow"].items()]
+    adam = live["optimizer"]["core"]["state"]
+    for i, st in saved["optimizer"]["core"]["state"].items():
+        for n, v in st.items():
+            if torch.is_tensor(v) and v.dim():
+                kinds.setdefault(n, []).append((i, v, adam[i][n]))
+    out = {}
+    for kind, pairs in kinds.items():
+        diff, scale = (0.0, None), 0.0
+        for name, a, b in pairs:
+            b = b.to(torch.float64)
+            d = (a.to(b.device, torch.float64) - b).abs().max().item()
+            diff = max(diff, (d, name), key=lambda x: x[0])
+            scale = max(scale, b.abs().max().item())
+        out[kind] = (diff[0] / max(scale, 1e-30), diff[1])
+    return out
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def scale_out(smi, dev, phase="phase 17"):
+    """Phase 17. -> {path: {kernel: launches}}."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    from slotdiffusion_tpu_torch import configs, ops, serving
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    from slotdiffusion_tpu_torch.training.checkpoint import load_checkpoint
+
+    t_phase = time.time()
+    count = torch.cuda.device_count()
+    tmp = tempfile.mkdtemp()
+    paths = {}
+    try:
+        # the CPU export runs in its own process while the card trains
+        export = subprocess.Popen(
+            [sys.executable, "-c", CROSS_EXPORT,
+             os.path.dirname(os.path.abspath(__file__)), tmp],
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            ref_trainer, ref = scale_fit(dev, {"clips": SCALE_CLIPS}, None,
+                                         f"{phase} one process")
+            ref_losses = [st["train/total_loss"] for st in ref.steps]
+            paths["scale_out_reference"] = {
+                k: sum(st["launches"][k] for st in ref.steps)
+                for k in ops.launch_counts()}
+            runs = [dict(name="ddp", backend="nccl", world=count, tp=1,
+                         clips=SCALE_CLIPS)]
+            if count >= 2:
+                runs += [dict(name="tp", backend="nccl", world=count, tp=2,
+                              clips=SCALE_CLIPS),
+                         dict(name="fsdp", backend="nccl", world=count,
+                              tp=1, fsdp=True, clips=SCALE_CLIPS)]
+            else:
+                runs.append(dict(name="ddp-gloo", backend="gloo",
+                                 world=GLOO_RANKS, tp=1, clips=SCALE_CLIPS))
+            for run in runs:
+                run["ckp"] = os.path.join(tmp, run["name"])
+            log(f"{phase}: {count} card(s); runs " + ", ".join(
+                f"{r['name']} ({r['world']} ranks over {r['backend']}, TP "
+                f"{r['tp']}{', FSDP' if r.get('fsdp') else ''}, "
+                f"{r['clips']} clips a global step)" for r in runs))
+            failed = []
+            for run in runs:
+                run["out"] = os.path.join(tmp, run["name"] + "_out")
+                os.makedirs(run["out"])
+                t = time.time()
+                mp.start_processes(scale_rank, args=(
+                    run["world"], free_port(), run), nprocs=run["world"],
+                    start_method="spawn")
+                wall = time.time() - t
+                ranks = []
+                for r in range(run["world"]):
+                    with open(os.path.join(run["out"],
+                                           f"rank{r}.json")) as f:
+                        ranks.append(json.load(f))
+                    paths[f"scale_out_{run['name']}_rank{r}"] = \
+                        ranks[-1]["launches"]
+                rel = max(abs(a - b) / abs(b) for a, b in zip(
+                    ranks[0]["losses"], ref_losses))
+                ok = rel <= SCALE_LOSS_RTOL and all(
+                    rk["losses"] == ranks[0]["losses"] for rk in ranks)
+                if not ok:
+                    failed.append(run["name"])
+                for rk in ranks:
+                    step = statistics.median(rk["step_seconds"])
+                    log(f"{phase}: {run['name']} rank {rk['rank']} "
+                        f"({rk['plan']}): steps " + " ".join(
+                            f"{x:.3f}" for x in rk["step_seconds"]) +
+                        f" s (host clock); one all-reduce of the step's "
+                        f"{rk['grad_values'] / 1e6:.1f}M gradient values "
+                        f"timed alone {rk['allreduce_ms']:.2f} ms = "
+                        f"{rk['allreduce_ms'] / 1e3 / step:.3f} of the "
+                        f"median step; launches {rk['launches']} [{smi}]")
+                log(f"{phase}: {run['name']}: {run['world']} ranks over "
+                    f"{run['backend']} in {wall:.1f}s wall; losses " +
+                    " ".join(f"{x:.6f}" for x in ranks[0]["losses"]) +
+                    " vs one process " +
+                    " ".join(f"{x:.6f}" for x in ref_losses) +
+                    f": max rel {rel:.2e} (tol {SCALE_LOSS_RTOL:.0e}) "
+                    f"{'ok' if ok else 'FAIL'}")
+            # what each run trained (rank 0's ckpt_last) against what the
+            # one process trained
+            for run in runs:
+                ckpt = os.path.join(run["ckp"], "ckpt_last.pt")
+                saved = load_checkpoint(ckpt)
+                far = state_distance(saved, ref_trainer.state_dict())
+                ok = max(d for d, _ in far.values()) <= SCALE_STATE_TOL \
+                    and saved["step"] == ref_trainer.step == SCALE_STEPS
+                log(f"{phase}: {run['name']}: rank 0's ckpt_last "
+                    f"({os.path.getsize(ckpt) / 2 ** 30:.2f} GiB) against "
+                    f"the one process's state, each kind's largest "
+                    f"difference over its largest value: " + ", ".join(
+                        f"{k} {d:.2e} ({n})" for k, (d, n) in far.items()) +
+                    f" (tol {SCALE_STATE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append(f"{run['name']} state")
+            # rank 0's DDP checkpoint loaded into the one-process trainer
+            ckpt = os.path.join(runs[0]["ckp"], "ckpt_last.pt")
+            ref_trainer.load_checkpoint(ckpt)
+            saved, live = load_checkpoint(ckpt), ref_trainer.state_dict()
+            same = all(d == 0 for d, _ in state_distance(
+                saved, live).values()) and \
+                live["step"] == saved["step"]
+            log(f"{phase}: that ckpt_last loaded into the one process and "
+                f"read back bit for bit {'ok' if same else 'FAIL'}")
+            if not same:
+                failed.append("checkpoint")
+            del ref_trainer, saved, live
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            out, _ = export.communicate(timeout=600)
+        if export.returncode:
+            raise SystemExit(f"{phase}: the cross-device export failed:\n"
+                             f"{out[-4000:]}")
+        cpu_secs = json.loads(next(
+            line for line in out.splitlines()
+            if line.startswith("CROSS_EXPORT "))[len("CROSS_EXPORT "):])
+
+        # the same surfaces exported on the card, then both loaded there
+        cfg = configs.SAViLDMMoviE128()
+        model = build_model(cfg, device=dev)
+        init_random_(model, torch.Generator().manual_seed(0))
+        card_secs, load_secs, answers = {}, {}, {}
+        video, x_t, t_model = serving_inputs(cfg, dev)
+        for what in ("encode", "sample"):
+            fn, example = serving.build_serving_fn(
+                model, what, serving.data_shape(cfg, 2), graphed=False)
+            t = time.time()
+            serving.save_artifact(os.path.join(tmp, what + "_card.pt2"), fn,
+                                  example)
+            card_secs[what] = time.time() - t
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        for where in ("cpu", "card"):
+            calls = {}
+            for what in ("encode", "sample"):
+                t = time.time()
+                calls[what], header = serving.load_artifact(
+                    os.path.join(tmp, f"{what}_{where}.pt2"), "cuda")
+                load_secs[f"{what}_{where}"] = time.time() - t
+            slots, masks = calls["encode"](video)
+            # `denoise`: the UNet program the `sample` artifact chains,
+            # called on its own
+            with torch.inference_mode():
+                denoised = calls["sample"].module.denoise(
+                    x_t, t_model, slots.reshape(-1, *slots.shape[-2:]))
+            answers[where] = (slots, masks, denoised,
+                              calls["sample"](0, slots))
+        torch.cuda.synchronize()
+        paths["cross_export"] = ops.launch_counts()
+        check_launches(paths["cross_export"], f"{phase}: the artifacts",
+                       False)
+        same = [torch.equal(a, b) for a, b in zip(answers["cpu"],
+                                                  answers["card"])]
+        log(f"{phase}: artifacts exported for cuda with no card visible "
+            "(export s " + ", ".join(f"{k} {v:.1f}"
+                                     for k, v in cpu_secs.items()) +
+            ") and on the card (" + ", ".join(
+                f"{k} {v:.1f}" for k, v in card_secs.items()) +
+            "); load s " + ", ".join(f"{k} {v:.1f}"
+                                     for k, v in load_secs.items()) +
+            f"; slots, masks, denoise, sample bit-identical {same} "
+            f"[{smi}]")
+        if not all(same):
+            failed.append("cross-device export")
+        if failed:
+            raise SystemExit(f"{phase}: {failed}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"{phase}: took {time.time() - t_phase:.1f}s")
+    return paths
 
 
 def main():
@@ -4767,7 +5157,10 @@ def main():
     # ---- 16. evaluation: comp gen, FID/FVD, test_recon, the viz ---------
     per_path.update(evaluation(smi, dev, gen))
 
-    # ---- 17. report -----------------------------------------------------
+    # ---- 17. scale-out across processes, cross-device export ------------
+    per_path.update(scale_out(smi, dev))
+
+    # ---- 18. report -----------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():

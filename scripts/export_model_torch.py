@@ -8,16 +8,24 @@ counterpart of scripts/export_model.py).
         --what encode --bs 8 --out exports/img_encode.pt2   # images
 
 The artifact reloads with `torch` and the port's `ops` package alone (no
-model class, no config), on the device it was exported for:
+model class, no config), on a device it was exported for:
 
     from slotdiffusion_tpu_torch.serving import load_artifact
     call, header = load_artifact("exports/encode.pt2")
     slots, masks = call(video)          # [B, T, H, W, 3] float32
     slots, masks = call(images)         # an image model's: [B, H, W, 3]
 
-It runs on the CUDA card unless `--cpu` is given, and exits with an error
-when there is no card and no `--cpu`. Without `--weight` it exports random
-weights made from seed 0 and says so. `--check` reloads the artifact and
+It traces on the CUDA card unless `--cpu` is given, and exits with an
+error when there is no card and no `--cpu`. `--devices cuda cpu` (the JAX
+script's `--platforms`) writes one program set per device from that one
+trace, so a host without a card exports for the card:
+
+    python scripts/export_model_torch.py --params SAViLDMMoviE128 \
+        --what encode --out exports/encode.pt2 --cpu --devices cuda cpu
+    call, header = load_artifact("exports/encode.pt2", "cuda")  # a card
+
+Without `--weight` it exports random weights made from seed 0 and says
+so. `--check` reloads the artifact on a device it holds that is here and
 runs it on zeros, printing the output shapes and dtypes.
 """
 
@@ -46,7 +54,11 @@ def main(argv=None):
     parser.add_argument("--bf16", action="store_true",
                         help="the model in bf16 (use_bf16)")
     parser.add_argument("--check", action="store_true")
-    parser.add_argument("--cpu", action="store_true")
+    parser.add_argument("--cpu", action="store_true",
+                        help="trace on the CPU")
+    parser.add_argument("--devices", nargs="+", choices=("cuda", "cpu"),
+                        help="the devices to write programs for (default: "
+                             "the tracing device)")
     args = parser.parse_args(argv)
 
     import torch
@@ -73,22 +85,29 @@ def main(argv=None):
         graphed=False)
     t = time.perf_counter()
     header = serving.save_artifact(
-        args.out, fn, example,
+        args.out, fn, example, devices=args.devices,
         meta={"params": args.params, "what": args.what,
               "weight": args.weight or "random (seed 0)",
               "bf16": args.bf16})
     print(f"exported {args.what} -> {args.out} "
           f"({os.path.getsize(args.out) / 1e6:.1f} MB) in "
-          f"{time.perf_counter() - t:.1f} s for {header['device']}, args "
+          f"{time.perf_counter() - t:.1f} s for "
+          f"{', '.join(header['devices'])}, args "
           f"{header['args']}", flush=True)
 
     if args.check:
-        call, header = serving.load_artifact(args.out)
+        here = [d for d in header["devices"]
+                if d == "cpu" or torch.cuda.is_available()]
+        if not here:
+            print("check skipped: no device the artifact is for is here",
+                  flush=True)
+            return
+        call, header = serving.load_artifact(args.out, here[0])
         outs = call(*[torch.zeros(a["shape"], dtype=getattr(torch,
                                                             a["dtype"]))
                       for a in header["args"]])
         outs = outs if isinstance(outs, tuple) else (outs,)
-        print(f"check OK on {header['device']}: outputs " + ", ".join(
+        print(f"check OK on {here[0]}: outputs " + ", ".join(
             f"{tuple(o.shape)} {str(o.dtype).removeprefix('torch.')}"
             for o in outs), flush=True)
 

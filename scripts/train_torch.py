@@ -105,7 +105,24 @@ the slot MSE's loss decay anneals by the step.
 
 `--bf16` (`use_bf16`, the JAX `scripts/train.py --bf16`) computes in bf16
 with f32 master weights, gradients and Adam state; the checkpoints are
-f32 and interchange with an f32 run's.
+f32 and interchange with an f32 run's. `--set KEY=VALUE` overrides any
+config attribute (a Python literal, else a string) and `--max_epochs`
+the config's epochs, as in the JAX script.
+
+Across processes, one a card, under torchrun (or Slurm, or
+`SLOTDIFFUSION_MULTIHOST=1`; `parallel/distributed.py`), NCCL on the
+cards or gloo with `--cpu`:
+
+    torchrun --nproc_per_node=4 scripts/train_torch.py ...   # DDP
+    torchrun --nproc_per_node=4 scripts/train_torch.py --tp 2 --fsdp ...
+
+The batch is the config's global one, split into one contiguous block a
+data rank; `--tp N` shards the attention and FFN layers over N ranks
+(`parallel/tp.py`), `--fsdp` (the config's `fsdp`, as `--set fsdp=True`)
+shards parameters, optimizer state and the EMA over the data ranks
+(FSDP2); without either it is DDP. Every rank
+starts from the same seeded init; rank 0 logs and writes the one
+checkpoint file, which resumes on any world size.
 """
 
 import argparse
@@ -174,6 +191,19 @@ def main(argv=None):
     parser.add_argument("--dm_ckp_path", default="",
                         help="port-format SAViDiffusion checkpoint whose "
                              "raw dm_decoder an LDMSlotFormer grafts")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="the model dim of the (data, model) mesh: "
+                             "tensor-parallel attention and FFN layers")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="set the config's fsdp: shard parameters, "
+                             "optimizer state and the EMA over the data dim "
+                             "(FSDP2); composes with --tp")
+    parser.add_argument("--max_epochs", type=int, default=-1,
+                        help="the config's max_epochs")
+    parser.add_argument("--set", dest="overrides", action="append",
+                        default=[], metavar="KEY=VALUE",
+                        help="override a config attribute (a Python "
+                             "literal, else a string); repeatable")
     parser.add_argument("--slots_root", default="",
                         help="the slots pickle of a slot-stage config "
                              "(its slots_root, or rollout_root for "
@@ -182,16 +212,24 @@ def main(argv=None):
 
     import torch
 
+    # a multi-process launch joins its group before anything is built
+    from slotdiffusion_tpu_torch.parallel import (
+        make_mesh, maybe_initialize_distributed)
+    distributed = maybe_initialize_distributed(cpu=args.cpu)
+    mesh = make_mesh(model=args.tp) if distributed else None
+
     from slotdiffusion_tpu_torch import configs
     from slotdiffusion_tpu_torch.data import build_datamodule
     from slotdiffusion_tpu_torch.data.synthetic import SyntheticVideoData
     from slotdiffusion_tpu_torch.methods.build import build_method
     from slotdiffusion_tpu_torch.models import build_model, init_reference_
     from slotdiffusion_tpu_torch.ops.lpips import lpips_available
+    from slotdiffusion_tpu_torch.parallel.mesh import data_coords
 
     if not args.cpu and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --cpu to train on the CPU")
-    device = "cpu" if args.cpu else "cuda"
+    device = torch.device("cpu") if args.cpu else \
+        torch.device("cuda", torch.cuda.current_device())
     name = "tiny" if args.tiny else RUN_NAMES.get(args.params, args.params)
     cfg = configs.tiny_config() if args.tiny else \
         configs.get_config(args.params)
@@ -200,6 +238,14 @@ def main(argv=None):
         cfg = cfg.copy(max_steps=args.max_steps)
     if args.profile_dir:
         cfg = cfg.copy(profile_dir=args.profile_dir)
+    if args.max_epochs > 0:
+        cfg = cfg.copy(max_epochs=args.max_epochs)
+    if args.fsdp:
+        cfg = cfg.copy(fsdp=True)
+    configs.apply_overrides(cfg, args.overrides)
+    if (args.tp > 1 or cfg.fsdp) and not distributed:
+        raise SystemExit("--tp and fsdp need a multi-process launch: "
+                         "torchrun --nproc_per_node=N scripts/train_torch.py")
     stage1 = cfg.model == "VQVAE"
     ldm = cfg.model in ("SAViDiffusion", "SADiffusion")
     if stage1:
@@ -306,7 +352,14 @@ def main(argv=None):
         data = SyntheticVideoData(cfg, batch, seed=args.seed,
                                   val_samples=2 * batch)
     ckp_path = args.ckp_path or os.path.join("checkpoint", f"torch_{name}")
-    trainer = build_method(model, data, cfg, ckp_path=ckp_path)
+    if mesh is not None:
+        # this data rank's block of every global batch
+        data.set_process(*data_coords(mesh))
+    trainer = build_method(model, data, cfg, ckp_path=ckp_path, mesh=mesh)
+    if trainer.plan is not None and trainer.main:
+        print(f"{torch.distributed.get_world_size()} processes: "
+              f"{trainer.plan.kind}, mesh data {trainer.plan.data} x model "
+              f"{trainer.plan.tp}", flush=True)
     print(f"training {name} ({cfg.model}) on {device} in "
           f"{'bf16' if cfg.use_bf16 else 'f32'}: {len(data)} steps per "
           f"epoch of {batch} {'images' if images else 'clips'}"
@@ -314,6 +367,8 @@ def main(argv=None):
           f"checkpoints in {ckp_path}", flush=True)
     trainer.fit(resume_from=args.resume or None,
                 san_check_val_step=args.san_check_val_step)
+    if distributed:
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -77,6 +77,7 @@ class BaseParams:
     profile_dir = ""       # a torch.profiler trace of micro-steps
     profile_steps = (10, 15)  # [a, b)
     async_ckpt = True      # saves written on a background thread
+    fsdp = False           # across processes: FSDP2 over the data dim
     # the epoch-end visualisation (`methods/viz.py`) after each validate
     # with a checkpoint directory; its diffusion sampler (DPM-Solver++, or
     # the config's own: False takes the 1000-step ancestral chain) and the
@@ -1440,3 +1441,21 @@ def get_config(name):
     if name not in CONFIGS:
         raise ValueError(f"unknown config {name!r}: one of {sorted(CONFIGS)}")
     return CONFIGS[name]()
+
+
+def apply_overrides(params, overrides):
+    """Apply `KEY=VALUE` strings to `params` (a value parses as a Python
+    literal, else stays a string): the port's copy of the JAX package's
+    `utils/config.py:apply_overrides`, which `--set` of the scripts
+    uses. -> params."""
+    import ast
+    for kv in overrides:
+        key, sep, raw = kv.partition("=")
+        if not sep:
+            raise ValueError(f"--set expects KEY=VALUE, got {kv!r}")
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        setattr(params, key, value)
+    return params

@@ -14,6 +14,13 @@ of the JAX package's data/loader.py:40-90, 111-166, 335-372).
   processes (`num_workers`) are spawned, not forked (the parent may hold
   threads: CUDA's, a JAX runtime's), and seed numpy from torch's
   per-worker seed, torch's from the epoch.
+- Across processes (`process_index`, `process_count`; the JAX loader's
+  data/loader.py:124-132, 169-176): the batch size is the global one, it
+  must divide by the process count, and each process loads its
+  contiguous block of every global batch, so the blocks in process
+  order are the single-process batch. A ragged last val batch that does
+  not divide is left out with several processes (`val_skipped` names
+  it), as the JAX trainer skips it.
 """
 
 import numpy as np
@@ -77,38 +84,71 @@ def make_loader(dataset, batches, seed=0, num_workers=0, collate_fn=None):
 
 class DataModule:
     """The train and val loaders of a run. `len()` is the train batches
-    of an epoch."""
+    of an epoch. `batch_size` and `val_batch_size` are global; process
+    `process_index` of `process_count` loads its block of each batch."""
 
     def __init__(self, train_set, val_set, batch_size, val_batch_size=None,
-                 seed=0, num_workers=0, collate_fn=None):
+                 seed=0, num_workers=0, collate_fn=None, process_index=0,
+                 process_count=1):
         self.train_set, self.val_set = train_set, val_set
         self.collate_fn = collate_fn
         self.batch_size = batch_size
         self.val_batch_size = val_batch_size or batch_size
         self.seed = seed
         self.num_workers = num_workers
+        self.set_process(process_index, process_count)
         if train_set is not None and len(self) == 0:
             raise ValueError(f"{len(train_set)} samples make no batch of "
                              f"{batch_size}")
+
+    def set_process(self, process_index, process_count):
+        """Load process `process_index`'s block of every batch, of
+        `process_count`."""
+        for size in (self.batch_size, self.val_batch_size):
+            if size % process_count:
+                raise ValueError(f"the global batch of {size} does not "
+                                 f"divide over {process_count} processes")
+        self.process_index, self.process_count = process_index, process_count
+
+    def _blocks(self, batches):
+        if self.process_count == 1:
+            return batches
+        return [np.array_split(b, self.process_count)[
+            self.process_index].tolist() for b in batches]
 
     def __len__(self):
         return len(self.train_set) // self.batch_size
 
     def train_loader(self, epoch, start=0):
-        """Batches `start..` of `epoch`, shuffled, whole batches only."""
+        """Batches `start..` of `epoch`, shuffled, whole batches only
+        (this process's blocks)."""
         batches = epoch_batches(len(self.train_set), self.batch_size, True,
                                 True, self.seed, epoch)[start:]
         if hasattr(self.train_set, "set_epoch"):
             self.train_set.set_epoch(epoch)
-        return make_loader(self.train_set, batches, self.seed + epoch,
-                           self.num_workers, self.collate_fn)
+        return make_loader(self.train_set, self._blocks(batches),
+                           self.seed + epoch, self.num_workers,
+                           self.collate_fn)
+
+    @property
+    def val_skipped(self):
+        """[(index, size)] of the val batches left out with several
+        processes: a ragged last one whose size does not divide."""
+        if self.val_set is None or self.process_count == 1:
+            return []
+        batches = epoch_batches(len(self.val_set), self.val_batch_size,
+                                False, False)
+        return [(i, len(b)) for i, b in enumerate(batches)
+                if len(b) % self.process_count]
 
     def val_loader(self):
-        """The val set in order, the last batch ragged; None without
-        one."""
+        """The val set in order, the last batch ragged (left out with
+        several processes when it does not divide); None without one."""
         if self.val_set is None:
             return None
         batches = epoch_batches(len(self.val_set), self.val_batch_size,
                                 False, False)
-        return make_loader(self.val_set, batches, self.seed,
+        if self.process_count > 1:
+            batches = [b for b in batches if len(b) % self.process_count == 0]
+        return make_loader(self.val_set, self._blocks(batches), self.seed,
                            self.num_workers, self.collate_fn)

@@ -80,10 +80,11 @@ DECODERS = {"SAViDiffusion": "dm_decoder", "SADiffusion": "dm_decoder",
             "SLATE": "trans_decoder", "STEVE": "trans_decoder"}
 
 
-def build_method(model, datamodule, params, ckp_path=None):
-    """-> a `Trainer` for `model` as `params` configures it."""
+def build_method(model, datamodule, params, ckp_path=None, mesh=None):
+    """-> a `Trainer` for `model` as `params` configures it; across
+    processes on `mesh` (FSDP where the config's `fsdp` says)."""
     name = params.model
-    viz = dict(viz_fn=build_viz_fn(params))
+    viz = dict(viz_fn=build_viz_fn(params), mesh=mesh)
     if name in ("VQVAE", "PhysionReadout"):
         # the readout's accuracies come from its `compute_losses` at eval
         return Trainer(model, datamodule, params, ckp_path=ckp_path,

@@ -214,9 +214,10 @@ class ARTransformerDecoder(nn.Module):
                              "from a CUDA graph")
         B, dev = slots.shape[0], slots.device
         memory_kvs = self._memory_kvs(slots)
-        caches = [tuple(torch.zeros(B, steps, self.d_model,
+        # each layer's own attention width: the local heads' under TP
+        caches = [tuple(torch.zeros(B, steps, blk.self_attn.d_model,
                                     dtype=self.compute_dtype, device=dev)
-                        for _ in range(2)) for _ in range(self.num_layers)]
+                        for _ in range(2)) for blk in self.tf_dec.blocks]
         ids = torch.zeros(B, steps, dtype=torch.long, device=dev)
         logits = torch.zeros(B, steps, self.vocab_size, device=dev)
         tok = torch.full((B,), self.vocab_size, dtype=torch.long, device=dev)

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..ops.dpm_solver import sample_denoiser
+from ..parallel.mesh import shared_draws
 from .schedules import (make_beta_schedule, make_ddim_sampling_parameters,
                         make_ddim_timesteps, make_gaussian_schedule)
 from .unet import UNetModel
@@ -40,8 +41,13 @@ def noise_like(generator, shape, same_noise, device):
     sample and repeats it over the batch (temporally consistent video)."""
     if generator is None:
         raise ValueError("sampling needs a torch.Generator or the draws")
-    n = torch.randn((1, *shape[1:]) if same_noise else shape,
-                    generator=generator, device=generator.device)
+    if same_noise:
+        # one sample for the batch: the same on every data rank
+        with shared_draws():
+            n = torch.randn((1, *shape[1:]), generator=generator,
+                            device=generator.device)
+    else:
+        n = torch.randn(shape, generator=generator, device=generator.device)
     return n.to(device).expand(shape).contiguous()
 
 

@@ -33,10 +33,24 @@ Outputs keep the JAX package's dtypes: slots in the model's compute dtype
 (bf16 under `use_bf16`), masks, images and the UNet output in f32.
 
 Artifacts (`save_artifact` / `load_artifact`): a JSON header line (magic,
-surface, the device exported for, the callable's and the program's
-argument shapes and dtypes, the caller's metadata, the byte length of
-each exported program), then the `torch.export.save` bytes of each
-program. `encode` and `denoise` are one program each. `sample`'s program
+surface, the devices exported for, the device traced on, the callable's
+and the program's argument shapes and dtypes, the caller's metadata, the
+device and byte length of each exported program), then the
+`torch.export.save` bytes of each program. One trace on the host's own
+device gives the programs of every device `devices` names (the JAX
+exporter's `platforms`, serving.py:35-60): another device's copy has its
+graph retargeted (`retarget`: device arguments, `.to` targets, tensor
+metadata), while its weights and constants are stored in host memory
+and moved to the device at load (`torch.export.passes.
+move_to_device_pass`). So a host without a card exports for the card;
+the kernels are `sdt::` operators with a CPU implementation and a CUDA
+kernel each, so the CPU trace holds the nodes a card trace holds, and
+nothing the model decides from the tracing device reaches the graph
+(the kernels' launch plans and GN's two-pass split are taken at run
+time, inside the CUDA implementations). A header of one `device` (an
+artifact of one device, written before `devices`) is read as it was.
+
+`encode` and `denoise` are one program each. `sample`'s program
 (x_T, slots) -> imgs is three: the UNet step, the VQ quantize (the
 sampler's x0 correction) and the VQ decode (two for a pixel-space
 decoder: the UNet step and the dynamic thresholding), with the sampler's
@@ -358,38 +372,95 @@ def export_fn(fn, example):
                 for name, (mod, a) in parts.items()}
 
 
-def save_artifact(path, fn, example, meta=None):
-    """Export the surface `fn` and write the artifact file; -> the
-    header dict."""
-    blobs = {}
+def retarget(program, device):
+    """`program` (an ExportedProgram, changed in place) with its graph made
+    for `device`: the `device` arguments of its nodes, the targets of
+    `aten.to.device` and every tensor's metadata, as
+    `torch.export.passes.move_to_device_pass` moves them; its weights and
+    constants stay where they are (`load_artifact` moves them), so no
+    tensor is made on `device` here."""
+    import torch.utils._pytree as pytree
+    from torch._subclasses.fake_tensor import FakeTensor
+    device = str(torch.device(device))
+    for m in program.graph_module.modules():
+        if not isinstance(m, torch.fx.GraphModule):
+            continue
+        for node in m.graph.nodes:
+            if "device" in node.kwargs:
+                node.kwargs = dict(node.kwargs, device=device)
+            if node.op == "call_function" and \
+                    node.target is torch.ops.aten.to.device:
+                node.args = (node.args[0], device, *node.args[2:])
+            if "val" in node.meta:
+                node.meta["val"] = pytree.tree_map_only(
+                    FakeTensor, lambda v: _fake_on(v, device),
+                    node.meta["val"])
+    return program
+
+
+def _fake_on(v, device):
+    """The fake tensor `v` on `device`, made without touching the device
+    (a CPU-only build cannot initialise CUDA, which `v.to` would)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", 0)
+    meta = torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
+                               device="meta")
+    return FakeTensor(v.fake_mode, meta, device)
+
+
+def save_artifact(path, fn, example, meta=None, devices=None):
+    """Export the surface `fn` (traced once, on its own device) and write
+    the artifact file with one program set per device of `devices`
+    (default: `fn`'s device); -> the header dict."""
+    devices = [torch.device(d).type for d in (devices or [fn.device])]
+    blobs = []
     for name, program in export_fn(fn, example).items():
         buf = io.BytesIO()
         torch.export.save(program, buf)
-        blobs[name] = buf.getvalue()
-    header = {"magic": MAGIC, "surface": fn.what,
-              "device": fn.device.type, "meta": meta or {},
+        own = buf.getvalue()
+        for dev in devices:
+            if dev == fn.device.type:
+                blobs.append((dev, name, own))
+                continue
+            copy = retarget(torch.export.load(io.BytesIO(own)), dev)
+            out = io.BytesIO()
+            torch.export.save(copy, out)
+            blobs.append((dev, name, out.getvalue()))
+    # `device`: the default load device, as a one-device header names it
+    header = {"magic": MAGIC, "surface": fn.what, "device": devices[0],
+              "devices": devices, "traced_on": fn.device.type,
+              "meta": meta or {},
               "args": [_spec(torch.as_tensor(a)) for a in example],
               "program_args": [_spec(a) for a in fn.program_args(*example)],
-              "programs": [{"name": n, "bytes": len(b)}
-                           for n, b in blobs.items()]}
+              "programs": [{"name": n, "device": d, "bytes": len(b)}
+                           for d, n, b in blobs]}
     if fn.what == "sample":
         header["sampler"] = fn.module.sampler
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
         f.write((json.dumps(header) + "\n").encode())
-        for b in blobs.values():
+        for _, _, b in blobs:
             f.write(b)
     return header
+
+
+def artifact_devices(header):
+    """The device types an artifact header holds programs for (an old
+    header: its one `device`)."""
+    return header.get("devices") or [header["device"]]
 
 
 def load_artifact(path, device=None):
     """-> (callable, header). The callable takes the request's arguments
     as the live surface does (`sample`: (seed, slots)) and runs the
-    exported program on the device it was exported for, replayed from
-    CUDA graphs on a CUDA device. Raises ValueError for a file that is not
-    an artifact, when `device` is not the artifact's, or for a `sample`
-    artifact made for another sampler, and RuntimeError when its device is
-    not present."""
+    program of `device` (default: the header's `device`, the first it was
+    exported for), replayed
+    from CUDA graphs on a CUDA device. Raises ValueError for a file that
+    is not an artifact, for a device the artifact lacks, or for a
+    `sample` artifact made for another sampler, and RuntimeError when the
+    device is not present."""
     with open(path, "rb") as f:
         try:
             header = json.loads(f.readline().decode())
@@ -398,11 +469,16 @@ def load_artifact(path, device=None):
         if not isinstance(header, dict) or header.get("magic") != MAGIC:
             raise ValueError(f"{path} is not a slotdiffusion_tpu_torch "
                              "export")
-        blobs = {p["name"]: f.read(p["bytes"]) for p in header["programs"]}
-    dev = torch.device(header["device"])
-    if device is not None and torch.device(device).type != dev.type:
-        raise ValueError(f"{path} was exported for {dev.type}, not "
-                         f"{torch.device(device).type}: export it there")
+        devices = artifact_devices(header)
+        blobs = {}
+        for p in header["programs"]:
+            blobs[(p.get("device", devices[0]), p["name"])] = f.read(
+                p["bytes"])
+    dev = torch.device(device if device is not None else header["device"])
+    lacks = ValueError(f"{path} was exported for {', '.join(devices)}, not "
+                       f"{dev.type}: export it for {dev.type}")
+    if device is not None and dev.type not in devices:
+        raise lacks
     if header["surface"] == "sample" and \
             header["sampler"].get("code") != SAMPLER:
         raise ValueError(f"{path} was made for the sampler "
@@ -411,8 +487,12 @@ def load_artifact(path, device=None):
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{path} was exported for a CUDA card, and "
                            "there is none here")
-    programs = {name: torch.export.load(io.BytesIO(b)).module()
-                for name, b in blobs.items()}
+    if dev.type not in devices:
+        raise lacks
+    from torch.export.passes import move_to_device_pass
+    programs = {name: move_to_device_pass(
+        torch.export.load(io.BytesIO(b)), dev.type).module()
+        for (d, name), b in blobs.items() if d == dev.type}
     if header["surface"] == "sample":
         module = _Sample(programs["denoise"], programs["quantize"],
                          programs.get("decode"), header["sampler"])

@@ -9,7 +9,9 @@ once per optimizer step. The shadow covers the parameters whose names
 start with `prefix`: by default the model's `dm_decoder` (the subtree
 the JAX trainer swaps in at eval for SAViDiffusion), "" for all of them;
 `swapped` puts the shadow in place of those parameters for the duration
-of a `with` block.
+of a `with` block. Under a `parallel.tp.ShardingPlan` (`plan`) the shadow
+is laid out as its parameter (a clone of it), and `state_dict` /
+`load_state_dict` hold the whole tensors in the single-process layout.
 """
 
 import contextlib
@@ -21,9 +23,10 @@ PREFIX = "dm_decoder."
 
 
 class ExponentialMovingAverage:
-    def __init__(self, model, decay, prefix=PREFIX):
+    def __init__(self, model, decay, prefix=PREFIX, plan=None):
         self.decay = decay
         self.prefix = prefix
+        self.plan = plan
         self.num_updates = 0
         self.shadow = {n: p.detach().clone()
                        for n, p in self._tracked(model)}
@@ -57,9 +60,14 @@ class ExponentialMovingAverage:
                     p.copy_(saved[name])
 
     def state_dict(self):
-        return {"shadow": self.shadow, "num_updates": self.num_updates}
+        shadow = self.shadow if self.plan is None else {
+            n: self.plan.to_full(n, s) for n, s in self.shadow.items()}
+        return {"shadow": shadow, "num_updates": self.num_updates}
 
     def load_state_dict(self, state):
         for name, s in state["shadow"].items():
-            self.shadow[name].copy_(s)
+            if self.plan is None:
+                self.shadow[name].copy_(s)
+            else:
+                self.plan.copy_full_(name, self.shadow[name], s)
         self.num_updates = state["num_updates"]

@@ -34,8 +34,21 @@ out here:
 - the norm the trainer logs: the global norm of each micro-batch's own,
   unscaled gradient, as the JAX trainer logs `optax.global_norm(grads)`
   on every micro-step (training/trainer.py:289-290, 310).
+
+Across processes (`plan`, a `parallel.tp.ShardingPlan`): the global norm
+sums each shard's squares over the groups it is sharded over and counts
+a replicated gradient once; the clip scales each local shard. Under
+accumulation the k - 1 micro-steps before an update run without the
+gradient sync (DDP's `no_sync`, FSDP2's `set_requires_gradient_sync`),
+so no micro-batch's own global gradient exists there: those micro-steps
+log no norm, and an update logs the norm of the accumulated mean. Under
+TP or FSDP the parameters are DTensors mixed with plain tensors, which
+torch's foreach and fused paths refuse: `adam`, `adamw` and `sgd` run
+their per-tensor loops, and `adam_fused`, `adam_bf16` and `adafactor`
+raise (SHARDED_CORES).
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -60,6 +73,12 @@ def cosine_warmup_schedule(max_lr, total_steps, warmup_steps, min_lr=0.0):
     return schedule
 
 
+def _local(t):
+    """A DTensor's local shard (a view: writing it writes the DTensor);
+    a plain tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def global_norm(tensors):
     """sqrt of the sum of squares of every element (f32 accumulation)."""
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
@@ -75,6 +94,8 @@ def clip_by_global_norm_(tensors, max_norm):
 
 
 CORES = ("adam", "adam_fused", "adamw", "adam_bf16", "adafactor", "sgd")
+# the cores that take DTensor parameters (TP, FSDP)
+SHARDED_CORES = ("adam", "adamw", "sgd")
 
 
 def core_name(optimizer="adam", weight_decay=0.0):
@@ -309,21 +330,31 @@ class Adafactor(_BF16State):
                 p.sub_(m)
 
 
-def build_core(name, param_groups, weight_decay=0.0, layouts=None):
+def build_core(name, param_groups, weight_decay=0.0, layouts=None,
+               sharded=False):
     """The torch optimizer of the core `name` (`core_name`) over
-    `param_groups`; `layouts` ({parameter: layout}) for adafactor."""
+    `param_groups`; `layouts` ({parameter: layout}) for adafactor.
+    `sharded`: some parameters are DTensors (the per-tensor loops; a core
+    outside SHARDED_CORES raises)."""
+    if sharded and name not in SHARDED_CORES:
+        raise ValueError(f"the {name} optimizer does not take TP or FSDP "
+                         f"yet: use one of {SHARDED_CORES}, or data "
+                         "parallelism alone")
+    loop = dict(foreach=False) if sharded else {}
     if name in ("adam", "adam_fused"):
         return torch.optim.Adam(param_groups, betas=(0.9, 0.999), eps=1e-8,
-                                fused=True if name == "adam_fused" else None)
+                                fused=True if name == "adam_fused" else None,
+                                **loop)
     if name == "adamw":
         return torch.optim.AdamW(param_groups, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=weight_decay or 0.0)
+                                 eps=1e-8, weight_decay=weight_decay or 0.0,
+                                 **loop)
     if name == "adam_bf16":
         return AdamBF16(param_groups)
     if name == "adafactor":
         return Adafactor(param_groups, layouts=layouts)
     return torch.optim.SGD(param_groups, lr=0.0, momentum=0.9,
-                           dampening=0.0)
+                           dampening=0.0, **loop)
 
 
 class Optimizer:
@@ -336,12 +367,14 @@ class Optimizer:
     Call `backward(loss)` for each micro-batch (or backward its loss
     times `backward_scale()`, the factor of the mean of k gradients), then
     `step()`: it updates the parameters on every k-th call and returns
-    whether it did, with the pre-clip gradient norm of that update."""
+    whether it did, with the pre-clip gradient norm of that update.
+    `plan` (a `parallel.tp.ShardingPlan`): the parameters are laid out
+    across processes by it."""
 
     def __init__(self, named_params, lr, total_steps, warmup_steps,
                  min_lr=0.0, clip_grad=None, grad_accum_steps=1,
                  lr_groups=None, optimizer="adam", weight_decay=0.0,
-                 layouts=None):
+                 layouts=None, plan=None):
         self.name = core_name(optimizer, weight_decay)
         named_params = [(n, p) for n, p in named_params if p.requires_grad]
         prefixes = list(lr_groups or {})
@@ -351,7 +384,7 @@ class Optimizer:
             owner = next((pre for pre in prefixes
                           if name == pre or name.startswith(pre + ".")),
                          None)
-            groups[owner].append(p)
+            groups[owner].append((name, p))
         max_lrs = {None: lr, **(lr_groups or {})}
         self.schedules = []
         param_groups = []
@@ -359,12 +392,17 @@ class Optimizer:
             if params:
                 self.schedules.append(cosine_warmup_schedule(
                     max_lrs[key], total_steps, warmup_steps, min_lr))
-                param_groups.append({"params": params, "lr": 0.0})
+                param_groups.append({"params": [p for _, p in params],
+                                     "lr": 0.0})
+        # the core's state is keyed by the index in group order
+        self.core_names = [n for params in groups.values() for n, _ in params]
         self.params = [p for _, p in named_params]
         by_name = dict(named_params)
+        self.plan = plan
         self.core = build_core(self.name, param_groups, weight_decay, {
             by_name[n]: v for n, v in (layouts or {}).items()
-            if n in by_name})
+            if n in by_name}, sharded=plan is not None and plan.shards_model)
+        self.names = [n for n, _ in named_params]
         self.clip_grad = clip_grad if clip_grad and clip_grad > 0 else None
         self.k = max(int(grad_accum_steps), 1)
         self.micro = 0  # micro-batches since the last update
@@ -384,6 +422,14 @@ class Optimizer:
     def backward_scale(self):
         return 1.0 / self.k
 
+    def sync_context(self):
+        """The context of a micro-step's forward and backward: under a plan
+        the gradient sync is off on the k - 1 micro-steps before an
+        update (`ShardingPlan.sync_context`)."""
+        if self.plan is None:
+            return contextlib.nullcontext()
+        return self.plan.sync_context(self.micro + 1 == self.k)
+
     def backward(self, loss):
         """Backward of one micro-batch's `loss` into the accumulated
         gradients; -> the global norm of this micro-batch's own unscaled
@@ -392,6 +438,9 @@ class Optimizer:
         held aside during the backward and added back after it: the sums
         are the ones autograd would form, and the norm is taken from the
         micro-batch's gradient alone."""
+        if self.plan is not None:
+            (loss * self.backward_scale()).backward()
+            return None
         if self.k == 1:
             loss.backward()
             return None
@@ -418,8 +467,16 @@ class Optimizer:
                  for p in self.params]
         for p, g in zip(self.params, grads):
             p.grad = g
-        norm = clip_by_global_norm_(grads, self.clip_grad) \
-            if self.clip_grad else global_norm(grads)
+        if self.plan is not None:
+            self.plan.reduce_grads()
+            norm = self.plan.grad_norm_sq(grads).sqrt()
+            if self.clip_grad:
+                torch._foreach_mul_(
+                    [_local(g) for g in grads],
+                    self.clip_grad / torch.clamp(norm, min=self.clip_grad))
+        else:
+            norm = clip_by_global_norm_(grads, self.clip_grad) \
+                if self.clip_grad else global_norm(grads)
         for group, sched in zip(self.core.param_groups, self.schedules):
             group["lr"] = sched(self.count)
         self.core.step()
@@ -430,14 +487,33 @@ class Optimizer:
     def state_dict(self):
         """The core's name and state, the counters and, between updates,
         the gradients accumulated so far (optax.MultiSteps keeps them in
-        its state)."""
-        return {"name": self.name, "core": self.core.state_dict(),
-                "micro": self.micro, "count": self.count,
-                "acc": [p.grad for p in self.params] if self.micro else None}
+        its state). Under a plan every tensor is whole, in the
+        single-process layout (a collective: every rank calls it), and
+        the accumulated gradients are the mean over "data" of each rank's
+        (what the next sync would average them into)."""
+        core = self.core.state_dict()
+        acc = [p.grad for p in self.params] if self.micro else None
+        if self.plan is None:
+            return {"name": self.name, "core": core, "micro": self.micro,
+                    "count": self.count, "acc": acc}
+        if acc is not None and self.plan.fsdp and self.plan.data > 1:
+            raise ValueError("under FSDP a checkpoint is written only "
+                             "between updates, not between the micro-steps "
+                             "of one (grad_accum_steps)")
+        core["state"] = {i: {k: self.plan.to_full(self.core_names[i], v)
+                             if torch.is_tensor(v) and v.dim() else v
+                             for k, v in st.items()}
+                         for i, st in core["state"].items()}
+        if acc is not None:
+            acc = [None if g is None else self.plan.to_full(
+                n, self.plan.data_mean(g)) for n, g in zip(self.names, acc)]
+        return {"name": self.name, "core": core, "micro": self.micro,
+                "count": self.count, "acc": acc}
 
     def load_state_dict(self, state):
         """Load `state_dict()`'s dict, or one written before the other
-        cores (Adam's state under "adam")."""
+        cores (Adam's state under "adam"); under a plan, into the plan's
+        layout."""
         name = state.get("name", "adam")
         if name != self.name:
             raise ValueError(f"the state is {name}'s, this optimizer is "
@@ -445,6 +521,19 @@ class Optimizer:
         self.core.load_state_dict(state["core"] if "core" in state
                                   else state["adam"])
         self.micro, self.count = state["micro"], state["count"]
-        for p, g in zip(self.params, state["acc"] or [None] * len(
-                self.params)):
-            p.grad = None if g is None else g.to(p.device)
+        if self.plan is not None:
+            by_index = [p for g in self.core.param_groups
+                        for p in g["params"]]
+            for i, p in enumerate(by_index):
+                st = self.core.state.get(p, {})
+                for k, v in st.items():
+                    if torch.is_tensor(v) and v.dim():
+                        st[k] = self.plan.from_full(self.core_names[i], v, p)
+        for n, p, g in zip(self.names, self.params, state["acc"] or [None] *
+                           len(self.params)):
+            if g is None:
+                p.grad = None
+            elif self.plan is None:
+                p.grad = g.to(p.device)
+            else:
+                p.grad = self.plan.from_full(n, g, p)

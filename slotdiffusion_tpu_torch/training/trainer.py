@@ -1,6 +1,6 @@
 """The training loop of the port (mirrors the JAX package's
-training/trainer.py:118-338, 548-606, one process, one card), for every
-model the port builds.
+training/trainer.py:118-338, 548-606), for every model the port builds,
+in one process or across several (`mesh`, below).
 
 One step: the model's `compute_losses` on a batch, the weighted total of
 its `*_loss` entries (`{k}_w` weights from the config, 1.0 by default),
@@ -58,15 +58,38 @@ trainer). The means are weighted by batch size and logged with the
 outputs, step, <ckp_path>/viz)` draws them (`methods/viz.py`); an error
 there is printed and training goes on, as in the JAX trainer
 (training/trainer.py:625-634).
+
+Across processes (`mesh`, a ("data", "model") `DeviceMesh` of
+`parallel.mesh.make_mesh`; the datamodule loads the rank's block of each
+global batch): `parallel.tp.parallelize` lays the model out (DDP over
+"data" when "model" is 1 and `fsdp` is off; else the TP plan over
+"model", then FSDP2 over "data" with `fsdp`), and the optimizer and the
+EMA follow its layout. Every rank keeps the same generator state and
+draws for the global batch, keeping its rows (`parallel.mesh.
+global_batch_draws`), so the losses equal a single process's on the same
+global batch step for step; the logged losses are the means over "data".
+A checkpoint is one file in the single-process layout, gathered from the
+shards by every rank (in the loop, also under `async_ckpt`) and written
+by rank 0, so a run resumes on another world size. Validation follows
+the JAX trainer (training/trainer.py:556-612): a ragged last val batch is
+left out with several data ranks; the host metrics are computed on the
+rank's rows and averaged over "data"; printing, logging, the viz and
+saves happen on rank 0 only, and the viz is skipped where the model is
+sharded (TP or FSDP), since drawing it needs every rank.
 """
 
+import contextlib
 import json
 import os
 import threading
 import time
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import data_coords, global_batch_draws, \
+    prefetch_to_device
+from ..parallel.tp import parallelize
 from ..utils import AverageMeter
 from .checkpoint import graft_pretrained, load_checkpoint, save_checkpoint
 from .ema import ExponentialMovingAverage
@@ -91,6 +114,13 @@ class JSONLLogger:
             with open(self.path, "a") as f:
                 f.write(json.dumps(record) + "\n")
         return record
+
+
+class SilentLogger:
+    """The logger of a rank other than 0: records nothing."""
+
+    def log(self, record, step):
+        return dict(record, step=int(step), time=time.time())
 
 
 class WandbLogger(JSONLLogger):
@@ -155,7 +185,7 @@ class Trainer:
 
     def __init__(self, model, datamodule, params, ckp_path=None,
                  lr_groups=None, seed=0, host_metrics_fn=None,
-                 step_scalars=None, viz_fn=None):
+                 step_scalars=None, viz_fn=None, mesh=None):
         self.model = model
         self.data = datamodule
         self.params = params
@@ -165,6 +195,19 @@ class Trainer:
         graft_pretrained(model, params)
         for module in model.frozen_modules:
             module.requires_grad_(False)
+        self.rank = dist.get_rank() if mesh is not None else 0
+        self.main = self.rank == 0
+        self.plan = None
+        if mesh is not None:
+            self.plan = parallelize(model, mesh,
+                                    getattr(params, "fsdp", False))
+        self.data_index, self.data_count = data_coords(mesh)
+        if (datamodule.process_index, datamodule.process_count) != (
+                self.data_index, self.data_count):
+            raise ValueError(
+                f"the datamodule loads block {datamodule.process_index} of "
+                f"{datamodule.process_count}, the mesh's data rank is "
+                f"{self.data_index} of {self.data_count}")
         self.steps_per_epoch = len(datamodule)
         self.max_epochs = params.max_epochs
         k = max(int(params.grad_accum_steps), 1)
@@ -176,14 +219,15 @@ class Trainer:
             grad_accum_steps=k, lr_groups=lr_groups,
             optimizer=getattr(params, "optimizer", "adam"),
             weight_decay=getattr(params, "weight_decay", 0.0),
-            layouts=flax_layouts(model))
+            layouts=flax_layouts(model), plan=self.plan)
         # either switch turns the EMA on, as in the JAX trainer
         # (training/trainer.py:181-182): the model's (dec_dict["use_ema"])
         # or the run's (params.use_ema); it covers the model's
         # `ema_prefix` subtree (the JAX `ema_filter_prefix`)
         use_ema = model.use_ema or params.use_ema
         self.ema = ExponentialMovingAverage(
-            model, params.ema_decay, model.ema_prefix) if use_ema else None
+            model, params.ema_decay, model.ema_prefix,
+            self.plan) if use_ema else None
         self.seed = int(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
@@ -206,7 +250,9 @@ class Trainer:
         self.profile_steps = tuple(getattr(params, "profile_steps",
                                            (10, 15)))
         self.async_ckpt = bool(getattr(params, "async_ckpt", True))
-        if getattr(params, "use_wandb", False):
+        if not self.main:
+            self.logger = SilentLogger()
+        elif getattr(params, "use_wandb", False):
             self.logger = WandbLogger(
                 ckp_path, project=getattr(params, "project", None),
                 run_name=getattr(params, "wandb_name", None),
@@ -238,24 +284,62 @@ class Trainer:
         return {k: batch[k].to(self.device, non_blocking=True)
                 for k in keys if k in batch}
 
+    def batches(self, epoch, start):
+        """The train batches of `epoch` from micro-step `start`; across
+        processes each is copied to the card a batch ahead
+        (`prefetch_to_device`, as the JAX trainer's loop); one process
+        moves each in `inputs`."""
+        loader = self.data.train_loader(epoch, start)
+        if self.plan is None:
+            return loader
+        return prefetch_to_device(loader, self.device)
+
+    def draws(self, generator):
+        """The block inside which `generator` draws for the global batch
+        and keeps this rank's rows (nothing to do on one data rank)."""
+        if self.data_count == 1:
+            return contextlib.nullcontext()
+        return global_batch_draws(generator, self.data_index,
+                                  self.data_count)
+
+    def mean_losses(self, losses, total=None):
+        """{name: float} of a rank's losses, the means over "data"
+        (`total` added as "total_loss")."""
+        named = dict(losses)
+        if total is not None:
+            named["total_loss"] = total
+        keys = sorted(named)
+        values = torch.stack([named[k].detach().float().reshape(())
+                              for k in keys])
+        if self.plan is not None:
+            values = self.plan.data_mean(values)
+        return dict(zip(keys, values.tolist()))
+
     def train_step(self, batch):
         """One micro-step on `batch`; -> metrics of the step (floats)."""
         t0 = time.time()
-        _, losses = self.model.compute_losses(self.inputs(batch),
-                                              self.generator,
-                                              **self.sched_kwargs())
-        total = self.weighted_total(losses)
-        micro_norm = self.optimizer.backward(total)
+        compute = self.model.compute_losses if self.plan is None \
+            else self.plan.compute_losses
+        # DDP reads its sync switch in the forward: both inside
+        with self.optimizer.sync_context():
+            with self.draws(self.generator):
+                _, losses = compute(self.inputs(batch), self.generator,
+                                    **self.sched_kwargs())
+            total = self.weighted_total(losses)
+            micro_norm = self.optimizer.backward(total)
         updated, norm = self.optimizer.step()
         if updated and self.ema is not None:
             self.ema.update(self.model)
         self.step += 1
-        metrics = {f"train/{k}": v.item() for k, v in losses.items()}
-        metrics["train/total_loss"] = total.item()
+        means = self.mean_losses(losses, total)
+        metrics = {f"train/{k}": means[k] for k in losses}
+        metrics["train/total_loss"] = means["total_loss"]
         # the norm of this micro-step's own gradient, as the JAX trainer
-        # logs it on every micro-step
-        metrics["train/grad_norm"] = float(
-            norm if micro_norm is None else micro_norm)
+        # logs it on every micro-step; across processes, that of each
+        # update (training/optim.py)
+        if micro_norm is not None or norm is not None:
+            metrics["train/grad_norm"] = float(
+                norm if micro_norm is None else micro_norm)
         if updated:
             metrics["lr"] = self.optimizer.lr
         metrics["step_seconds"] = time.time() - t0
@@ -279,7 +363,7 @@ class Trainer:
         try:
             while self.step < end:
                 epoch, start = divmod(self.step, self.steps_per_epoch)
-                for batch in self.data.train_loader(epoch, start):
+                for batch in self.batches(epoch, start):
                     self._start_trace()
                     metrics = self.train_step(batch)
                     self._stop_trace()
@@ -289,8 +373,9 @@ class Trainer:
                         self.logger.log(dict(metrics, epoch=epoch),
                                         self.step)
                     if capped:
-                        print(f"[max_steps {self.max_steps} reached]",
-                              flush=True)
+                        if self.main:
+                            print(f"[max_steps {self.max_steps} reached]",
+                                  flush=True)
                         self.save_checkpoint()
                         self.validate(max_steps=4)
                         return metrics
@@ -356,15 +441,17 @@ class Trainer:
         gen = self._eval_generator(batch_idx)
         state = gen.get_state()
         sched = self.sched_kwargs()
-        out, losses = self.model.compute_losses(data, gen, train=False,
-                                                **sched)
-        losses = {k: v.item() for k, v in losses.items()}
+        with self.draws(gen):
+            out, losses = self.model.compute_losses(data, gen, train=False,
+                                                    **sched)
+        losses = self.mean_losses(losses)
         if self.ema is not None:
             gen.set_state(state)
-            with self.ema.swapped(self.model):
+            with self.ema.swapped(self.model), self.draws(gen):
                 _, ema = self.model.compute_losses(data, gen, train=False,
                                                    **sched)
-            losses.update({f"{k}_ema": v.item() for k, v in ema.items()})
+            losses.update({f"{k}_ema": v
+                           for k, v in self.mean_losses(ema).items()})
         return out, losses
 
     def validate(self, max_steps=None):
@@ -378,7 +465,17 @@ class Trainer:
         self.model.eval()
         meters, first = {}, None
         viz = self.viz_fn is not None and bool(self.ckp_path) and getattr(
-            self.params, "use_viz", True)
+            self.params, "use_viz", True) and self.main
+        if viz and self.plan is not None and self.plan.shards_model:
+            viz = False
+            print("[viz] skipped: the model is sharded "
+                  f"({self.plan.kind})", flush=True)
+        if self.main:
+            for i, size in self.data.val_skipped:
+                if max_steps is None or i < max_steps:
+                    print(f"[val] skipped ragged batch {i} ({size} "
+                          f"samples) over {self.data_count} data ranks",
+                          flush=True)
         for i, batch in enumerate(loader):
             if max_steps is not None and i >= max_steps:
                 break
@@ -386,7 +483,7 @@ class Trainer:
             if i == 0 and viz:
                 first = (batch, out)
             if self.host_metrics_fn is not None:
-                losses.update(self.host_metrics_fn(batch, out))
+                losses.update(self.host_metrics(batch, out))
             n = batch["img"].shape[0] if "img" in batch \
                 else len(batch["data_idx"])
             for k, v in losses.items():
@@ -402,8 +499,24 @@ class Trainer:
                 print(f"[viz] skipped: {type(e).__name__}: {e}", flush=True)
         return results
 
+    def host_metrics(self, batch, out):
+        """`host_metrics_fn` on this rank's rows, averaged over "data"
+        (the JAX trainer's `process_allgather` mean)."""
+        local = self.host_metrics_fn(batch, out)
+        if self.data_count == 1 or not local:
+            return local
+        keys = sorted(local)
+        values = torch.tensor([float(local[k]) for k in keys],
+                              dtype=torch.float64, device=self.device)
+        return dict(zip(keys, self.plan.data_mean(values).tolist()))
+
     def state_dict(self):
-        return {"model": self.model.state_dict(),
+        """The run's state, whole and in the single-process layout (under
+        a plan a collective: every rank calls it)."""
+        model = self.model.state_dict()
+        if self.plan is not None:
+            model = {k: self.plan.to_full(k, v) for k, v in model.items()}
+        return {"model": model,
                 "optimizer": self.optimizer.state_dict(),
                 "step": self.step,
                 "ema": None if self.ema is None else self.ema.state_dict(),
@@ -420,6 +533,8 @@ class Trainer:
         path = os.path.join(self.ckp_path, f"ckpt_{tag}.pt")
         self.wait_for_checkpoints()
         state = _to_host(self.state_dict())
+        if not self.main:  # rank 0 writes the gathered state
+            return path
         if not self.async_ckpt:
             save_checkpoint(path, state)
             return path
@@ -448,9 +563,20 @@ class Trainer:
             raise error[0]
 
     def load_checkpoint(self, path):
+        """Load a checkpoint written by any world size (under a plan every
+        rank reads the file, once rank 0's save in flight is on disk)."""
         self.wait_for_checkpoints()
+        if self.plan is not None:
+            dist.barrier()
         state = load_checkpoint(path)
-        self.model.load_state_dict(state["model"])
+        if self.plan is None:
+            self.model.load_state_dict(state["model"])
+        else:
+            live = self.model.state_dict(keep_vars=True)
+            if set(live) != set(state["model"]):
+                raise KeyError(f"{path} does not hold this model's entries")
+            for k, v in live.items():
+                self.plan.copy_full_(k, v, state["model"][k])
         self.optimizer.load_state_dict(state["optimizer"])
         if self.ema is not None:
             self.ema.load_state_dict(state["ema"])

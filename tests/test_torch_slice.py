@@ -113,12 +113,17 @@ def test_serving_surfaces(pair):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
-    """Every module of the port, and the training script run for one tiny
+    """Every module of the port (the scale-out package `parallel/` named
+    among them), `chip_smoke.py`, and the training script run for one tiny
     step on the CPU, import neither jax, flax nor the JAX package."""
     code = ("import pkgutil, runpy, sys, slotdiffusion_tpu_torch as pkg\n"
             "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "
             "'.'):\n"
             "    __import__(m.name)\n"
+            "need = {'slotdiffusion_tpu_torch.parallel.' + m for m in "
+            "('distributed', 'mesh', 'tp')}\n"
+            "assert need <= set(sys.modules), need - set(sys.modules)\n"
+            "import chip_smoke\n"
             "sys.argv = ['train_torch.py', '--cpu', '--tiny', "
             f"'--max_steps', '1', '--ckp_path', {str(tmp_path)!r}]\n"
             "try:\n"
