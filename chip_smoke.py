@@ -104,7 +104,8 @@ Phases (one flushed line each, with elapsed seconds):
      seconds, MB), reloaded (`load_artifact`: seconds, the first call's
      seconds) and held against the graphed path bit for bit, launches
      equal; each artifact behind `scripts/serve_model_torch.py`'s
-     `make_server` on 127.0.0.1: `/health`, one `/predict` equal to the
+     `make_server` on 127.0.0.1 (in bf16 `encode` alone, since phase 18
+     took the script's time): `/health`, one `/predict` equal to the
      artifact's output, and a malformed request that must get a 400;
   9. the flagship's stage 1 and its handoff: `VQVAEMoviE128` at full
      width (128x128, ch 64, 4096 codes) built with `init_reference_`,
@@ -130,7 +131,8 @@ Phases (one flushed line each, with elapsed seconds):
      attention): DPM-Solver++ multistep, singlestep_fixed and adaptive
      (order 3), noise prediction, taylor and logSNR (20 steps), DDIM (50
      steps, `FLAGSHIP_DDIM_STEPS`; 200 before phase 17 took their time)
-     and the ancestral chain (1000) in f32; multistep and DDIM in
+     and the ancestral chain (1000, over 1 video since phase 18 took
+     its time) in f32; multistep and DDIM in
      bf16; DPM (dynamic thresholding) and DDIM (clamp, 50 steps) of the
      flagship UNet over 64x64 pixels (its 49,152-value GN groups through the GN
      kernel's two-pass path), and that decoder's `sample` serving surface
@@ -250,7 +252,8 @@ Phases (one flushed line each, with elapsed seconds):
      first update on 6 tensors against the same core's on the CPU from
      the same gradients: 1e-6 relative, the f32 state 2e-5, bf16 moments
      within one ulp;
-     `adam_fused` against `adam` too); 3 steps with a save after each,
+     `adam_fused` against `adam` too); SAVE_STEPS steps with a save after
+     each,
      blocking then `async_ckpt` (the seconds the loop blocked, ckpt_last
      bit-identical to the live model); a torch.profiler trace of 2 steps
      that must name `sdt::group_norm`, `sdt::mha` and
@@ -300,12 +303,27 @@ Phases (one flushed line each, with elapsed seconds):
      trainer and its state read back bit for bit; with 2 or more cards
      TP = 2 and FSDP runs too, with one card 2 ranks of DDP on that card
      over gloo (CUDA tensors) at 2 clips a rank; the world size, backend
-     and plans on a line of their own. Then `encode`, `denoise` and
+     and plans on a line of their own; each rank's state on its card
+     (`memory_allocated` as the trainer lets it go) against
+     `parallel.aot`'s prediction from shard shapes, within the caching
+     allocator's rounding (`held_state_bytes`). Then `encode`, `denoise` and
      `sample` exported for `cuda` by a process that sees no card
      (`CUDA_VISIBLE_DEVICES=""`, `save_artifact(devices=("cuda",))`),
      loaded on the card beside the same surfaces exported on the card:
      the answers must be bit-identical; export and load seconds;
- 18. one JSON line listing every kernel (times per serving request;
+ 18. per-card memory under each plan (`parallel/aot.py`) and the
+     optimizers the plans took last: the flagship's step at the local
+     batch of SIZING_CARDS cards under DP (this process), TP 2
+     (`adam_fused`) and FSDP 2 (`adafactor`; 2 gloo ranks on the one
+     card each, both runs side by side), SIZING_STEPS steps each with
+     LAUNCHES_PER_STEP launches a step exactly, the activation peak of
+     the last step, each rank's state on the card against `parallel.aot`
+     as in phase 17, each run's trained state against one process's on
+     the same global batch (`state_distance`; SCALE_STATE_TOL, bf16
+     kinds BF16_STATE_TOL, the rows ZERO_GRADIENT names and the elements
+     whose first gradient is noise left out); then the sizing table of
+     SIZING_CARDS cards with the measured peaks;
+ 19. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
      `res64_*`: slot attention at the 64x64 model's shape; `img_*`: slot
      attention at the image shape, per image `encode`; `savi_train_*`,
@@ -415,7 +433,9 @@ BF16_TRAIN_GRAD_TOL = 1e-1
 # SEG_METRIC_TOL (about the share of pixels that flip, 7x the largest
 # measured move); the losses by 1e-3 relative (f32 sums in another order)
 EVAL_BATCH, EVAL_BATCHES = 8, 2
-GRAPH_REQUESTS = 5  # 8: warm requests a median of host seconds is over
+# 8: warm requests a median of host seconds is over (5 before phase 18
+# took the script's time)
+GRAPH_REQUESTS = 3
 ARGMAX_TIE = 2 * TOL["slot_attention"]
 ARGMAX_EXACT = 0.995
 LOSS_RTOL = 1e-3
@@ -428,10 +448,11 @@ STAGE1_CPU_FRAMES = 4
 STAGE2_CLIPS = 4
 # 10: every sampler of the decoder through `log_images` (2 videos x the
 # clip's frames): (name, model, `log_images` keywords, frames of the
-# plain-path twin or None for all 12). "f32" and "bf16" are the flagship
-# (latent), "pixel" its UNet over 64x64 pixels with no VQ-VAE. Two twins
-# are cut to the first frame of each video: ancestral's 1000 steps and the
-# pixel decoder's DDIM (the widths never are). The pixel decoder's DDIM
+# plain-path twin or None for all 12; 1: the whole run over 1 video).
+# "f32" and "bf16" are the flagship (latent), "pixel" its UNet over 64x64
+# pixels with no VQ-VAE. Two twins are cut to the first frame of each
+# video: ancestral's 1000 steps and the pixel decoder's DDIM (the widths
+# never are). The pixel decoder's DDIM
 # takes PIXEL_DDIM_STEPS steps, not the default 200: at 64x64 a UNet call
 # over the 12 frames takes 0.22 s, and 200 of them put the script past
 # half its time limit; the flagship's DDIM takes FLAGSHIP_DDIM_STEPS too
@@ -451,7 +472,9 @@ SAMPLER_RUNS = (
     ("dpm++ logSNR", "f32", dict(DPM, skip_type="logSNR"), None),
     ("ddim", "f32", dict(use_dpm=False, use_ddim=True,
                          steps=FLAGSHIP_DDIM_STEPS), None),
-    ("ancestral", "f32", dict(use_dpm=False), 2),
+    # its 1000 UNet calls over 1 video (its twin its first frame), 2
+    # before the script's time took in phase 18
+    ("ancestral", "f32", dict(use_dpm=False), 1),
     ("dpm++ multistep", "bf16", dict(DPM, method="multistep"), None),
     ("ddim", "bf16", dict(use_dpm=False, use_ddim=True,
                           steps=FLAGSHIP_DDIM_STEPS), None),
@@ -2281,7 +2304,8 @@ def pixel_sample_surface(model, dev, phase, failed):
 def samplers(smi, dev, phase="phase 10"):
     """Every sampler of the decoder at full flagship width (random
     weights, seed 0) through `log_images` of 2 videos x 6 frames, each
-    against the plain versions (`run_sampler`): DPM-Solver(++) methods,
+    against the plain versions (`run_sampler`; the ancestral chain over
+    the first video): DPM-Solver(++) methods,
     DDIM, ancestral, two of them in bf16, and the pixel-space decoder,
     also through its `sample` serving surface, eager and graphed.
     -> {path: launch counts}; raises SystemExit after the last run if any
@@ -2310,8 +2334,10 @@ def samplers(smi, dev, phase="phase 10"):
         for name, k, kw, twin in SAMPLER_RUNS:
             if k != kind:
                 continue
-            counts, report, fault = run_sampler(model, kind, name, kw, twin,
-                                                video, dev, phase)
+            # a twin of one frame: the kernel path over one video too
+            counts, report, fault = run_sampler(
+                model, kind, name, kw, twin,
+                video[:1] if twin == 1 else video, dev, phase)
             reports.append(report)
             failed += [fault] if fault else []
             total = {n: total[n] + counts[n] for n in total}
@@ -3664,6 +3690,9 @@ SETTINGS_OPTIMIZERS = (("adam_fused", 0.0, 1.0), ("adam_bf16", 0.0, 1.0),
                        ("adamw", 0.01, 1.0), ("adafactor", 0.0, 1.0),
                        ("sgd", 0.0, 1e4))
 SETTINGS_STEPS = 3
+# the steps of the blocking and the async save runs, a 1.6 GiB save after
+# each (3 before the script's time took in phase 18)
+SAVE_STEPS = 2
 # the flagship tensors whose first update is replayed on the CPU: a
 # ResBlock conv of 128 (its two largest JAX dimensions tie at 128), the
 # middle ResBlock's conv of 512, an attention projection of 512 x 512
@@ -3927,12 +3956,13 @@ def settings(smi, dev, phase="phase 15"):
             failed.append("adam_fused against adam")
         del rec
 
-    # async against blocking saves: 3 steps, a save after each
+    # async against blocking saves: SAVE_STEPS steps, a save after each
     blocked = {}
     paths["settings_async_ckpt"] = dict.fromkeys(ops.launch_counts(), 0)
     for flag in (False, True):
         model.load_state_dict(init)
-        tcfg = base.copy(async_ckpt=flag, save_interval=1.0 / len(data))
+        tcfg = base.copy(async_ckpt=flag, save_interval=1.0 / len(data),
+                         max_steps=SAVE_STEPS)
         with tempfile.TemporaryDirectory() as tmp:
             label = f"async_ckpt={flag}"
             trainer, report = settings_fit(model, tcfg, data, phase, label,
@@ -3945,10 +3975,11 @@ def settings(smi, dev, phase="phase 15"):
             path = os.path.join(tmp, "ckpt_last.pt")
             size = os.path.getsize(path) / 2.0 ** 30
             last = load_checkpoint(path)
-            same = last["step"] == SETTINGS_STEPS and all(
+            same = last["step"] == SAVE_STEPS and all(
                 torch.equal(last["model"][k], v.cpu())
                 for k, v in model.state_dict().items())
-            log(f"{phase}: {label}: 3 steps with a save of {size:.2f} GiB "
+            log(f"{phase}: {label}: {SAVE_STEPS} steps with a save of "
+                f"{size:.2f} GiB "
                 f"after each: fit {fit_s:.2f}s, the steps {steps_s:.2f}s, "
                 f"the loop blocked {blocked[flag]:.2f}s outside the steps; "
                 f"ckpt_last reloads bit-identical to the live model: "
@@ -4597,31 +4628,163 @@ def scale_rank(rank, world, port, spec):
               "step_seconds": [st["step_seconds"] for st in report.steps],
               "launches": totals, "grad_values": numel,
               "allreduce_ms": allreduce_ms(numel, dev)}
+    box = [trainer]
+    del trainer
+    result["state_bytes"] = held_state_bytes(box, spec["tp"])
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
     dist.barrier()
     dist.destroy_process_group()
 
 
-def state_distance(saved, live):
+def held_state_bytes(box, tp=1):
+    """One rank's training state on its card against `parallel.aot`'s
+    prediction from shard shapes. The bytes of the live tensors on the
+    card (parameters, buffers, the EMA shadow, the optimizer's state: the
+    local shards) must equal the prediction's exactly; and how far
+    `torch.cuda.memory_allocated` drops as the trainer `box.pop()` lets
+    go of its optimizer state, then its EMA, then the rest (parameters,
+    buffers, DDP's buckets, which only the prediction counts), the
+    caller holding it nowhere else, may exceed the prediction by the
+    allocator's rounding alone (`allocator_slack`). -> {"live", "exact",
+    "allocated", "predicted", "slack", "ok", "parts": {part: [allocated,
+    predicted]}}."""
+    import gc
+
+    import torch
+    from slotdiffusion_tpu_torch.models import build_model
+    from slotdiffusion_tpu_torch.parallel import aot
+    from slotdiffusion_tpu_torch.parallel.tp import _local
+    trainer = box.pop()
+    cfg, data = trainer.params, trainer.data_count
+    plan = trainer.plan
+    pred = aot.state_bytes(
+        build_model(cfg, device="meta"), cfg, data, tp,
+        plan is not None and plan.fsdp,
+        ddp=plan is not None and plan.kind == "ddp")
+    model, core = trainer.model, trainer.optimizer.core
+    on_card = [_local(t) for t in [*model.parameters(), *model.buffers(),
+                                   *(trainer.ema.shadow.values()
+                                     if trainer.ema else ()),
+                                   *(v for st in core.state.values()
+                                     for v in st.values()
+                                     if torch.is_tensor(v) and v.is_cuda)]]
+    live = sum(t.numel() * t.element_size() for t in on_card)
+    # DDP's buckets: 25 MiB each, and a first one of 1 MiB
+    buckets = math.ceil(pred["buckets"] / 2 ** 20 / 25) + 1 \
+        if pred["buckets"] else 0
+    slack = allocator_slack([t.numel() * t.element_size()
+                             for t in on_card] + [2 ** 21] * buckets)
+    del model, on_card
+
+    def freed(let_go):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        let_go()
+        gc.collect()
+        torch.cuda.synchronize()
+        return [before - torch.cuda.memory_allocated()]
+
+    parts = {"opt": freed(core.state.clear) + [pred["opt"]]}
+    del core
+    parts["ema"] = freed(lambda: setattr(trainer, "ema", None)) + \
+        [pred["ema"]]
+    rest = [trainer]
+    del trainer, plan
+    parts["params and buckets"] = freed(rest.clear) + \
+        [pred["params"] + pred["buckets"]]
+    allocated, predicted = (sum(p[i] for p in parts.values())
+                            for i in range(2))
+    exact = live == pred["params"] + pred["ema"] + pred["opt"]
+    return {"live": live, "exact": exact, "allocated": allocated,
+            "predicted": predicted, "slack": slack, "parts": parts,
+            "ok": exact and 0 <= allocated - predicted <= slack}
+
+
+def state_bytes_line(held):
+    """`held_state_bytes`'s reading, for the log."""
+    return (f"its state on the card {held['live']} B of live tensors, "
+            f"{held['allocated']} B allocated (DDP's buckets too), "
+            f"parallel.aot's prediction {held['predicted']} B (its "
+            f"parameters, EMA and optimizer state against the live tensors: "
+            f"{'equal' if held['exact'] else 'DIFFER'}; allocator slack "
+            f"{held['slack']} B; allocated, predicted by part " +
+            ", ".join(
+                f"{k} {v}" for k, v in held["parts"].items()) +
+            f") {'ok' if held['ok'] else 'FAIL'}")
+
+
+def allocator_slack(sizes):
+    """The most PyTorch's caching allocator may hand out beyond tensors of
+    `sizes` bytes: each rounded up to a multiple of 512 bytes, and a
+    block over 1 MiB given whole where the rest of its free block would
+    be 1 MiB or less (`kSmallSize`: the allocator splits large blocks
+    only above it)."""
+    return sum(512 + (2 ** 20 if n > 2 ** 20 else 0) for n in sizes)
+
+
+def first_step_noise(trainer):
+    """Make `trainer`'s first adafactor update record, for each parameter
+    index, the elements whose gradient is within rounding noise of zero:
+    at most ZERO_NOISE of its tensor's largest. -> the dict it fills."""
+    from slotdiffusion_tpu_torch.training.optim import Adafactor
+    core, masks = trainer.optimizer.core, {}
+    step = core.step
+
+    def first():
+        if isinstance(core, Adafactor):
+            params = [p for g in core.param_groups for p in g["params"]]
+            for i, p in enumerate(params):
+                if p.grad is not None:
+                    g = p.grad.abs()
+                    masks[i] = (g <= ZERO_NOISE * g.max()).cpu()
+        core.step = step
+        return step()
+
+    core.step = first
+    return masks
+
+
+def state_distance(saved, live, skip=(), names=None, noise=None):
     """How far two trainer states are apart, by kind: the parameters, the
     EMA shadow and each of the optimizer's per-parameter moments. For
     each kind, the largest |saved - live| of its tensors over the largest
     |live| of them: a gradient that is zero but for rounding (a bias
     before a GroupNorm) gives Adam's moments of that tensor no scale of
-    their own. -> {kind: (that share, the tensor with the largest
+    their own. The rows `skip` names (ZERO_GRADIENT's form) are left out
+    of both (`names`: the parameter of each optimizer index), and so are
+    the elements `noise` ({parameter index: mask}) marks in the kinds of
+    NOISE_KINDS. -> {kind: (that share, the tensor with the largest
     difference)}."""
+    import re
+
     import torch
-    kinds = {"parameters": [(k, v, live["model"][k])
+
+    def kept(name, a, b):
+        for rx, start, end in skip:
+            if name is not None and re.search(rx, name) and a.dim():
+                n = a.shape[0]
+                a, b = a.clone(), b.clone()
+                a[round(start * n):round(end * n)] = 0
+                b[round(start * n):round(end * n)] = 0
+        return a, b
+
+    kinds = {"parameters": [(k, *kept(k, v, live["model"][k]))
                             for k, v in saved["model"].items()]}
     if saved["ema"] is not None:
-        kinds["EMA"] = [(k, v, live["ema"]["shadow"][k])
+        kinds["EMA"] = [(k, *kept(k, v, live["ema"]["shadow"][k]))
                         for k, v in saved["ema"]["shadow"].items()]
     adam = live["optimizer"]["core"]["state"]
     for i, st in saved["optimizer"]["core"]["state"].items():
         for n, v in st.items():
             if torch.is_tensor(v) and v.dim():
-                kinds.setdefault(n, []).append((i, v, adam[i][n]))
+                a, b = kept(names and names[i], v, adam[i][n])
+                if n in NOISE_KINDS and noise and i in noise:
+                    mask = noise[i].to(b.device)
+                    a = a.masked_fill(mask.to(a.device), 0)
+                    b = b.masked_fill(mask, 0)
+                kinds.setdefault(n, []).append((i, a, b))
     out = {}
     for kind, pairs in kinds.items():
         diff, scale = (0.0, None), 0.0
@@ -4710,6 +4873,11 @@ def scale_out(smi, dev, phase="phase 17"):
                 if not ok:
                     failed.append(run["name"])
                 for rk in ranks:
+                    held = rk["state_bytes"]
+                    log(f"{phase}: {run['name']} rank {rk['rank']}: "
+                        + state_bytes_line(held))
+                    if not held["ok"]:
+                        failed.append(f"{run['name']} state bytes")
                     step = statistics.median(rk["step_seconds"])
                     log(f"{phase}: {run['name']} rank {rk['rank']} "
                         f"({rk['plan']}): steps " + " ".join(
@@ -4818,6 +4986,258 @@ def scale_out(smi, dev, phase="phase 17"):
             raise SystemExit(f"{phase}: {failed}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log(f"{phase}: took {time.time() - t_phase:.1f}s")
+    return paths
+
+
+# phase 18: per-card memory under each plan, and the optimizers the plans
+# took last (see the module docstring)
+# the cards whose local batches the phase steps at (the flagship's 32
+# clips over 8 cards: 4 a data rank, 8 under TP 2)
+SIZING_CARDS = 8
+# the optimizer each sharded plan's gloo run steps with
+SIZING_RUNS = (("tp", 2, False, "adam_fused"), ("fsdp", 1, True,
+                                                 "adafactor"))
+SIZING_STEPS = 2  # the first makes the optimizer's state; the peak is the
+# second's
+# left out where a sharded run's state is held against one process's:
+# the rows of a tensor whose gradient is zero in exact arithmetic, as
+# (a regex on its name, the share of its rows where they start and end).
+# A bias that shifts every logit a softmax normalises alike cancels in
+# it: slot attention's q bias (the softmax over the slots), the k third
+# of each self-attention's packed in-projection bias (the softmax over
+# the keys). Their updates follow rounding noise, and adafactor's
+# momentum, an update over its own root mean square, carries that noise
+# at full size (measured: 3.6e-2 of the momentum's largest value at
+# either, every other tensor's within SCALE_STATE_TOL)
+ZERO_GRADIENT = ((r"slot_attention\.project_q\.0\.bias$", 0.0, 1.0),
+                 (r"self_attn\.in_proj_bias$", 1 / 3, 2 / 3))
+# adafactor's first update of an unfactored view is the sign of each
+# element's gradient (its second moment is that gradient squared), and a
+# factored view's is the gradient over its row's and column's root mean
+# square, so of a row whose gradients are all noise it is full size as
+# well: an element whose gradient is within rounding noise of zero takes
+# either sign, and its momentum keeps it. In the kinds of NOISE_KINDS the
+# elements whose first gradient in the one process is at most ZERO_NOISE
+# of their tensor's largest are left out (`first_step_noise`); in a
+# row that is not noise such an element's update is as small as its
+# gradient, so leaving it out hides nothing. Measured with the mask on
+# the unfactored views only: 0.311 of the momentum's largest value at
+# `savi.encoder.encoder.layer3.1.conv1.weight`, a factored conv
+NOISE_KINDS = ("m",)
+ZERO_NOISE = 1e-4
+# a kind the optimizer stores in bf16 (adam_bf16's first moment,
+# adafactor's momentum) is rounded after every update, and a sum in
+# another order can land the f32 value it rounds on the other side of a
+# rounding boundary: such a kind is held to one rounding step of its
+# largest value (2^-7 of it; measured 2.58e-3 and 7.36e-3 with the
+# mask above), every f32 kind to SCALE_STATE_TOL
+BF16_STATE_TOL = 2.0 ** -7
+BF16_KINDS = ("m", "mu")
+LAUNCHES_PER_STEP = {"gn_silu": GN_PER_UNET, "attention": ATTN_PER_UNET,
+                     "slot_attention": 6}
+
+
+def sizing_trainer(dev, clips, mesh=None, optimizer="adam", fsdp=False):
+    """The flagship (seed 0) in a trainer at `clips` global clips a step
+    (`mesh`: across processes) -> (trainer, its first global batch's
+    block on the card)."""
+    import torch
+    from slotdiffusion_tpu_torch import configs
+    from slotdiffusion_tpu_torch.data.loader import DataModule
+    from slotdiffusion_tpu_torch.data.synthetic import synthetic_video_splits
+    from slotdiffusion_tpu_torch.methods.build import build_method
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+    from slotdiffusion_tpu_torch.parallel import data_coords
+    cfg = configs.SAViLDMMoviE128().copy(
+        train_batch_size=clips, optimizer=optimizer, fsdp=fsdp,
+        use_viz=False, async_ckpt=False)
+    model = build_model(cfg, device=dev)
+    init_random_(model, torch.Generator().manual_seed(0))
+    train, _ = synthetic_video_splits(cfg, clips, 0)
+    index, count = data_coords(mesh)
+    data = DataModule(train, None, clips, seed=0, process_index=index,
+                      process_count=count)
+    trainer = build_method(model, data, cfg, mesh=mesh)
+    batch = next(iter(data.train_loader(0)))
+    return trainer, {k: v.to(dev) if hasattr(v, "to") else v
+                     for k, v in batch.items()}
+
+
+def sizing_steps(trainer, batch, what):
+    """SIZING_STEPS steps of `trainer` on `batch` through the kernels
+    (LAUNCHES_PER_STEP each, exactly) -> (the activation peak of the last
+    step: `parallel.aot.step_peak`, its launches, the steps' seconds)."""
+    import torch
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.parallel import aot
+    ops.reset_launch_counts()
+    t = time.time()
+    peak = aot.step_peak(trainer, batch)
+    seconds = time.time() - t
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {k: n * SIZING_STEPS for k, n in LAUNCHES_PER_STEP.items()}
+    if {k: counts[k] for k in want} != want:
+        raise SystemExit(f"{what}: launches {counts}, want {want}")
+    return peak, counts, seconds
+
+
+def sizing_rank(rank, world, port, spec):
+    """One gloo rank of phase 18 on the one card (spawned): the flagship
+    laid out by the plan, SIZING_STEPS steps (`sizing_steps`) with the
+    plan's optimizer, its whole trained state; then rank 0 trains one
+    process the same steps on the same global batch and holds the state
+    against it (`state_distance`); every rank's state bytes on the card
+    against `parallel.aot` (`held_state_bytes`). Writes JSON."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from slotdiffusion_tpu_torch.training.trainer import _to_host
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.cuda.set_device(0)
+    from slotdiffusion_tpu_torch.parallel import (
+        make_mesh, maybe_initialize_distributed)
+    if not maybe_initialize_distributed(cpu=True, verbose=False):
+        raise SystemExit(f"rank {rank}: no multi-process launch detected")
+    dev = torch.device("cuda", 0)
+    label = f"phase 18 {spec['name']} rank {rank}/{world}"
+    mesh = make_mesh(model=spec["tp"], device="cuda")
+    trainer, batch = sizing_trainer(dev, spec["clips"], mesh,
+                                    spec["optimizer"], spec["fsdp"])
+    peak, counts, seconds = sizing_steps(trainer, batch, label)
+    # a copy on the host: the whole state's replicated tensors are the
+    # trainer's own, which `held_state_bytes` must see let go
+    whole = _to_host(trainer.state_dict())
+    if rank:
+        whole = None
+    box = [trainer]
+    del trainer
+    held = held_state_bytes(box, spec["tp"])
+    torch.cuda.empty_cache()
+    result = {"rank": rank, "peak": peak, "launches": counts,
+              "seconds": seconds, "state_bytes": held}
+    if rank == 0:
+        one, one_batch = sizing_trainer(dev, spec["clips"],
+                                        optimizer=spec["optimizer"])
+        noise = first_step_noise(one)
+        for _ in range(SIZING_STEPS):
+            one.train_step(one_batch)
+        result["distance"] = state_distance(
+            whole, one.state_dict(), ZERO_GRADIENT,
+            one.optimizer.core_names, noise)
+        result["noise"] = [sum(int(m.sum()) for m in noise.values()),
+                           sum(m.numel() for m in noise.values())]
+        del one, whole
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sizing(smi, dev, phase="phase 18"):
+    """Phase 18. -> {path: {kernel: launches}}."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    from slotdiffusion_tpu_torch import configs
+    from slotdiffusion_tpu_torch.models import build_model
+    from slotdiffusion_tpu_torch.parallel import aot
+
+    t_phase = time.time()
+    cfg = configs.SAViLDMMoviE128()
+    local = {"dp": cfg.train_batch_size // SIZING_CARDS,
+             "tp": cfg.train_batch_size // (SIZING_CARDS // 2),
+             "fsdp": cfg.train_batch_size // SIZING_CARDS}
+    paths, peaks, failed = {}, {}, []
+    tmp = tempfile.mkdtemp()
+    runs, procs = [], []
+    try:
+        # TP 2 and FSDP 2: gloo ranks on the one card, both runs side by
+        # side, started first: they build while this process measures DP
+        for name, tp, fsdp, optimizer in SIZING_RUNS:
+            out = os.path.join(tmp, name)
+            os.makedirs(out)
+            # the TP run's global batch is its data rank's, FSDP's two
+            # data ranks' at the local batch each
+            spec = dict(name=name, tp=tp, fsdp=fsdp, optimizer=optimizer,
+                        out=out, clips=local[name] * (2 if fsdp else 1))
+            runs.append(spec)
+            procs.append(mp.start_processes(
+                sizing_rank, args=(2, free_port(), spec), nprocs=2,
+                start_method="spawn", join=False))
+        # DP: a data rank's step is one process's at the local batch
+        trainer, batch = sizing_trainer(dev, local["dp"])
+        peaks["dp"], paths["sizing_dp"], secs = sizing_steps(
+            trainer, batch, f"{phase} dp")
+        log(f"{phase}: dp{SIZING_CARDS} at {local['dp']} clips a card: "
+            f"{SIZING_STEPS} steps {secs:.2f}s (host clock), activation "
+            f"peak {peaks['dp'] / 2 ** 30:.3f} GiB, launches "
+            f"{paths['sizing_dp']}")
+        del trainer, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        for ctx in procs:
+            while not ctx.join():
+                pass
+        for spec in runs:
+            name = spec["name"]
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(spec["out"], f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+                paths[f"sizing_{name}_rank{r}"] = ranks[-1]["launches"]
+            peaks[name] = max(rk["peak"] for rk in ranks)
+            far = ranks[0]["distance"]
+            ok = all(d <= (BF16_STATE_TOL if k in BF16_KINDS else
+                           SCALE_STATE_TOL) for k, (d, _) in far.items())
+            if not ok:
+                failed.append(f"{name} state")
+            for rk in ranks:
+                held = rk["state_bytes"]
+                if not held["ok"]:
+                    failed.append(f"{name} rank {rk['rank']} state bytes")
+                log(f"{phase}: {name} ({spec['optimizer']}, 2 gloo ranks on "
+                    f"the card, {spec['clips']} clips a global step) rank "
+                    f"{rk['rank']}: {SIZING_STEPS} steps {rk['seconds']:.2f}s "
+                    f"(host clock), activation peak "
+                    f"{rk['peak'] / 2 ** 30:.3f} GiB, "
+                    f"{state_bytes_line(held)}, launches "
+                    f"{rk['launches']}")
+            log(f"{phase}: {name}: the trained state against one process's "
+                "on the same global batch, each kind's largest difference "
+                "over its largest value: " + ", ".join(
+                    f"{k} {d:.2e} ({n})" for k, (d, n) in far.items()) +
+                f" (tol {SCALE_STATE_TOL:.0e}, bf16 kinds "
+                f"{BF16_STATE_TOL:.2e}; left out: the rows ZERO_GRADIENT "
+                f"names, and {ranks[0]['noise'][0]} of "
+                f"{ranks[0]['noise'][1]} elements of {NOISE_KINDS} whose "
+                f"first gradient is noise) {'ok' if ok else 'FAIL'}")
+    finally:
+        for ctx in procs:  # after a failure here, no rank outlives it
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the sizing table of SIZING_CARDS cards, with the peaks measured here
+    meta = build_model(cfg, device="meta")
+    hbm = aot.capacity(dev)
+    rows = [aot.size_plan(cfg, meta, SIZING_CARDS, tp, fsdp,
+                          activation_peak=peaks[name], hbm=hbm)
+            for name, tp, fsdp in (("dp", 1, False), ("tp", 2, False),
+                                   ("fsdp", 1, True))]
+    for row in rows:
+        log(f"{phase}: sizing {json.dumps(row)}")
+    log(f"{phase}: sizing table ({smi}; FSDP's activation peak measured "
+        "at 2 data ranks)\n" + aot.format_table(rows))
+    if failed:
+        raise SystemExit(f"{phase}: {failed}")
     log(f"{phase}: took {time.time() - t_phase:.1f}s")
     return paths
 
@@ -5160,7 +5580,10 @@ def main():
     # ---- 17. scale-out across processes, cross-device export ------------
     per_path.update(scale_out(smi, dev))
 
-    # ---- 18. report -----------------------------------------------------
+    # ---- 18. per-card memory under each plan, every optimizer sharded ---
+    per_path.update(sizing(smi, dev))
+
+    # ---- 19. report -----------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():

@@ -25,7 +25,14 @@ sys.path.insert(0, ROOT)
 def unsynced_rank(*args):
     """`chip_smoke.scale_rank` with DDP's gradient sync always off."""
     from slotdiffusion_tpu_torch.parallel import tp
-    tp.ShardingPlan.sync_context = lambda self, final: self.ddp.no_sync()
+    forward = tp.ShardingPlan.compute_losses
+
+    def unsynced(self, *a, **kw):
+        # DDP reads the switch in its forward (what `no_sync` sets)
+        self.ddp.require_backward_grad_sync = False
+        return forward(self, *a, **kw)
+
+    tp.ShardingPlan.compute_losses = unsynced
     import chip_smoke
     chip_smoke.scale_rank(*args)
 

@@ -38,16 +38,19 @@ _IN_PLACE = {torch.Tensor.exponential_, torch.Tensor.normal_,
              torch.Tensor.uniform_, torch.Tensor.bernoulli_}
 
 
-def make_mesh(data=None, model=1):
+def make_mesh(data=None, model=1, device=None):
     """A ("data", "model") `DeviceMesh` over the initialised process
-    group; `data` defaults to world / model."""
+    group; `data` defaults to world / model, `device` ("cuda" or "cpu")
+    to the card's under NCCL, else the CPU's (gloo ranks that hold CUDA
+    tensors, several on one card, pass "cuda")."""
     from torch.distributed.device_mesh import init_device_mesh
     world = dist.get_world_size()
     if data is None:
         data = world // model
     if data * model != world:
         raise ValueError(f"mesh {data}x{model} != {world} processes")
-    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if device is None:
+        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device, (data, model),
                             mesh_dim_names=("data", "model"))
 

@@ -50,7 +50,8 @@ import torch.distributed as dist
 from torch import nn
 
 __all__ = ["RULES", "FSDP_MIN_SIZE", "ShardingPlan", "parallelize",
-           "tp_styles", "fsdp_dims", "tp_param_count", "fsdp_param_count"]
+           "tp_styles", "fsdp_dims", "tp_param_count", "fsdp_param_count",
+           "shard_dims"]
 
 # (regex on the name of the Linear a rule shards, style)
 RULES = (
@@ -68,9 +69,6 @@ SHARDED = {"colwise": {"weight": 0, "bias": 0},
            "geglu": {"weight": 0, "bias": 0},
            "rowwise": {"weight": 1}}
 FSDP_MIN_SIZE = 1 << 14
-# the JAX leaf's dimension j is the torch tensor's dimension PERMS[j]
-# (`training.optim.flax_views`)
-PERMS = {"dense": (1, 0), "conv": (2, 3, 1, 0), "deconv": (2, 3, 0, 1)}
 
 
 def _rule(name):
@@ -116,20 +114,13 @@ def tp_styles(model, tp):
     return styles, replicated
 
 
-def _jax_view(shape, layout):
-    """The torch dimension of each dimension of the JAX leaf."""
-    perm = PERMS.get(layout) if isinstance(layout, str) else None
-    return perm if perm and len(perm) == len(shape) else \
-        tuple(range(len(shape)))
-
-
 def fsdp_dims(model, data, tp_sharded=None, layouts=None):
     """{parameter name: the torch dimension FSDP shards over `data`},
     `fsdp_augment`'s choice: parameters of at least FSDP_MIN_SIZE
     elements, the largest JAX-layout dimension that `data` divides and
     TP does not shard (`tp_sharded`: {name: torch dim}); ties to the
     first. The others are absent."""
-    from ..training.optim import flax_layouts
+    from ..training.optim import flax_layouts, view_dims
     if data <= 1:
         return {}
     layouts = flax_layouts(model) if layouts is None else layouts
@@ -139,7 +130,10 @@ def fsdp_dims(model, data, tp_sharded=None, layouts=None):
         shape = tuple(p.shape)
         if p.dim() == 0 or p.numel() < FSDP_MIN_SIZE:
             continue
-        perm = _jax_view(shape, layouts.get(name))
+        # the torch dimension of each dimension of the JAX leaf (a packed
+        # layout's leaf taken as the tensor itself)
+        perm = view_dims(layouts.get(name), len(shape)) or \
+            tuple(range(len(shape)))
         best = None
         for j, d in enumerate(perm):
             if d != tp_sharded.get(name) and shape[d] % data == 0 and \
@@ -188,13 +182,48 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _sharded_groups(t):
-    """The process groups over which the DTensor `t` is sharded."""
+def shard_dims(t):
+    """{dim of `t`: (process group, shard count)} for each mesh dim over
+    which the DTensor `t` is sharded; {} for a plain tensor."""
     from torch.distributed.tensor import DTensor, Shard
     if not isinstance(t, DTensor):
-        return ()
-    return tuple(t.device_mesh.get_group(i)
-                 for i, pl in enumerate(t.placements) if isinstance(pl, Shard))
+        return {}
+    mesh = t.device_mesh
+    return {pl.dim: (mesh.get_group(i), mesh.size(i))
+            for i, pl in enumerate(t.placements) if isinstance(pl, Shard)}
+
+
+def _gather(local, mesh, placements):
+    """The whole tensor of which `local` is this rank's block, laid out by
+    `placements` on `mesh` in even shards: `all_gather` over each mesh
+    dim that shards it (gloo takes CUDA tensors there, where DTensor's
+    functional collectives fail)."""
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            parts = [torch.empty_like(local) for _ in range(mesh.size(i))]
+            dist.all_gather(parts, local.contiguous(),
+                            group=mesh.get_group(i))
+            local = torch.cat(parts, dim=pl.dim)
+    return local
+
+
+def whole(t):
+    """The whole tensor of the DTensor `t` (a collective; a plain tensor as
+    it is)."""
+    if not hasattr(t, "to_local"):
+        return t
+    return _gather(t.to_local(), t.device_mesh, t.placements)
+
+
+def block(full, mesh, placements):
+    """This rank's block (its own storage) of the whole tensor `full` laid
+    out by `placements` on `mesh` in even shards; no collective."""
+    cut = full
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            size = cut.shape[pl.dim] // mesh.size(i)
+            cut = cut.narrow(pl.dim, mesh.get_local_rank(i) * size, size)
+    return full if cut is full else cut.clone()
 
 
 class _Losses(nn.Module):
@@ -243,22 +272,12 @@ class ShardingPlan:
             return self.ddp(*args, **kwargs)
         return self.model.compute_losses(*args, **kwargs)
 
-    def sync_context(self, final):
-        """The context of a micro-step's backward: gradient sync off on
-        the k - 1 micro-steps before an update (DDP's `no_sync`, FSDP2's
-        `set_requires_gradient_sync`)."""
-        import contextlib
-        if self.ddp is not None and not final:
-            return self.ddp.no_sync()
-        if self.fsdp:
-            self.model.set_requires_gradient_sync(final)
-        return contextlib.nullcontext()
-
     @torch.no_grad()
     def reduce_grads(self):
         """Average the gradients no wrapper reduces over "data": every
         parameter under TP without FSDP, FSDP's ignored ones. One
-        all-reduce a dtype."""
+        all-reduce a dtype (`Optimizer.backward` calls it after each
+        micro-step's backward)."""
         if self.data == 1 or not self.manual:
             return
         group = self.mesh["data"].get_group()
@@ -291,8 +310,7 @@ class ShardingPlan:
         """`t` (a parameter, or a state tensor of its shape, of parameter
         `name`) as the whole tensor in the single-process layout; a
         collective for a DTensor."""
-        from torch.distributed.tensor import DTensor
-        full = t.full_tensor() if isinstance(t, DTensor) else t
+        full = whole(t)
         perm = self.perms.get(name)
         if perm is not None and tuple(full.shape[:1]) == (len(perm),):
             full = full[torch.argsort(perm).to(full.device)]
@@ -301,14 +319,49 @@ class ShardingPlan:
     def from_full(self, name, full, like):
         """The single-process tensor `full` in the layout of `like` (a
         DTensor is given its local shard)."""
-        from torch.distributed.tensor import DTensor, distribute_tensor
+        from torch.distributed.tensor import DTensor
         full = full.to(like.device, like.dtype)
         perm = self.perms.get(name)
         if perm is not None and tuple(full.shape[:1]) == (len(perm),):
             full = full[perm.to(full.device)]
         if not isinstance(like, DTensor):
             return full
-        return distribute_tensor(full, like.device_mesh, like.placements)
+        mesh, placements = like.device_mesh, like.placements
+        return DTensor.from_local(block(full, mesh, placements), mesh,
+                                  placements, run_check=False)
+
+    def _placements(self, p, dims):
+        """The placements of a tensor whose dimension k runs along `p`'s
+        dimension dims[k] (None: along none), on `p`'s mesh."""
+        from torch.distributed.tensor import Replicate, Shard
+        return [Shard(dims.index(pl.dim)) if isinstance(pl, Shard) and
+                pl.dim in dims else Replicate() for pl in p.placements]
+
+    def state_full(self, name, p, local, dims):
+        """An optimizer state tensor of parameter `name` (`p`), this rank's
+        local tensor whose dimension k runs along `p`'s dimension dims[k]
+        (None: along none), as the whole tensor in the single-process
+        layout; a collective where `p` is a DTensor."""
+        from torch.distributed.tensor import DTensor
+        if not isinstance(p, DTensor):
+            return local
+        full = _gather(local, p.device_mesh, self._placements(p, dims))
+        perm = self.perms.get(name)
+        if perm is not None and 0 in dims:
+            full = full.index_select(dims.index(0),
+                                     torch.argsort(perm).to(full.device))
+        return full
+
+    def state_local(self, name, p, full, dims):
+        """`state_full`'s inverse: this rank's local tensor of the whole
+        state tensor `full`."""
+        from torch.distributed.tensor import DTensor
+        if not isinstance(p, DTensor):
+            return full
+        perm = self.perms.get(name)
+        if perm is not None and 0 in dims:
+            full = full.index_select(dims.index(0), perm.to(full.device))
+        return block(full, p.device_mesh, self._placements(p, dims))
 
     def copy_full_(self, name, target, full):
         """Write the single-process tensor `full` into `target` in
@@ -324,7 +377,7 @@ class ShardingPlan:
         total, pending = 0.0, {}
         for t in tensors:
             sq = (_local(t).float() ** 2).sum()
-            groups = _sharded_groups(t)
+            groups = tuple(g for g, _ in shard_dims(t).values())
             if groups:
                 pending[groups] = pending.get(groups, 0.0) + sq
             else:

@@ -37,15 +37,25 @@ out here:
 
 Across processes (`plan`, a `parallel.tp.ShardingPlan`): the global norm
 sums each shard's squares over the groups it is sharded over and counts
-a replicated gradient once; the clip scales each local shard. Under
-accumulation the k - 1 micro-steps before an update run without the
-gradient sync (DDP's `no_sync`, FSDP2's `set_requires_gradient_sync`),
-so no micro-batch's own global gradient exists there: those micro-steps
-log no norm, and an update logs the norm of the accumulated mean. Under
-TP or FSDP the parameters are DTensors mixed with plain tensors, which
-torch's foreach and fused paths refuse: `adam`, `adamw` and `sgd` run
-their per-tensor loops, and `adam_fused`, `adam_bf16` and `adafactor`
-raise (SHARDED_CORES).
+a replicated gradient once; the clip scales each local shard. Every
+micro-step's gradient is averaged over "data" in its own backward (DDP's
+all-reduce, FSDP2's reduce-scatter, `ShardingPlan.reduce_grads` for the
+rest), with the sums held so far set aside: each micro-step logs the
+norm of its own global gradient as one process does, and the sums held
+are the mean over "data" of each rank's, laid out as the parameters (a
+checkpoint between micro-steps writes them whole; under FSDP they stay
+sharded, where FSDP2's switched-off sync would keep a whole unsharded
+gradient on every rank, and a copy's all-reduce for the norm would move
+twice the bytes of the reduce-scatter). Under TP or FSDP the parameters
+are DTensors mixed with plain tensors: every core steps on the local
+shards (`_on_local_shards`: torch's foreach and fused paths over plain
+tensors, the elementwise updates of `adam_bf16`), and adafactor takes
+the row and column sums of a factored dimension that is sharded over
+the shard group before it divides, so each rank holds the statistics
+one process would. The optimizer state is kept as local tensors;
+`Optimizer.state_dict` writes it whole in the single-process layout
+(`ShardingPlan.state_full`, along the dimensions `Adafactor.state_dims`
+names).
 """
 
 import contextlib
@@ -54,6 +64,8 @@ import math
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.tp import block, shard_dims, whole
 
 
 def cosine_warmup_schedule(max_lr, total_steps, warmup_steps, min_lr=0.0):
@@ -79,6 +91,50 @@ def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
 
+def _mean(x, dim, n, group=None, keepdim=False):
+    """The mean of `x` over `dim`, whose whole size is `n`: where `dim` is
+    sharded over `group`, the partial sums are added over it first."""
+    if group is None:
+        return x.mean(dim, keepdim=keepdim)
+    s = x.sum(dim, keepdim=keepdim)
+    torch.distributed.all_reduce(s, group=group)
+    return s / n
+
+
+@contextlib.contextmanager
+def _on_local_shards(core):
+    """Within the block the parameters of `core` (a torch optimizer) are
+    the local shards of its DTensor parameters, plain tensors whose
+    gradients are the local gradients, and its state is keyed by them:
+    torch's foreach and fused paths, which refuse DTensors mixed with
+    plain tensors, then run on plain tensors, and an elementwise update
+    of the shards is the update of the whole. The state is kept under the
+    DTensor parameter, as local tensors."""
+    groups, swaps = [g["params"] for g in core.param_groups], []
+    with torch.no_grad():
+        for group in core.param_groups:
+            local = []
+            for p in group["params"]:
+                if hasattr(p, "to_local"):
+                    lp = p.to_local()
+                    lp.grad = None if p.grad is None else _local(p.grad)
+                    if p in core.state:
+                        core.state[lp] = core.state.pop(p)
+                    swaps.append((p, lp))
+                    p = lp
+                local.append(p)
+            group["params"] = local
+    try:
+        yield core
+    finally:
+        for group, params in zip(core.param_groups, groups):
+            group["params"] = params
+        for p, lp in swaps:
+            if lp in core.state:
+                core.state[p] = core.state.pop(lp)
+            lp.grad = None
+
+
 def global_norm(tensors):
     """sqrt of the sum of squares of every element (f32 accumulation)."""
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
@@ -94,8 +150,6 @@ def clip_by_global_norm_(tensors, max_norm):
 
 
 CORES = ("adam", "adam_fused", "adamw", "adam_bf16", "adafactor", "sgd")
-# the cores that take DTensor parameters (TP, FSDP)
-SHARDED_CORES = ("adam", "adamw", "sgd")
 
 
 def core_name(optimizer="adam", weight_decay=0.0):
@@ -244,6 +298,49 @@ def flax_layouts(model):
     return out
 
 
+# the JAX leaf's dimension j is the torch tensor's dimension PERMS[j]
+# (`flax_views`)
+PERMS = {"dense": (1, 0), "conv": (2, 3, 1, 0), "deconv": (2, 3, 0, 1)}
+
+
+def view_dims(layout, ndim):
+    """For each dimension of the `flax_views` view of an `ndim`-dim tensor
+    in `layout`, the tensor's dimension it runs along; None for the
+    packed layouts, whose views split or join the tensor's dimensions."""
+    if isinstance(layout, tuple):
+        return None
+    perm = PERMS.get(layout)
+    return perm if perm and len(perm) == ndim else tuple(range(ndim))
+
+
+def adafactor_stats(shape, layout, sharded=None, min_dim_size_to_factor=128):
+    """The statistics `Adafactor` keeps for a parameter of (whole) `shape`
+    in `layout`, sharded over the counts `sharded` ({dim: count}):
+    [(state key, local shape, dims)], `dims` naming for each dimension of
+    the statistic the parameter's dimension it runs along (None: none of
+    them, or a packed layout's). A packed layout's sharded parameter
+    keeps them whole (its step gathers the gradient)."""
+    sharded = sharded or {}
+    meta = torch.empty(shape, device="meta")
+    gathered = bool(sharded) and isinstance(layout, tuple)
+    out = []
+    for i, v in enumerate(flax_views(meta, layout)):
+        vshape = tuple(v.shape)
+        vdims = view_dims(layout, len(shape))
+        vdims = (None,) * len(vshape) if vdims is None or gathered else vdims
+        fd = _factored_dims(vshape, min_dim_size_to_factor)
+        stats = [(f"v{i}", None)] if fd is None else \
+            [(f"v_row{i}", fd[1]), (f"v_col{i}", fd[0])]
+        for key, drop in stats:
+            keep = [j for j in range(len(vshape)) if j != drop]
+            dims = tuple(vdims[j] for j in keep)
+            local = tuple(vshape[j] // (1 if d is None else
+                                        sharded.get(d, 1))
+                          for j, d in zip(keep, dims))
+            out.append((key, local, dims))
+    return out
+
+
 class Adafactor(_BF16State):
     """optax.adafactor as the JAX package builds it (training/optim.py:
     158-166: min_dim_size_to_factor 128, no parameter scale, no clipping,
@@ -263,7 +360,12 @@ class Adafactor(_BF16State):
 
     The dimensions follow the JAX leaf's layout: `layouts` maps a
     parameter to its `flax_views` layout, and the statistics are kept per
-    view."""
+    view. A DTensor parameter (TP, FSDP) steps on its local shard, its
+    state local tensors (`adafactor_stats`): a mean over a sharded
+    dimension adds the partial sums over the shard group before it
+    divides by the whole size, so every rank holds the statistics one
+    process would; a packed layout's sharded parameter gathers its
+    gradient and updates the whole, keeping its shard."""
     BF16 = ("m",)
 
     def __init__(self, params, lr=0.0, layouts=None, momentum=0.9,
@@ -275,21 +377,25 @@ class Adafactor(_BF16State):
         self.eps = eps
         self.min_dim = min_dim_size_to_factor
 
+    def _stats(self, p):
+        return adafactor_stats(tuple(p.shape), self.layouts.get(p),
+                               {d: n for d, (_, n) in shard_dims(p).items()},
+                               self.min_dim)
+
+    def state_dims(self, p, key):
+        """For each dimension of state `key`'s whole tensor, the dimension
+        of `p` it runs along (or None)."""
+        if key == "m":
+            return tuple(range(p.dim()))
+        return next(dims for k, _, dims in self._stats(p) if k == key)
+
     def _init_state(self, p, state):
+        local = _local(p)
         state["step"] = torch.zeros(())
-        state["m"] = torch.zeros_like(p, dtype=torch.bfloat16,
+        state["m"] = torch.zeros_like(local, dtype=torch.bfloat16,
                                       memory_format=torch.preserve_format)
-        for i, v in enumerate(flax_views(p, self.layouts.get(p))):
-            dims = _factored_dims(tuple(v.shape), self.min_dim)
-            if dims is None:
-                state[f"v{i}"] = torch.zeros(v.shape, device=p.device)
-            else:
-                d1, d0 = dims
-                shape = list(v.shape)
-                state[f"v_row{i}"] = torch.zeros(
-                    shape[:d0] + shape[d0 + 1:], device=p.device)
-                state[f"v_col{i}"] = torch.zeros(
-                    shape[:d1] + shape[d1 + 1:], device=p.device)
+        for key, shape, _ in self._stats(p):
+            state[key] = torch.zeros(shape, device=local.device)
 
     @torch.no_grad()
     def step(self):
@@ -305,56 +411,95 @@ class Adafactor(_BF16State):
                 decay = float(1 - t ** -self.decay_rate)
                 rest = float(1 - torch.tensor(decay))
                 state["step"] += 1
-                u = torch.empty_like(p)
-                layout = self.layouts.get(p)
-                for i, (g, out) in enumerate(zip(
-                        flax_views(p.grad, layout), flax_views(u, layout))):
-                    g2 = g * g + self.eps
-                    dims = _factored_dims(tuple(g.shape), self.min_dim)
-                    if dims is None:
-                        v = state[f"v{i}"].mul_(decay).add_(g2 * rest)
-                        out.copy_(g * v ** -0.5)
-                        continue
-                    d1, d0 = dims
-                    row = state[f"v_row{i}"].mul_(decay).add_(
-                        g2.mean(d0) * rest)
-                    col = state[f"v_col{i}"].mul_(decay).add_(
-                        g2.mean(d1) * rest)
-                    mean = row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
-                    out.copy_(g * ((row / mean) ** -0.5).unsqueeze(d0)
-                              * (col ** -0.5).unsqueeze(d1))
+                layout, shards = self.layouts.get(p), shard_dims(p)
+                local = _local(p)
+                if shards and isinstance(layout, tuple):
+                    # a packed layout's views cut across the shards: the
+                    # update of the whole, then this rank's block of it
+                    u = block(self._update(whole(p.grad), layout, {}, state,
+                                           decay, rest),
+                              p.device_mesh, p.placements)
+                else:
+                    u = self._update(_local(p.grad), layout, shards, state,
+                                     decay, rest)
                 u.mul_(group["lr"])
                 m = u.mul_(1 - self.momentum).add_(
-                    state["m"] * _bf16(self.momentum).to(p.device))
+                    state["m"] * _bf16(self.momentum).to(local.device))
                 state["m"].copy_(m)
-                p.sub_(m)
+                local.sub_(m)
+
+    def _update(self, grad, layout, shards, state, decay, rest):
+        """The scaled update `g v^-1/2` (or its factored form) of the
+        gradient `grad`, this rank's local tensor of a parameter sharded
+        over `shards` ({dim: (group, count)}), its statistics in `state`
+        updated in place."""
+        u = torch.empty_like(grad)
+        whole = list(grad.shape)
+        for d, (_, n) in shards.items():
+            whole[d] *= n
+        wviews = flax_views(torch.empty(whole, device="meta"), layout)
+        vdims = view_dims(layout, grad.dim())
+        for i, (g, out, wv) in enumerate(zip(
+                flax_views(grad, layout), flax_views(u, layout), wviews)):
+            g2 = g * g + self.eps
+            dims = _factored_dims(tuple(wv.shape), self.min_dim)
+            if dims is None:
+                v = state[f"v{i}"].mul_(decay).add_(g2 * rest)
+                out.copy_(g * v ** -0.5)
+                continue
+            d1, d0 = dims
+
+            def group_of(j):
+                return shards.get(vdims[j], (None,))[0] if vdims else None
+
+            row = state[f"v_row{i}"].mul_(decay).add_(
+                _mean(g2, d0, wv.shape[d0], group_of(d0)) * rest)
+            col = state[f"v_col{i}"].mul_(decay).add_(
+                _mean(g2, d1, wv.shape[d1], group_of(d1)) * rest)
+            mean = _mean(row, d1 - 1 if d1 > d0 else d1, wv.shape[d1],
+                         group_of(d1), keepdim=True)
+            out.copy_(g * ((row / mean) ** -0.5).unsqueeze(d0)
+                      * (col ** -0.5).unsqueeze(d1))
+        return u
 
 
-def build_core(name, param_groups, weight_decay=0.0, layouts=None,
-               sharded=False):
+def build_core(name, param_groups, weight_decay=0.0, layouts=None):
     """The torch optimizer of the core `name` (`core_name`) over
-    `param_groups`; `layouts` ({parameter: layout}) for adafactor.
-    `sharded`: some parameters are DTensors (the per-tensor loops; a core
-    outside SHARDED_CORES raises)."""
-    if sharded and name not in SHARDED_CORES:
-        raise ValueError(f"the {name} optimizer does not take TP or FSDP "
-                         f"yet: use one of {SHARDED_CORES}, or data "
-                         "parallelism alone")
-    loop = dict(foreach=False) if sharded else {}
+    `param_groups`; `layouts` ({parameter: layout}) for adafactor."""
     if name in ("adam", "adam_fused"):
         return torch.optim.Adam(param_groups, betas=(0.9, 0.999), eps=1e-8,
-                                fused=True if name == "adam_fused" else None,
-                                **loop)
+                                fused=True if name == "adam_fused" else None)
     if name == "adamw":
         return torch.optim.AdamW(param_groups, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=weight_decay or 0.0,
-                                 **loop)
+                                 eps=1e-8, weight_decay=weight_decay or 0.0)
     if name == "adam_bf16":
         return AdamBF16(param_groups)
     if name == "adafactor":
         return Adafactor(param_groups, layouts=layouts)
     return torch.optim.SGD(param_groups, lr=0.0, momentum=0.9,
-                           dampening=0.0, **loop)
+                           dampening=0.0)
+
+
+def state_shapes(name, shape, layout=None, sharded=None):
+    """The state `build_core(name, ...)` keeps for a trainable parameter
+    of (whole) `shape` in `layout` (adafactor's), sharded over the counts
+    `sharded` ({dim: count}): [(state key, local shape, dtype, whether
+    it lives on the parameter's device)]. The step count is a host
+    scalar but for the fused Adam's, which its kernel reads."""
+    sharded = dict(sharded or {})
+    local = tuple(s // sharded.get(d, 1) for d, s in enumerate(shape))
+    f32, bf16 = torch.float32, torch.bfloat16
+    if name == "sgd":
+        return [("momentum_buffer", local, f32, True)]
+    step = [("step", (), f32, name == "adam_fused")]
+    if name == "adam_bf16":
+        return step + [("mu", local, bf16, True), ("nu", local, f32, True)]
+    if name == "adafactor":
+        return step + [("m", local, bf16, True)] + [
+            (k, s, f32, True)
+            for k, s, _ in adafactor_stats(shape, layout, sharded)]
+    return step + [("exp_avg", local, f32, True),
+                   ("exp_avg_sq", local, f32, True)]
 
 
 class Optimizer:
@@ -369,7 +514,8 @@ class Optimizer:
     `step()`: it updates the parameters on every k-th call and returns
     whether it did, with the pre-clip gradient norm of that update.
     `plan` (a `parallel.tp.ShardingPlan`): the parameters are laid out
-    across processes by it."""
+    across processes by it, and `backward` is the only way in (it
+    averages each micro-step's gradient over "data")."""
 
     def __init__(self, named_params, lr, total_steps, warmup_steps,
                  min_lr=0.0, clip_grad=None, grad_accum_steps=1,
@@ -401,7 +547,7 @@ class Optimizer:
         self.plan = plan
         self.core = build_core(self.name, param_groups, weight_decay, {
             by_name[n]: v for n, v in (layouts or {}).items()
-            if n in by_name}, sharded=plan is not None and plan.shards_model)
+            if n in by_name})
         self.names = [n for n, _ in named_params]
         self.clip_grad = clip_grad if clip_grad and clip_grad > 0 else None
         self.k = max(int(grad_accum_steps), 1)
@@ -414,21 +560,14 @@ class Optimizer:
         return self.core.param_groups[0]["lr"]
 
     def state_bytes(self):
-        """Bytes of the core's state tensors (moments, factors, traces)."""
+        """Bytes of the core's state tensors (moments, factors, traces);
+        under a plan, this rank's local tensors."""
         return sum(v.numel() * v.element_size()
                    for st in self.core.state.values() for v in st.values()
                    if torch.is_tensor(v))
 
     def backward_scale(self):
         return 1.0 / self.k
-
-    def sync_context(self):
-        """The context of a micro-step's forward and backward: under a plan
-        the gradient sync is off on the k - 1 micro-steps before an
-        update (`ShardingPlan.sync_context`)."""
-        if self.plan is None:
-            return contextlib.nullcontext()
-        return self.plan.sync_context(self.micro + 1 == self.k)
 
     def backward(self, loss):
         """Backward of one micro-batch's `loss` into the accumulated
@@ -437,25 +576,39 @@ class Optimizer:
         is the one `step()` takes). For k > 1 the accumulated gradients are
         held aside during the backward and added back after it: the sums
         are the ones autograd would form, and the norm is taken from the
-        micro-batch's gradient alone."""
-        if self.plan is not None:
-            (loss * self.backward_scale()).backward()
-            return None
-        if self.k == 1:
-            loss.backward()
-            return None
-        held = [p.grad for p in self.params]
-        for p in self.params:
+        micro-batch's gradient alone. Under a plan that gradient is
+        averaged over "data" first (the plan's wrappers in the backward,
+        then `reduce_grads`), so the norm is the global micro-batch's and
+        the sums are the same on every data rank."""
+        held = [p.grad for p in self.params] if self.k > 1 else []
+        for p in self.params if held else ():
             p.grad = None
         (loss * self.backward_scale()).backward()
+        if self.plan is not None:
+            self.plan.reduce_grads()
+        if not held:
+            return None
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = self.k * global_norm(grads) if grads else \
-            torch.zeros((), device=loss.device)
+        if self.plan is not None:
+            norm = self.k * self.plan.grad_norm_sq(grads).sqrt()
+        else:
+            norm = self.k * global_norm(grads) if grads else \
+                torch.zeros((), device=loss.device)
         with torch.no_grad():
             for p, g in zip(self.params, held):
                 if g is not None:
-                    p.grad = g if p.grad is None else g.add_(p.grad)
+                    if p.grad is not None:
+                        _local(g).add_(_local(p.grad))
+                    p.grad = g
         return norm
+
+    def _state_dims(self, p, key):
+        """For each dimension of the state tensor `key` of `p`, the
+        dimension of `p` it runs along (the core's `state_dims`; else the
+        parameter's own)."""
+        if hasattr(self.core, "state_dims"):
+            return self.core.state_dims(p, key)
+        return tuple(range(p.dim()))
 
     @torch.no_grad()
     def step(self):
@@ -468,7 +621,6 @@ class Optimizer:
         for p, g in zip(self.params, grads):
             p.grad = g
         if self.plan is not None:
-            self.plan.reduce_grads()
             norm = self.plan.grad_norm_sq(grads).sqrt()
             if self.clip_grad:
                 torch._foreach_mul_(
@@ -479,7 +631,9 @@ class Optimizer:
                 if self.clip_grad else global_norm(grads)
         for group, sched in zip(self.core.param_groups, self.schedules):
             group["lr"] = sched(self.count)
-        self.core.step()
+        with contextlib.nullcontext() if isinstance(self.core, Adafactor) \
+                else _on_local_shards(self.core):
+            self.core.step()
         self.core.zero_grad(set_to_none=True)
         self.count += 1
         return True, norm
@@ -488,25 +642,22 @@ class Optimizer:
         """The core's name and state, the counters and, between updates,
         the gradients accumulated so far (optax.MultiSteps keeps them in
         its state). Under a plan every tensor is whole, in the
-        single-process layout (a collective: every rank calls it), and
-        the accumulated gradients are the mean over "data" of each rank's
-        (what the next sync would average them into)."""
+        single-process layout (a collective: every rank calls it); the
+        accumulated gradients are already the mean over "data" of each
+        rank's sums (`backward`)."""
         core = self.core.state_dict()
         acc = [p.grad for p in self.params] if self.micro else None
-        if self.plan is None:
-            return {"name": self.name, "core": core, "micro": self.micro,
-                    "count": self.count, "acc": acc}
-        if acc is not None and self.plan.fsdp and self.plan.data > 1:
-            raise ValueError("under FSDP a checkpoint is written only "
-                             "between updates, not between the micro-steps "
-                             "of one (grad_accum_steps)")
-        core["state"] = {i: {k: self.plan.to_full(self.core_names[i], v)
-                             if torch.is_tensor(v) and v.dim() else v
-                             for k, v in st.items()}
-                         for i, st in core["state"].items()}
-        if acc is not None:
-            acc = [None if g is None else self.plan.to_full(
-                n, self.plan.data_mean(g)) for n, g in zip(self.names, acc)]
+        if self.plan is not None:
+            by_index = [p for g in self.core.param_groups
+                        for p in g["params"]]
+            core["state"] = {i: {
+                k: self.plan.state_full(self.core_names[i], by_index[i], v,
+                                        self._state_dims(by_index[i], k))
+                if torch.is_tensor(v) and v.dim() else v
+                for k, v in st.items()} for i, st in core["state"].items()}
+            if acc is not None:
+                acc = [None if g is None else self.plan.to_full(n, g)
+                       for n, g in zip(self.names, acc)]
         return {"name": self.name, "core": core, "micro": self.micro,
                 "count": self.count, "acc": acc}
 
@@ -528,7 +679,8 @@ class Optimizer:
                 st = self.core.state.get(p, {})
                 for k, v in st.items():
                     if torch.is_tensor(v) and v.dim():
-                        st[k] = self.plan.from_full(self.core_names[i], v, p)
+                        st[k] = self.plan.state_local(
+                            self.core_names[i], p, v, self._state_dims(p, k))
         for n, p, g in zip(self.names, self.params, state["acc"] or [None] *
                            len(self.params)):
             if g is None:

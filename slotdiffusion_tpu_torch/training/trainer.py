@@ -74,8 +74,8 @@ by rank 0, so a run resumes on another world size. Validation follows
 the JAX trainer (training/trainer.py:556-612): a ragged last val batch is
 left out with several data ranks; the host metrics are computed on the
 rank's rows and averaged over "data"; printing, logging, the viz and
-saves happen on rank 0 only, and the viz is skipped where the model is
-sharded (TP or FSDP), since drawing it needs every rank.
+saves happen on rank 0 only. A sharded model (TP or FSDP) is drawn from
+a whole copy that rank 0 builds from the gathered state (`viz_view`).
 """
 
 import contextlib
@@ -83,6 +83,7 @@ import json
 import os
 import threading
 import time
+import types
 
 import torch
 import torch.distributed as dist
@@ -320,13 +321,11 @@ class Trainer:
         t0 = time.time()
         compute = self.model.compute_losses if self.plan is None \
             else self.plan.compute_losses
-        # DDP reads its sync switch in the forward: both inside
-        with self.optimizer.sync_context():
-            with self.draws(self.generator):
-                _, losses = compute(self.inputs(batch), self.generator,
-                                    **self.sched_kwargs())
-            total = self.weighted_total(losses)
-            micro_norm = self.optimizer.backward(total)
+        with self.draws(self.generator):
+            _, losses = compute(self.inputs(batch), self.generator,
+                                **self.sched_kwargs())
+        total = self.weighted_total(losses)
+        micro_norm = self.optimizer.backward(total)
         updated, norm = self.optimizer.step()
         if updated and self.ema is not None:
             self.ema.update(self.model)
@@ -334,9 +333,8 @@ class Trainer:
         means = self.mean_losses(losses, total)
         metrics = {f"train/{k}": means[k] for k in losses}
         metrics["train/total_loss"] = means["total_loss"]
-        # the norm of this micro-step's own gradient, as the JAX trainer
-        # logs it on every micro-step; across processes, that of each
-        # update (training/optim.py)
+        # the norm of this micro-step's own (global) gradient, as the JAX
+        # trainer logs it on every micro-step (training/optim.py)
         if micro_norm is not None or norm is not None:
             metrics["train/grad_norm"] = float(
                 norm if micro_norm is None else micro_norm)
@@ -464,12 +462,9 @@ class Trainer:
             return {}
         self.model.eval()
         meters, first = {}, None
+        # every rank decides alike: a sharded model's viz gathers it
         viz = self.viz_fn is not None and bool(self.ckp_path) and getattr(
-            self.params, "use_viz", True) and self.main
-        if viz and self.plan is not None and self.plan.shards_model:
-            viz = False
-            print("[viz] skipped: the model is sharded "
-                  f"({self.plan.kind})", flush=True)
+            self.params, "use_viz", True)
         if self.main:
             for i, size in self.data.val_skipped:
                 if max_steps is None or i < max_steps:
@@ -480,7 +475,7 @@ class Trainer:
             if max_steps is not None and i >= max_steps:
                 break
             out, losses = self.eval_step(batch, i)
-            if i == 0 and viz:
+            if i == 0 and viz and self.main:
                 first = (batch, out)
             if self.host_metrics_fn is not None:
                 losses.update(self.host_metrics(batch, out))
@@ -491,13 +486,36 @@ class Trainer:
         results = {f"val/{k}": m.avg for k, m in meters.items()}
         if results:
             self.logger.log(results, self.step)
-        if first is not None:
-            viz_dir = os.path.join(self.ckp_path, "viz")
+        if viz:
             try:
-                self.viz_fn(self, *first, self.step, viz_dir)
+                view = self.viz_view()
+                if first is not None:
+                    self.viz_fn(view, *first, self.step,
+                                os.path.join(self.ckp_path, "viz"))
             except Exception as e:  # a drawing never stops training
                 print(f"[viz] skipped: {type(e).__name__}: {e}", flush=True)
         return results
+
+    def viz_view(self):
+        """What the viz draws with: the trainer itself, or, where the
+        model is sharded (TP, FSDP), a view of it whose model is a whole
+        copy in the single-process layout, built by rank 0 on its device
+        from the gathered state (a collective: every rank calls it; the
+        other ranks get None). The copy draws what one process would:
+        the sharded forward's collectives need every rank, a drawing only
+        rank 0."""
+        if self.plan is None or not self.plan.shards_model:
+            return self
+        state = {k: self.plan.to_full(k, v)
+                 for k, v in self.model.state_dict().items()}
+        if not self.main:
+            return None
+        from ..models import build_model
+        whole = build_model(self.params, device=self.device)
+        whole.load_state_dict(state)
+        whole.eval()
+        return types.SimpleNamespace(model=whole, params=self.params,
+                                     device=self.device, logger=self.logger)
 
     def host_metrics(self, batch, out):
         """`host_metrics_fn` on this rank's rows, averaged over "data"

@@ -275,7 +275,8 @@ def test_group_norm_is_cuda_and_the_port_never_imports_triton():
             "'triton'], 'triton imported'\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], cwd=repo, check=True,
-                   timeout=120)
+                   timeout=120, env=dict(os.environ, OMP_NUM_THREADS=str(
+                       torch.get_num_threads())))
 
 
 def test_wrappers_launch_or_raise_off_the_cpu():

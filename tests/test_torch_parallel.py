@@ -4,7 +4,8 @@ parallel`, the data-parallel trainer), on the CPU over gloo.
 The JAX package holds its multi-process fit against a single process
 (tests/test_distributed.py); here the same holds for the port, in worker
 processes (tests/torch_parallel_worker.py) started with torchrun's
-variables, each with its own time limit:
+variables, each with its own time limit (the multi-process cases read
+one module fixture's runs: four launches, two at a time):
 
 - the launch detection of `maybe_initialize_distributed`, on the
   environment alone;
@@ -37,7 +38,7 @@ from slotdiffusion_tpu_torch.data.synthetic import synthetic_video_splits
 from slotdiffusion_tpu_torch.models import build_model, init_random_
 from slotdiffusion_tpu_torch.models.diffusion import noise_like
 from slotdiffusion_tpu_torch.parallel import distributed, mesh as pmesh
-from torch_parallel_worker import launch
+from torch_parallel_worker import launch, task_lines
 from torch_parity_helpers import (RES, SLOT_SIZE, SLOTS, T_FRAMES,
                                   build_pair, t2n, tiny_baseline_config,
                                   video)
@@ -214,6 +215,64 @@ def _fit_spec(steps, ckp, **kw):
                 train=train, val=val, steps=steps, ckp=str(ckp), **kw)
 
 
+def _accumulated_spec(ckp, fsdp=False):
+    spec = _fit_spec(2, ckp, fsdp=fsdp)
+    spec["cfg"] = spec["cfg"].copy(grad_accum_steps=2, save_epoch_end=False)
+    return spec
+
+
+def _token_spec(ckp):
+    cfg = tiny_baseline_config("STEVE", img_recon=True).copy(
+        train_batch_size=4, max_epochs=1, print_iter=1, use_viz=False,
+        save_interval=100.0, save_epoch_end=False, async_ckpt=False)
+    model = build_model(cfg, device="cpu")
+    init_random_(model, torch.Generator().manual_seed(0))
+    train, _ = synthetic_video_splits(cfg, 8, 0, 0)
+    return dict(task="fit", cfg=cfg, weights=model.state_dict(),
+                train=train, val=None, steps=2, ckp=str(ckp))
+
+
+def _side_by_side(tmp, *launches):
+    """Each (tasks, world) as one `multi` launch of `world` processes, all
+    at once -> [(rank 0's results by task, every rank's output)]."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(launches)) as pool:
+        runs = [pool.submit(launch, dict(task="multi", tasks=tasks), world,
+                            tmp, timeout=600)
+                for tasks, world in launches]
+        return [r.result() for r in runs]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, pair):
+    """The file's runs across processes from four launches, two at a
+    time: one process and 2 ranks, then the resumes of each from the
+    other's checkpoint. -> {task: (result, rank 0's output of it)}
+    ("one/..." one process's, "two/..." the 2 ranks')."""
+    tmp = tmp_path_factory.mktemp("parallel")
+    one = {"fit": _fit_spec(4, tmp / "one"),
+           "accumulated": _accumulated_spec(tmp / "one_accumulated"),
+           "token": _token_spec(tmp / "one_token")}
+    two = {"fit": _fit_spec(2, tmp / "two"),
+           "accumulated_ddp": _accumulated_spec(tmp / "ddp"),
+           "accumulated_fsdp": _accumulated_spec(tmp / "fsdp", fsdp=True),
+           "token": _token_spec(tmp / "two_token"),
+           **{f"grads_{name}": _grads_spec(pair, tp)
+              for name, tp in (("dp2", 1), ("tp2", 2))}}
+    first = _side_by_side(tmp, (one, 1), (two, 2))
+    resumed = _side_by_side(
+        tmp, ({"resumed": _fit_spec(4, tmp / "resumed1", resume=str(
+            tmp / "two" / "ckpt_last.pt"))}, 1),
+        ({"resumed": _fit_spec(4, tmp / "resumed2", resume=str(
+            tmp / "one" / "ckpt_epoch1.pt"))}, 2))
+    out = {}
+    for who, (res, outs) in zip(("one", "two", "one", "two"),
+                                first + resumed):
+        for key, value in res.items():
+            out[f"{who}/{key}"] = (value, task_lines(outs[0], key))
+    return out
+
+
 def _losses(records):
     return {r["step"]: r["train/total_loss"] for r in records
             if "train/total_loss" in r}
@@ -232,32 +291,28 @@ def _assert_state_close(a, b, what, tol=STATE_TOL):
     assert a["step"] == b["step"]
 
 
-def test_dp_fit_matches_one_process_and_resumes_across_world_sizes(
-        tmp_path):
+def test_dp_fit_matches_one_process_and_resumes_across_world_sizes(runs):
     """The 1-process fit of 4 steps (2 epochs of 2 global batches of 4
     clips, EMA on, saves on a thread) against: a 2-rank DDP fit of 2
     steps (the same losses; the ragged val batch left out), one process
     resuming from its ckpt_last to step 4, and 2 ranks resuming from the
     1-process run's ckpt_epoch1 to step 4: the losses of steps 3-4 and
     the final state of the uninterrupted run's."""
-    one, _ = launch(_fit_spec(4, tmp_path / "one"), 1, tmp_path)
+    one = runs["one/fit"][0]
     want = _losses(one["records"])
     assert sorted(want) == [1, 2, 3, 4] and one["plan"] is None
 
-    two, outs = launch(_fit_spec(2, tmp_path / "two"), 2, tmp_path)
+    two, printed = runs["two/fit"]
     assert two["plan"] == "ddp" and two["skipped"] == [(1, 1)]
-    assert "skipped ragged batch 1 (1 samples)" in outs[0]
+    assert "skipped ragged batch 1 (1 samples)" in printed
     got = _losses(two["records"])
     assert sorted(got) == [1, 2]
     for s in got:
         np.testing.assert_allclose(got[s], want[s], rtol=1e-5,
                                    err_msg=f"step {s}")
 
-    for world, ckpt, name in (
-            (1, tmp_path / "two" / "ckpt_last.pt", "2 -> 1"),
-            (2, tmp_path / "one" / "ckpt_epoch1.pt", "1 -> 2")):
-        res, _ = launch(_fit_spec(4, tmp_path / f"resumed{world}",
-                                  resume=str(ckpt)), world, tmp_path)
+    for who, name in (("one", "2 -> 1"), ("two", "1 -> 2")):
+        res = runs[f"{who}/resumed"][0]
         got = _losses(res["records"])
         assert sorted(got) == [3, 4], name
         for s in got:
@@ -267,22 +322,25 @@ def test_dp_fit_matches_one_process_and_resumes_across_world_sizes(
 
 
 @pytest.mark.parametrize("fsdp", [False, True], ids=["ddp", "fsdp"])
-def test_accumulated_update_matches_one_process(tmp_path, fsdp):
-    """grad_accum_steps 2 (the first micro-step's gradient kept local:
-    DDP's `no_sync`, FSDP2's sync switch): 2 ranks' losses and the state
-    after one update equal one process's; the micro-step before the
-    update logs no norm across processes."""
-    spec = _fit_spec(2, tmp_path / "ckp", fsdp=fsdp)
-    spec["cfg"] = spec["cfg"].copy(grad_accum_steps=2, save_epoch_end=False)
-    one, _ = launch(dict(spec, ckp=str(tmp_path / "one")), 1, tmp_path)
-    two, _ = launch(spec, 2, tmp_path)
+def test_accumulated_update_matches_one_process(runs, fsdp):
+    """grad_accum_steps 2 (each micro-step's gradient averaged over the
+    ranks in its own backward, the sums held aside): 2 ranks' losses, the
+    `train/grad_norm` of every micro-step (the norm of its own global
+    gradient, as one process logs it) and the state after one update
+    equal one process's."""
+    one = runs["one/accumulated"][0]
+    two = runs[f"two/accumulated_{'fsdp' if fsdp else 'ddp'}"][0]
     assert two["plan"] == ("fsdp" if fsdp else "ddp")
     want, got = _losses(one["records"]), _losses(two["records"])
     assert sorted(got) == [1, 2]
     for s in got:
         np.testing.assert_allclose(got[s], want[s], rtol=1e-5)
-    first = [r for r in two["records"] if r["step"] == 1][0]
-    assert "train/grad_norm" not in first
+    norms = [{r["step"]: r["train/grad_norm"] for r in run["records"]
+              if "train/grad_norm" in r} for run in (one, two)]
+    assert sorted(norms[1]) == sorted(norms[0]) == [1, 2]
+    for s in norms[0]:
+        np.testing.assert_allclose(norms[1][s], norms[0][s], rtol=1e-5,
+                                   err_msg=f"grad_norm step {s}")
     # one Adam update: lr g / (|g| + eps) moves an element whose small
     # gradient was summed in another order by a share of the LR (1.03e-5
     # of a ResBlock conv's scale measured)
@@ -290,21 +348,12 @@ def test_accumulated_update_matches_one_process(tmp_path, fsdp):
                         tol=1e-4)
 
 
-def test_token_model_dp_fit_matches_one_process(tmp_path):
+def test_token_model_dp_fit_matches_one_process(runs):
     """STEVE with its pixel loss, whose gumbel sample is drawn from the
     trainer's generator in every step: a 2-rank DDP fit of 2 steps of 4
     clips equals the 1-process fit (losses within 1e-5 relative, the
     state within STATE_TOL of each tensor's scale)."""
-    cfg = tiny_baseline_config("STEVE", img_recon=True).copy(
-        train_batch_size=4, max_epochs=1, print_iter=1, use_viz=False,
-        save_interval=100.0, save_epoch_end=False, async_ckpt=False)
-    model = build_model(cfg, device="cpu")
-    init_random_(model, torch.Generator().manual_seed(0))
-    train, _ = synthetic_video_splits(cfg, 8, 0, 0)
-    spec = dict(task="fit", cfg=cfg, weights=model.state_dict(),
-                train=train, val=None, steps=2, ckp=str(tmp_path / "one"))
-    one, _ = launch(spec, 1, tmp_path)
-    two, _ = launch(dict(spec, ckp=str(tmp_path / "two")), 2, tmp_path)
+    one, two = runs["one/token"][0], runs["two/token"][0]
     assert two["plan"] == "ddp"
     want, got = _losses(one["records"]), _losses(two["records"])
     assert sorted(got) == sorted(want) == [1, 2]
@@ -330,6 +379,20 @@ def _draws(seed=0):
     t = r.randint(0, 50, size=B * T_FRAMES)
     noise = r.randn(B * T_FRAMES, *LAT).astype(np.float32)
     return video(seed, B=B), t, noise
+
+
+def _grads_spec(pair, tp):
+    """2 ranks' loss and gradients at the JAX model's weights, clips,
+    timesteps and noise (`grads`)."""
+    cfg, _, _, tmodel = pair
+    img, t, noise = _draws()
+    spec = dict(task="grads", cfg=cfg.copy(train_batch_size=B),
+                weights=copy.deepcopy(tmodel.state_dict()), train=None,
+                tp=tp, inputs={"img": torch.from_numpy(img),
+                               "t": torch.from_numpy(t),
+                               "noise": torch.from_numpy(noise)})
+    spec["train"], _ = synthetic_video_splits(spec["cfg"], B, 0, 0)
+    return spec
 
 
 @pytest.fixture(scope="module")
@@ -358,22 +421,15 @@ def jax_loss_and_grads(pair):
 
 
 @pytest.mark.parametrize("tp", [1, 2], ids=["dp2", "tp2"])
-def test_two_rank_step_matches_jax(pair, jax_loss_and_grads, tmp_path, tp):
+def test_two_rank_step_matches_jax(pair, jax_loss_and_grads, runs, tp):
     """2 ranks, data parallel (each rank 1 clip of 2) or tensor parallel
     (both the 2 clips, the UNet's attention and FFN sharded), with the
     JAX model's weights, clips, timesteps and noise: the loss to 1e-5
     relative and every gradient within tests/test_torch_train.py's
     tolerance (rtol 1e-4, atol 2e-5 of the leaf's or a hundredth of the
     model's largest gradient)."""
-    cfg, _, _, tmodel = pair
-    img, t, noise = _draws()
-    spec = dict(task="grads", cfg=cfg.copy(train_batch_size=B),
-                weights=copy.deepcopy(tmodel.state_dict()), train=None,
-                tp=tp, inputs={"img": torch.from_numpy(img),
-                               "t": torch.from_numpy(t),
-                               "noise": torch.from_numpy(noise)})
-    spec["train"], _ = synthetic_video_splits(spec["cfg"], B, 0, 0)
-    res, _ = launch(spec, 2, tmp_path)
+    cfg = pair[0]
+    res = runs[f"two/grads_{'tp2' if tp == 2 else 'dp2'}"][0]
     want_loss, jgrads = jax_loss_and_grads
     np.testing.assert_allclose(res["loss"], want_loss, rtol=1e-5)
     want = convert_savi_diffusion(jgrads, cfg)

@@ -135,8 +135,11 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'slotdiffusion_tpu')]\n"
             "assert not bad, bad\n")
+    # the child takes this process's share of the cores (one thread under
+    # a pytest-xdist worker, `torch_parity_helpers`)
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                   timeout=300)
+                   timeout=300, env=dict(os.environ, OMP_NUM_THREADS=str(
+                       torch.get_num_threads())))
     assert (tmp_path / "ckpt_last.pt").exists()
 
 

@@ -16,7 +16,10 @@ sharded training step against the replicated one, on the CPU over gloo.
   EMA shadow (laid out as its parameter) the same.
 - STEVE's and SLATE's K/V-cached greedy `generate` under TP = 2 gives the
   replicated run's ids.
-- The optimizers that do not take DTensor parameters refuse them.
+
+The multi-process cases read one module fixture's runs (three worker
+launches side by side). Every other optimizer under TP and FSDP:
+tests/test_torch_scale_state.py.
 """
 
 import numpy as np
@@ -34,8 +37,6 @@ from slotdiffusion_tpu_torch.convert import convert_model
 from slotdiffusion_tpu_torch.data.synthetic import synthetic_video_splits
 from slotdiffusion_tpu_torch.models import build_model, init_random_
 from slotdiffusion_tpu_torch.parallel import tp as ptp
-from slotdiffusion_tpu_torch.training.optim import SHARDED_CORES, \
-    build_core
 from torch_parallel_worker import launch
 from torch_parity_helpers import SLOT_SIZE, SLOTS, build_pair, \
     tiny_baseline_config
@@ -143,15 +144,6 @@ def test_geglu_rows_give_each_rank_its_halves():
     assert torch.equal(permuted[torch.argsort(ptp.geglu_perm(16, tp))], rows)
 
 
-@pytest.mark.parametrize("name", ["adam_fused", "adam_bf16", "adafactor"])
-def test_optimizers_without_dtensor_support_refuse_a_plan(name):
-    p = torch.nn.Parameter(torch.zeros(3))
-    with pytest.raises(ValueError, match="TP or FSDP"):
-        build_core(name, [{"params": [p], "lr": 0.0}], sharded=True)
-    assert name not in SHARDED_CORES
-    build_core(name, [{"params": [p], "lr": 0.0}])
-
-
 # ---- one step of each plan against the replicated step -------------------
 
 
@@ -179,18 +171,61 @@ def _step_spec():
                 train=train, optimizers=("sgd", "adam"))
 
 
+def _generate_spec(name):
+    """Greedy generation of `name` (STEVE or SLATE) under TP 2, from
+    seeded slots -> (the spec, the model it starts from)."""
+    cfg = _configs()[name].copy(use_viz=False)
+    model = build_model(cfg, device="cpu")
+    init_random_(model, torch.Generator().manual_seed(0))
+    slots = torch.randn(2, SLOTS, SLOT_SIZE,
+                        generator=torch.Generator().manual_seed(1))
+    if name == "STEVE":
+        train, _ = synthetic_video_splits(cfg, 4, 0, 0)
+    else:
+        from slotdiffusion_tpu_torch.data import build_dataset
+        train, _ = build_dataset(cfg)
+    return dict(task="generate", cfg=cfg, weights=model.state_dict(),
+                train=train, slots=slots, gen_steps=16, tp=2), model
+
+
+# each plan's world and layout
+PLAN_RUNS = {"tp2": (2, dict(tp=2, fsdp=False)),
+             "fsdp2": (2, dict(tp=1, fsdp=True)),
+             "tp2xfsdp2": (4, dict(tp=2, fsdp=True))}
+
+
 @pytest.fixture(scope="module")
-def replicated_step(tmp_path_factory):
-    res, _ = launch(_step_spec(), 1, tmp_path_factory.mktemp("one"))
-    return res
+def runs(tmp_path_factory):
+    """The file's runs across processes, three launches side by side:
+    the replicated step in one process, the 2-rank plans and generations,
+    the 4-rank plan. -> {task: rank 0's result}."""
+    from concurrent.futures import ThreadPoolExecutor
+    tmp = tmp_path_factory.mktemp("tp_fsdp")
+    launches = {1: {"replicated": _step_spec()}, 2: {}, 4: {}}
+    for name, (world, kw) in PLAN_RUNS.items():
+        launches[world][name] = dict(_step_spec(), **kw)
+    for name in ("STEVE", "SLATE"):
+        launches[2][f"generate_{name}"] = _generate_spec(name)[0]
+    with ThreadPoolExecutor(len(launches)) as pool:
+        done = [pool.submit(launch, dict(task="multi", tasks=tasks), world,
+                            tmp, timeout=600)
+                for world, tasks in launches.items()]
+        out = {}
+        for r in done:
+            out.update(r.result()[0])
+    return out
 
 
 @pytest.mark.parametrize("world,tp,fsdp,kind", [
     (2, 2, False, "tp"), (2, 1, True, "fsdp"), (4, 2, True, "tp+fsdp")],
     ids=["tp2", "fsdp2", "tp2xfsdp2"])
-def test_plan_step_matches_the_replicated_step(replicated_step, tmp_path,
-                                               world, tp, fsdp, kind):
-    res, _ = launch(dict(_step_spec(), tp=tp, fsdp=fsdp), world, tmp_path)
+def test_plan_step_matches_the_replicated_step(runs, world, tp, fsdp,
+                                               kind):
+    replicated_step = runs["replicated"]
+    name = {(2, False): "tp2", (1, True): "fsdp2", (2, True): "tp2xfsdp2"}[
+        tp, fsdp]
+    assert PLAN_RUNS[name] == (world, dict(tp=tp, fsdp=fsdp))
+    res = runs[name]
     assert res["plan"] == kind
     if tp > 1:
         assert res["styles"] and sorted(
@@ -229,22 +264,11 @@ def test_plan_step_matches_the_replicated_step(replicated_step, tmp_path,
 
 
 @pytest.mark.parametrize("name", ["STEVE", "SLATE"])
-def test_tp_generate_gives_the_replicated_ids(name, tmp_path):
-    cfg = _configs()[name].copy(use_viz=False)
-    model = build_model(cfg, device="cpu")
-    init_random_(model, torch.Generator().manual_seed(0))
-    slots = torch.randn(2, SLOTS, SLOT_SIZE,
-                        generator=torch.Generator().manual_seed(1))
-    if name == "STEVE":
-        train, _ = synthetic_video_splits(cfg, 4, 0, 0)
-    else:
-        from slotdiffusion_tpu_torch.data import build_dataset
-        train, _ = build_dataset(cfg)
-    spec = dict(task="generate", cfg=cfg, weights=model.state_dict(),
-                train=train, slots=slots, gen_steps=16, tp=2)
-    two, _ = launch(spec, 2, tmp_path)
+def test_tp_generate_gives_the_replicated_ids(name, runs):
+    spec, model = _generate_spec(name)
+    two = runs[f"generate_{name}"]
     with torch.no_grad():
-        ids, logits = model.trans_decoder.generate(slots, 16)
+        ids, logits = model.trans_decoder.generate(spec["slots"], 16)
     assert two["heads"] == [1, 1] and [
         blk.self_attn.num_heads
         for blk in model.trans_decoder.tf_dec.blocks] == [2, 2]

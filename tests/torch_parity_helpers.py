@@ -3,9 +3,12 @@
 and, with its parameters carried across by `slotdiffusion_tpu_torch.
 convert`, through the port on the CPU."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from slotdiffusion_tpu.models import build_model as build_jax_model
 from slotdiffusion_tpu.utils import BaseParams
@@ -23,6 +26,14 @@ TIMESTEPS = 50
 # |jax16 - jax32| <= ROUNDS[1]
 WHOLE_C = 2.0
 ROUNDS = (0.5, 2.0)
+
+# under pytest-xdist every worker imports this module when it collects: a
+# worker's share of the host's cores as torch's intra-op threads, so that
+# the workers (and the JAX tests beside them) do not oversubscribe the
+# cores; a run without workers keeps torch's default
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 
 def tiny_config(use_pallas=True, use_bf16=False):
