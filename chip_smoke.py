@@ -131,8 +131,10 @@ Phases (one flushed line each, with elapsed seconds):
      attention): DPM-Solver++ multistep, singlestep_fixed and adaptive
      (order 3), noise prediction, taylor and logSNR (20 steps), DDIM (50
      steps, `FLAGSHIP_DDIM_STEPS`; 200 before phase 17 took their time)
-     and the ancestral chain (1000, over 1 video since phase 18 took
-     its time) in f32; multistep and DDIM in
+     and the ancestral chain in f32 (over 1 video since phase 18 took
+     its time; since phase 19 took its time, on the flagship with a
+     `ANCESTRAL_TIMESTEPS`-step schedule: the same weights and chain
+     code, 250 UNet calls, not the config's 1000); multistep and DDIM in
      bf16; DPM (dynamic thresholding) and DDIM (clamp, 50 steps) of the
      flagship UNet over 64x64 pixels (its 49,152-value GN groups through the GN
      kernel's two-pass path), and that decoder's `sample` serving surface
@@ -323,7 +325,18 @@ Phases (one flushed line each, with elapsed seconds):
      kinds BF16_STATE_TOL, the rows ZERO_GRADIENT names and the elements
      whose first gradient is noise left out); then the sizing table of
      SIZING_CARDS cards with the measured peaks;
- 19. one JSON line listing every kernel (times per serving request;
+ 19. the data layer from files (DATA_FIXTURE, the committed tree and what
+     the JAX readers return for it): the machine's compiler, image
+     libraries, PIL and CPUs; the port's native decode library built with
+     g++; with PIL's import blocked, every reader over the tree against
+     the JAX readers' references, every item bit for bit; the flagship's
+     input rate (MOVi train split, 128x128, 6-frame clips, batches of 8)
+     at 0 and min(8, cpu_count) spawned loader workers beside the clips a
+     second phase 5's step consumes; 2 training steps of the flagship from
+     the tree through `Trainer` (every step launches the three model
+     kernels) and `Trainer.validate` on the tree's 8 validation clips with
+     FG-ARI and mIoU from the file masks, against the plain versions;
+ 20. one JSON line listing every kernel (times per serving request;
      `train_ms` / `train_plain_ms`: per training step's forward calls;
      `res64_*`: slot attention at the 64x64 model's shape; `img_*`: slot
      attention at the image shape, per image `encode`; `savi_train_*`,
@@ -460,6 +473,10 @@ STAGE2_CLIPS = 4
 # ~30 s a dtype)
 DPM = dict(use_dpm=True, steps=20, order=3)
 PIXEL_DDIM_STEPS = FLAGSHIP_DDIM_STEPS = 50
+# the ancestral chain takes every step of its schedule (1000 UNet calls
+# and as many for its twin: 75-102 s by host); it runs on the flagship
+# with this many steps in the schedule (its linear betas over them)
+ANCESTRAL_TIMESTEPS = 250
 SAMPLER_RUNS = (
     ("dpm++ multistep", "f32", dict(DPM, method="multistep"), None),
     ("dpm++ singlestep_fixed", "f32", dict(DPM, method="singlestep_fixed"),
@@ -472,9 +489,11 @@ SAMPLER_RUNS = (
     ("dpm++ logSNR", "f32", dict(DPM, skip_type="logSNR"), None),
     ("ddim", "f32", dict(use_dpm=False, use_ddim=True,
                          steps=FLAGSHIP_DDIM_STEPS), None),
-    # its 1000 UNet calls over 1 video (its twin its first frame), 2
-    # before the script's time took in phase 18
-    ("ancestral", "f32", dict(use_dpm=False), 1),
+    # over 1 video (its twin its first frame; 2 videos before phase 18
+    # took the script's time), on the flagship with an
+    # ANCESTRAL_TIMESTEPS-step schedule ("f32_short"; the config's 1000
+    # steps before phase 19 took the script's time)
+    ("ancestral", "f32_short", dict(use_dpm=False), 1),
     ("dpm++ multistep", "bf16", dict(DPM, method="multistep"), None),
     ("ddim", "bf16", dict(use_dpm=False, use_ddim=True,
                           steps=FLAGSHIP_DDIM_STEPS), None),
@@ -1032,11 +1051,14 @@ def plain_versions(f32_slot_attention):
 
 class StepReport:
     """A trainer's logger: per step, the kernels' launches since the last
-    reset (then reset), the peak memory and the metrics."""
+    reset (then reset), the peak memory and the metrics; a validation's
+    record (the one `fit` runs when `max_steps` caps it, where the data
+    has a validation set) goes to `val` with its launches."""
 
     def __init__(self, phase):
         self.phase = phase
         self.steps = []
+        self.val = []
 
     def log(self, record, step):
         import torch
@@ -1045,6 +1067,12 @@ class StepReport:
         counts = ops.launch_counts()
         ops.reset_launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
+        if "step_seconds" not in record:
+            self.val.append(dict(record, launches=counts))
+            log(f"{self.phase}: validate at step {step}: " + ", ".join(
+                f"{k} {v:.6f}" for k, v in record.items()) +
+                f", launches {counts}")
+            return
         self.steps.append(dict(record, launches=counts))
         loss = next(k for k in record if k.endswith("_loss") and
                     k != "train/total_loss")
@@ -2072,6 +2100,14 @@ def stage1(smi, dev, gen, phase="phase 9"):
     return per_path
 
 
+def short_schedule_config(cfg, timesteps=ANCESTRAL_TIMESTEPS):
+    """The flagship with its decoder's schedule over `timesteps` steps
+    (the same UNet, the same weights from the same seed)."""
+    dec = dict(cfg.dec_dict)
+    dec["diffusion_dict"] = dict(dec["diffusion_dict"], timesteps=timesteps)
+    return cfg.copy(dec_dict=dec)
+
+
 def pixel_config(cfg, side=PIXEL_SIDE):
     """The flagship with a pixel-space decoder: its UNet over side x side
     x 3 frames, no VQ-VAE (the JAX `_build_dm_decoder` then builds a
@@ -2317,10 +2353,10 @@ def samplers(smi, dev, phase="phase 10"):
     from slotdiffusion_tpu_torch.models import build_model, init_random_
     t0 = time.time()
     base = configs.SAViLDMMoviE128()
-    cfgs = {"f32": base, "bf16": base.copy(use_bf16=True),
-            "pixel": pixel_config(base)}
+    cfgs = {"f32": base, "f32_short": short_schedule_config(base),
+            "bf16": base.copy(use_bf16=True), "pixel": pixel_config(base)}
     per_path, reports, failed = {}, [], []
-    for kind in ("f32", "bf16", "pixel"):
+    for kind in cfgs:
         cfg = cfgs[kind]
         model = build_model(cfg, device=dev)
         init_random_(model, torch.Generator().manual_seed(0))
@@ -5242,6 +5278,205 @@ def sizing(smi, dev, phase="phase 18"):
     return paths
 
 
+# phase 19: the data layer from files. The committed tree and what the
+# JAX readers return for it (scripts/make_torch_data_fixture.py)
+DATA_FIXTURE = os.path.join("tests", "data", "torch_files")
+DATA_CLIPS = 8            # the fixture's flagship batch (its 38 train clips)
+DATA_STEPS = 2            # file-backed training steps
+DATA_RATE_BATCHES = 16    # batches the input rate is taken over
+DATA_MAX_WORKERS = 8
+
+
+def data_probe():
+    """What the machine offers the decode path: the C++ compiler, the
+    image libraries' headers and shared objects, whether PIL imports (in
+    a child process: this one must not), the CPU count."""
+    import tempfile
+
+    def run(cmd, **kw):
+        return subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=60, **kw)
+    out = {"g++": (run(["g++", "--version"]).stdout.splitlines() or
+                   ["not found"])[0]}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "main.cpp")
+        for header in ("jpeglib.h", "png.h", "zlib.h"):
+            with open(src, "w") as f:
+                f.write(f"#include <cstdio>\n#include <{header}>\n"
+                        "int main() { return 0; }\n")
+            out[header] = run(["g++", "-fsyntax-only", src]).returncode == 0
+        with open(src, "w") as f:
+            f.write("int main() { return 0; }\n")
+        for lib in ("jpeg", "png", "z"):
+            out[f"-l{lib}"] = run(["g++", src, "-o", os.path.join(tmp, "a"),
+                                   f"-l{lib}"]).returncode == 0
+    pil = run([sys.executable, "-c", "import PIL; print(PIL.__version__)"])
+    out["PIL"] = pil.stdout.strip() if pil.returncode == 0 else "absent"
+    out["cpu_count"] = os.cpu_count()
+    return out
+
+
+@contextlib.contextmanager
+def no_pil():
+    """`import PIL` (and every PIL module) raises ImportError inside."""
+    saved = {k: v for k, v in sys.modules.items()
+             if k == "PIL" or k.startswith("PIL.")}
+    for k in saved:
+        sys.modules[k] = None
+    sys.modules["PIL"] = None
+    try:
+        yield sorted(k for k in saved if saved[k] is not None)
+    finally:
+        for k in [k for k in sys.modules if k == "PIL" or
+                  k.startswith("PIL.")]:
+            del sys.modules[k]
+        sys.modules.update({k: v for k, v in saved.items()
+                            if v is not None})
+
+
+def input_rate(dataset, workers, bs=DATA_CLIPS):
+    """Clips a second the port's loader gives from `dataset` (random index
+    batches of `bs` through `make_loader`; `workers` spawned processes,
+    each prefetching 2 batches): (seconds until each worker has delivered
+    a batch, its start included; clips a second over the next
+    DATA_RATE_BATCHES batches, or 7 a worker, whichever is more)."""
+    import numpy as np
+    from slotdiffusion_tpu_torch.data.loader import make_loader
+    warm = max(1, workers)
+    batches = warm + max(DATA_RATE_BATCHES, 7 * workers)
+    order = np.random.RandomState(0).randint(0, len(dataset), batches * bs)
+    loader = make_loader(dataset, order.reshape(batches, bs).tolist(),
+                         num_workers=workers)
+    t0 = time.time()
+    it = iter(loader)
+    for _ in range(warm):
+        first = next(it)
+    t_warm = time.time() - t0
+    t1 = time.time()
+    n = 0
+    for batch in it:
+        n += batch["img"].shape[0]
+    rate = n / (time.time() - t1)
+    if tuple(first["img"].shape[1:]) != (6, 128, 128, 3):
+        raise SystemExit(f"the loader gave {tuple(first['img'].shape)}")
+    del it, loader
+    return t_warm, rate
+
+
+def data_layer(smi, dev, gen, step_seconds=None, phase="phase 19"):
+    """Phase 19: every reader of the port decodes its files with the port's
+    own native library (no PIL: importing it raises inside the phase), each
+    held bit for bit against what the JAX readers return for the committed
+    tree; the flagship's input rate from files at 0 and N spawned workers
+    beside what phase 5's step consumes; DATA_STEPS training steps of the
+    flagship from the tree through `Trainer`, then `Trainer.validate` on
+    the tree's validation clips with FG-ARI and mIoU from the file masks.
+    -> {path: {kernel: launches}}."""
+    import gc
+
+    import torch
+    from slotdiffusion_tpu_torch import configs
+    from slotdiffusion_tpu_torch.data import (build_datamodule,
+                                              build_dataset, fastio)
+    from slotdiffusion_tpu_torch.data import reference_files as rf
+    from slotdiffusion_tpu_torch.models import build_model, init_random_
+
+    t_phase = time.time()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        DATA_FIXTURE)
+    probe = data_probe()
+    log(f"{phase}: probe: {probe['g++']}; headers " + ", ".join(
+        f"{h} {'yes' if probe[h] else 'no'}" for h in
+        ("jpeglib.h", "png.h", "zlib.h")) + "; links " + ", ".join(
+        f"{k} {'yes' if probe[k] else 'no'}" for k in
+        ("-ljpeg", "-lpng", "-lz")) + f"; PIL in this Python: "
+        f"{probe['PIL']} (the port does not import it); os.cpu_count() "
+        f"{probe['cpu_count']} [{smi}]")
+    t = time.time()
+    lib = fastio.lib()  # NativeLibraryError if it does not build: no fallback
+    log(f"{phase}: g++ built {os.path.relpath(lib._name)} in "
+        f"{time.time() - t:.1f}s [{smi}]. Decoders: JPEG the port's baseline "
+        "decoder (libjpeg-turbo's ISLOW IDCT as its SIMD code computes it, "
+        "fancy upsampling, fixed-point YCbCr), PNG stdlib zlib + the "
+        "library's row unfilter, resizes and polygons the library's copy "
+        "of Pillow's arithmetic, the JPEG frames' fused resize the JAX "
+        "native path's")
+    per_path = {}
+    with no_pil() as had:
+        if had:
+            log(f"{phase}: PIL modules loaded before the phase, blocked "
+                f"now: {had}")
+        # 2. every reader against the JAX readers' references
+        refs = rf.load_references(root)
+        failed, n_items, n_arrays, worst = [], 0, 0, 0.0
+        for case in rf.load_cases(root)["cases"]:
+            t = time.time()
+            res = rf.check_case(root, case, refs)
+            n_items += res["items"]
+            n_arrays += res["arrays"]
+            worst = max(worst, res["max_abs_err"])
+            failed += res["failures"]
+            log(f"{phase}: {case['name']} ({case['reader']}): "
+                f"{res['items']} items, {res['arrays']} arrays, max_abs_err "
+                f"{res['max_abs_err']:.3g} (tol 0) "
+                f"{'ok' if not res['failures'] else 'FAIL'} "
+                f"{time.time() - t:.2f}s [{smi}]")
+        if failed:
+            raise SystemExit(f"{phase}: the readers disagree with the JAX "
+                             f"readers' references: {failed[:10]}")
+        log(f"{phase}: all {n_items} items ({n_arrays} arrays) equal the "
+            f"JAX readers' bit for bit (largest difference {worst:.3g}) "
+            f"[{smi}]")
+
+        # 3. the flagship's input rate from files
+        cfg = configs.SAViLDMMoviE128().copy(
+            data_root=os.path.join(root, "movi"), train_batch_size=DATA_CLIPS,
+            val_batch_size=DATA_CLIPS, num_workers=0, print_iter=1,
+            save_interval=100.0, save_epoch_end=False)
+        train_set, _ = build_dataset(cfg)
+        workers = min(DATA_MAX_WORKERS, os.cpu_count() or 1)
+        rates = {w: input_rate(train_set, w) for w in (0, workers)}
+        need = (f"; phase 5's step consumes "
+                f"{32 / statistics.median(step_seconds):.1f} clips/s (32 "
+                f"clips in {statistics.median(step_seconds):.3f} s, the "
+                "median step)" if step_seconds else "")
+        log(f"{phase}: input rate, MOVi train split from files at "
+            f"{cfg.resolution[0]}x{cfg.resolution[1]}, "
+            f"{cfg.n_sample_frames}-frame clips, batches of {DATA_CLIPS}: " +
+            ", ".join(f"{w} workers {r:.1f} clips/s (a batch from each "
+                      f"after {f:.2f}s)" for w, (f, r) in rates.items()) +
+            f"{need} [{smi}]")
+
+        # 4. train the flagship from the tree, then validate on it
+        model = build_model(cfg, device=dev)
+        init_random_(model, torch.Generator().manual_seed(0))
+        model.dm_decoder.vae.requires_grad_(False)
+        data = build_datamodule(cfg)
+        log(f"{phase}: the flagship from files: {len(data.train_set)} train "
+            f"clips ({len(data)} batches of {DATA_CLIPS}), "
+            f"{len(data.val_set)} validation clips with their masks")
+        trainer, report, totals, _, _ = fit_checked(
+            model, cfg, data, phase, DATA_STEPS, unit="clips", smi=smi)
+        per_path["data_training"] = totals
+        # `fit` validates where `max_steps` caps it (a batch or more)
+        for rec in report.val:
+            check_launches(rec["launches"], f"{phase}: fit's validate",
+                           False)
+            per_path["data_fit_validate"] = rec["launches"]
+        del trainer
+        gc.collect()
+        ecfg = cfg.copy(use_ema=True)
+        per_path["data_validate"] = validate_against_plain(
+            ecfg, model, data, dev, gen, smi, phase,
+            f"the tree's {len(data.val_set)} validation clips (masks from "
+            "file)")
+    del model, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{phase}: {time.time() - t_phase:.1f}s [{smi}]")
+    return per_path
+
+
 def main():
     import gc
 
@@ -5583,7 +5818,10 @@ def main():
     # ---- 18. per-card memory under each plan, every optimizer sharded ---
     per_path.update(sizing(smi, dev))
 
-    # ---- 19. report -----------------------------------------------------
+    # ---- 19. the data layer from files ----------------------------------
+    per_path.update(data_layer(smi, dev, gen, step_seconds))
+
+    # ---- 20. report -----------------------------------------------------
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():

@@ -4,8 +4,9 @@ JAX package's data/_coco_api.py:27-157): the subset of
 `getCatIds`, `getAnnIds`, `loadImgs`, `loadAnns`, `annToMask`) over the
 `instances_*.json` format, with every on-disk segmentation encoding:
 
-- polygon lists `[[x1, y1, x2, y2, ...], ...]`, filled by PIL (a border
-  pixel may differ from pycocotools' own rasterizer);
+- polygon lists `[[x1, y1, x2, y2, ...], ...]`, filled as the JAX
+  reader's PIL `ImageDraw.polygon` fills them (`imageio.polygon_mask`; a
+  border pixel may differ from pycocotools' own rasterizer);
 - uncompressed RLE `{"counts": [int, ...], "size": [h, w]}`;
 - compressed RLE strings (pycocotools mask.c's 5-bit varint with the
   counts from the third on delta-coded), as crowd annotations carry.
@@ -87,17 +88,10 @@ def rle_to_mask(counts, size):
 
 
 def polygons_to_mask(polys, size):
-    """Polygon list -> [H, W] uint8 via PIL rasterization (union)."""
-    from PIL import Image, ImageDraw
-
-    h, w = size
-    img = Image.new("1", (w, h), 0)
-    draw = ImageDraw.Draw(img)
-    for poly in polys:
-        xy = [(poly[i], poly[i + 1]) for i in range(0, len(poly) - 1, 2)]
-        if len(xy) >= 3:
-            draw.polygon(xy, outline=1, fill=1)
-    return np.asarray(img, np.uint8)
+    """Polygon list -> [H, W] uint8 of their union, rasterised as PIL's
+    `ImageDraw.polygon(xy, fill=1, outline=1)` does it."""
+    from .imageio import polygon_mask
+    return polygon_mask(polys, size)
 
 
 class MiniCOCO:

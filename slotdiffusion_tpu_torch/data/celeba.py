@@ -1,13 +1,10 @@
 """CelebA, images only (an own copy of the JAX package's
 data/celeba.py:19-67): `img_align_celeba/` with `list_eval_partition.txt`,
 whose split ids 0/1/2 are train/val/test; no masks. Each sample is
-{"img": [H, W, 3] in [-1, 1], "data_idx"}. The JPEGs take the native
-decode (`data/fastio.py`) where it builds, else PIL, as MOVi's frames
-do: the native path's antialiased bilinear resize is PIL's in float,
-without PIL's rounding to 8 bits, so a value may differ from the JAX
-dataset's by less than one level (2/255 in [-1, 1]); where the native
-path does not build, the arrays are the JAX dataset's bit for bit. A
-file that cannot be read raises `SampleError`.
+{"img": [H, W, 3] in [-1, 1], "data_idx"}. The JPEGs decode and resize
+as the JAX dataset's do through PIL (`data/imageio.py`: libjpeg-turbo's
+decode, PIL's BILINEAR), bit for bit. A file that cannot be read, or
+whose data ends early, raises `SampleError`.
 """
 
 import os.path as osp
@@ -42,7 +39,8 @@ class CelebADataset(Dataset):
 
     def __getitem__(self, idx):
         try:
-            img = self.transforms.load_image(self.files[idx])
+            img = self.transforms(
+                self.transforms.read_rgb(self.files[idx]))
         except (FileNotFoundError, OSError) as e:
             raise SampleError(str(e))
         return {"data_idx": np.int32(idx), "img": img.astype(np.float32)}

@@ -6,9 +6,9 @@ the split by index fraction of the sorted list, test/val/train =
 objects. Each sample is {"img": [H, W, 3] in [-1, 1], "masks": [H, W]
 ids made consecutive (with `load_mask`), "data_idx"}. The index is
 cached (as JSON) under `utils.cache_dir()`, keyed by the root and
-`max_obj`. A file that cannot be read raises `SampleError`, so the
-loader tries another image. PNGs decode with PIL, as the JAX dataset's
-do.
+`max_obj`. A file that cannot be read, or whose data ends early, raises
+`SampleError`, so the loader tries another image. The PNGs decode,
+crop and resize as PIL does them for the JAX dataset (`data/imageio.py`).
 """
 
 import glob
@@ -19,16 +19,17 @@ import numpy as np
 from torch.utils.data import Dataset
 
 from ..utils import cache_dir, dump_obj, load_obj
+from . import imageio
 from .loader import SampleError
 from .transforms import BaseTransforms, suppress_mask_idx
 
 SPLIT_FRACTIONS = {"test": (0.0, 0.1), "val": (0.1, 0.2), "train": (0.2, 1.0)}
 
 
-def _center_crop(img, crop):
-    W, H = img.width, img.height
-    return img.crop(((W - crop) // 2, (H - crop) // 2,
-                     (W + crop) // 2, (H + crop) // 2))
+def _center_crop(arr, crop):
+    H, W = arr.shape[:2]
+    return imageio.crop(arr, ((W - crop) // 2, (H - crop) // 2,
+                              (W + crop) // 2, (H + crop) // 2))
 
 
 class CLEVRTexDataset(Dataset):
@@ -60,7 +61,6 @@ class CLEVRTexDataset(Dataset):
         if osp.isfile(cache):
             d = load_obj(cache)
             return d["img"], d["msk"]
-        from PIL import Image
         prefix = f"CLEVRTEX_{self.variant}_"
         imgs = sorted(glob.glob(osp.join(self.basepath, "**",
                                          f"{prefix}*[0-9].png"),
@@ -73,7 +73,7 @@ class CLEVRTexDataset(Dataset):
             if not osp.isfile(m):
                 continue
             if self.max_obj > 0:
-                msk = np.array(_center_crop(Image.open(m), self.crop))
+                msk = _center_crop(imageio.read_image(m).array, self.crop)
                 if np.unique(msk).shape[0] > self.max_obj + 1:
                     continue
             img_index.append(p)
@@ -87,19 +87,18 @@ class CLEVRTexDataset(Dataset):
         return self.limit - self.bias
 
     def __getitem__(self, idx):
-        from PIL import Image
         idx = idx + self.bias
         try:
-            img = Image.open(self.img_index[idx]).convert("RGB")
+            img = self.transforms.read_rgb(self.img_index[idx])
             if self.crop > 0:
                 img = _center_crop(img, self.crop)
             out = {"data_idx": np.int32(idx),
                    "img": self.transforms(img).astype(np.float32)}
             if self.load_mask:
-                msk = Image.open(self.msk_index[idx])
+                msk = imageio.read_image(self.msk_index[idx]).array
                 if self.crop > 0:
                     msk = _center_crop(msk, self.crop)
-                mask = self.transforms.process_mask(np.array(msk))
+                mask = self.transforms.process_mask(msk)
                 out["masks"] = suppress_mask_idx(mask)
             return out
         except (FileNotFoundError, OSError) as e:

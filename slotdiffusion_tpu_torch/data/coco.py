@@ -14,8 +14,11 @@ segmentation with box annotations.
   images to [-1, 1]; masks resized nearest;
 - `coco_collate_fn` pads the boxes to the batch's longest with -1 rows.
 
-PIL decodes and resizes (imported where it is used); pycocotools reads
-the annotations where it is installed, `_coco_api.MiniCOCO` otherwise.
+The images decode, convert and resize as PIL does them for the JAX
+dataset (`data/imageio.py`; grayscale and CMYK JPEGs to RGB as
+`convert("RGB")` turns them); pycocotools reads the annotations where it
+is installed, `_coco_api.MiniCOCO` otherwise. A file that cannot be
+read, or whose data ends early, raises `SampleError`.
 """
 
 import os.path as osp
@@ -24,20 +27,9 @@ import numpy as np
 import torch
 from torch.utils.data import Dataset, default_collate
 
+from . import imageio
 from .loader import SampleError
 from .transforms import suppress_mask_idx
-
-
-def _resize_min_shape(arr, res, nearest=False):
-    """Resize so the image covers `res` (H, W), keeping its aspect."""
-    from PIL import Image
-    img = Image.fromarray(arr)
-    H, W = img.height, img.width
-    h, w = res
-    scale = max(h / H, w / W)
-    new = (int(round(W * scale)), int(round(H * scale)))
-    return np.asarray(
-        img.resize(new, Image.NEAREST if nearest else Image.BILINEAR))
 
 
 class COCODataset(Dataset):
@@ -84,11 +76,10 @@ class COCODataset(Dataset):
         return out
 
     def __getitem__(self, idx):
-        from PIL import Image
         info = self.coco.loadImgs(self.image_ids[idx])[0]
         path = osp.join(self.image_dir, info["file_name"])
         try:
-            img = np.asarray(Image.open(path).convert("RGB"), np.uint8)
+            img = imageio.read_image(path).convert("RGB").array
         except (FileNotFoundError, OSError) as e:
             raise SampleError(str(e))
         H, W = img.shape[:2]
@@ -118,10 +109,10 @@ class COCODataset(Dataset):
         rng = np.random.RandomState(
             (self.epoch * 1000003 + idx * 7919 + 17) & 0x7FFFFFFF) \
             if self.split == "train" else None
-        img = _resize_min_shape(img, res)
-        inst = _resize_min_shape(inst, res, nearest=True)
-        overlap = _resize_min_shape(overlap, res, nearest=True)
-        sem = _resize_min_shape(sem, res, nearest=True)
+        img = imageio.resize_to_cover(img, res)
+        inst = imageio.resize_to_cover(inst, res, nearest=True)
+        overlap = imageio.resize_to_cover(overlap, res, nearest=True)
+        sem = imageio.resize_to_cover(sem, res, nearest=True)
         Hs, Ws = img.shape[:2]
         h, w = res
         if rng is None:

@@ -1,16 +1,22 @@
-"""ctypes bindings of the native decode path of the input pipeline (an own
-copy of the JAX package's data/fastio.py:30-166): `native/fastio.cpp`,
-compiled with `g++` at first use into `slotdiffusion_tpu_torch/_build/`
-(never into `native/`).
+"""ctypes bindings of the port's native decode library,
+`slotdiffusion_tpu_torch/csrc/imageio.cpp`, compiled with `g++` (the C++
+standard library alone: no libjpeg, libpng or zlib) at first use into
+`slotdiffusion_tpu_torch/_build/`.
 
-- `decode_jpeg_norm(path, res)`: JPEG decode -> bilinear resize -> [-1, 1]
-  in one C call, float32 [h, w, 3];
-- `decode_png_mask(path, res)`: a grayscale id-mask PNG, nearest-resized,
-  uint8 [h, w]; None for an RGB or palette PNG.
+The JAX package's native entry points (its data/fastio.py:30-166), on the
+port's own decoder:
+- `decode_jpeg_norm(path, res)`: JPEG decode -> the JAX native path's
+  float bilinear resize -> [-1, 1], float32 [h, w, 3]; None for a CMYK or
+  YCCK JPEG, which that path cannot decode (the JAX reader then takes
+  PIL's arithmetic: `transforms.BaseTransforms.load_image` does too);
+- `decode_png_mask(path, res)`: a grayscale id-mask PNG, nearest-resized
+  as the JAX native path resizes, uint8 [h, w]; None for a PNG of
+  another colour type or one whose data ends early, which the JAX native
+  path (libpng) refuses.
 
-Both return None when the library cannot be built (no g++, libjpeg or
-libpng) or a decode fails, and the caller decodes with PIL instead: this
-is a host decode path, not a device kernel.
+`lib()` returns the loaded library for `data/imageio.py`. A build that
+fails raises `NativeLibraryError` with the compiler's message: the port has
+no other decoder to fall back to.
 """
 
 import ctypes
@@ -21,91 +27,145 @@ import threading
 
 import numpy as np
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_REPO, "native", "fastio.cpp")
-BUILD_ROOT = os.path.join(_REPO, "slotdiffusion_tpu_torch", "_build")
-# native/Makefile's flags
-CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall"]
-LIBS = ["-ljpeg", "-lpng"]
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "imageio.cpp")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+CXX = "g++"
+CXX_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-Wall"]
+ERR_LEN = 256
 _lock = threading.Lock()
 _lib = None
-_tried = False
+
+_P = ctypes.POINTER
+_u8p, _f32p, _i32p = (_P(ctypes.c_uint8), _P(ctypes.c_float),
+                      _P(ctypes.c_int))
+_SIGNATURES = {
+    "imageio_jpeg_info": [ctypes.c_char_p, ctypes.c_long, _i32p,
+                          ctypes.c_char_p, ctypes.c_int],
+    "imageio_jpeg_decode": [ctypes.c_char_p, ctypes.c_long, _u8p,
+                            ctypes.c_long, _i32p, ctypes.c_char_p,
+                            ctypes.c_int],
+    "imageio_jpeg_resize_norm": [ctypes.c_char_p, ctypes.c_long, _f32p,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_float, _i32p, ctypes.c_char_p,
+                                 ctypes.c_int],
+    "imageio_nearest_fastio_u8": [_u8p, ctypes.c_int, ctypes.c_int, _u8p,
+                                  ctypes.c_int, ctypes.c_int],
+    "imageio_resize_bilinear_u8": [_u8p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, _u8p, ctypes.c_int,
+                                   ctypes.c_int],
+    "imageio_resize_nearest": [_u8p, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, _u8p, ctypes.c_int,
+                               ctypes.c_int],
+    "imageio_png_unfilter": [_u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             _u8p],
+    "imageio_polygon_fill": [_u8p, ctypes.c_int, ctypes.c_int, _i32p,
+                             ctypes.c_int],
+}
+_VOID = ("imageio_nearest_fastio_u8",)
+
+
+class NativeLibraryError(RuntimeError):
+    """The native decode library did not build or load."""
 
 
 def _build():
     """Compile the source into a library keyed by its hash; -> its
     path."""
     with open(SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode()
+        tag = hashlib.sha256(f.read() + " ".join([CXX, *CXX_FLAGS]).encode()
                              ).hexdigest()[:16]
-    out_dir = os.path.join(BUILD_ROOT, f"fastio-{tag}")
-    path = os.path.join(out_dir, "libfastio.so")
-    if not os.path.isfile(path):
-        os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{path}.tmp{os.getpid()}"
-        subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE, *LIBS],
-                       check=True, capture_output=True, timeout=120)
-        os.replace(tmp, path)
+    out_dir = os.path.join(BUILD_ROOT, f"imageio-{tag}")
+    path = os.path.join(out_dir, "libimageio.so")
+    if os.path.isfile(path):
+        return path
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        proc = subprocess.run([CXX, *CXX_FLAGS, "-o", tmp, SOURCE],
+                              capture_output=True, text=True, timeout=300)
+    except FileNotFoundError as e:
+        raise NativeLibraryError(
+            f"the C++ compiler {CXX!r} is not installed, so "
+            f"{os.path.relpath(SOURCE, _PKG)} cannot be built") from e
+    if proc.returncode:
+        raise NativeLibraryError(
+            f"{CXX} failed to build {SOURCE}:\n{proc.stderr.strip()}")
+    os.replace(tmp, path)
     return path
 
 
-def _load():
-    global _lib, _tried
+def lib():
+    """The loaded library (built on first use); NativeLibraryError if it
+    cannot be built or loaded."""
+    global _lib
     with _lock:
-        if _tried:
-            return _lib
-        _tried = True
-        try:
-            lib = ctypes.CDLL(_build())
-        except (OSError, subprocess.SubprocessError):
-            return None
-        lib.fastio_decode_jpeg_resize_norm.restype = ctypes.c_int
-        lib.fastio_decode_jpeg_resize_norm.argtypes = [
-            ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_float),
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float]
-        lib.fastio_decode_png_resize_nearest_u8.restype = ctypes.c_int
-        lib.fastio_decode_png_resize_nearest_u8.argtypes = [
-            ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p, ctypes.c_int,
-            ctypes.c_int]
-        _lib = lib
+        if _lib is None:
+            path = _build()
+            try:
+                handle = ctypes.CDLL(path)
+            except OSError as e:
+                raise NativeLibraryError(f"cannot load {path}: {e}") from e
+            for name, args in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = args
+                fn.restype = None if name in _VOID else ctypes.c_int
+            _lib = handle
         return _lib
 
 
 def fastio_available():
-    return _load() is not None
+    """True once the library is built and loaded (NativeLibraryError
+    otherwise)."""
+    return lib() is not None
+
+
+def ptr(arr, kind=_u8p):
+    return arr.ctypes.data_as(kind)
 
 
 def _read(path):
-    try:
-        with open(path, "rb") as f:
-            return f.read()
-    except OSError:
-        return None
+    with open(path, "rb") as f:
+        return f.read()
 
 
-def decode_jpeg_norm(path, res):
-    """JPEG file -> float32 [h, w, 3] in [-1, 1], or None."""
-    lib = _load()
-    buf = None if lib is None else _read(path)
-    if buf is None:
-        return None
+def decode_jpeg_norm(path, res, data=None):
+    """JPEG file (or its bytes, `data`) -> float32 [h, w, 3] in [-1, 1]
+    through the JAX native path's resize; None for CMYK/YCCK. A stream
+    that ends early decodes as libjpeg decodes it (the missing blocks
+    gray), as the JAX native path does. OSError on a file that does not
+    decode."""
+    buf = _read(path) if data is None else data
     h, w = res
     out = np.empty((h, w, 3), np.float32)
-    rc = lib.fastio_decode_jpeg_resize_norm(
-        buf, len(buf), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        h, w, 1.0 / 127.5, -1.0)
-    return out if rc == 0 else None
+    status = np.zeros(1, np.int32)
+    err = ctypes.create_string_buffer(ERR_LEN)
+    rc = lib().imageio_jpeg_resize_norm(
+        buf, len(buf), ptr(out, _f32p), h, w, 1.0 / 127.5, -1.0,
+        ptr(status, _i32p), err, ERR_LEN)
+    if rc == 3:
+        return None
+    if rc:
+        raise OSError(f"{path}: {err.value.decode()}")
+    return out
 
 
 def decode_png_mask(path, res):
-    """Grayscale id-mask PNG -> uint8 [h, w], nearest-resized, or None."""
-    lib = _load()
-    buf = None if lib is None else _read(path)
-    if buf is None:
+    """Grayscale id-mask PNG -> uint8 [h, w], nearest-resized as the JAX
+    native path resizes; None for another colour type or a file whose
+    image data ends early (the JAX native path's libpng refuses those, and
+    its reader decodes them another way), and for a 16-bit mask (which
+    libpng would convert; the caller reads it as PIL does)."""
+    from .imageio import decode_png
+    img = decode_png(_read(path), truncated_ok=True, name=path)
+    if img.mode not in ("L", "1") or img.truncated or img.bit_depth > 8:
         return None
+    arr = img.array
+    if img.mode == "1":  # libpng expands 1-bit gray to 0 / 255
+        arr = arr.astype(np.uint8) * 255
+    arr = np.ascontiguousarray(arr, np.uint8)
     h, w = res
     out = np.empty((h, w), np.uint8)
-    rc = lib.fastio_decode_png_resize_nearest_u8(
-        buf, len(buf), out.ctypes.data_as(ctypes.c_char_p), h, w)
-    return out if rc == 0 else None
+    lib().imageio_nearest_fastio_u8(ptr(arr), arr.shape[0], arr.shape[1],
+                                    ptr(out), h, w)
+    return out

@@ -14,7 +14,10 @@ consecutive (with `load_mask`), "data_idx"}; `load_video` switches to
 whole videos. A split's folder list is cached (as JSON) under
 `SLOTDIFFUSION_CACHE`, by default `.cache/slotdiffusion_tpu_torch/` in the
 repo. A frame that cannot be read raises `SampleError`, so the loader
-tries another clip.
+tries another clip. A frame or mask whose data ends early is read as
+the JAX reader reads it (that module sets PIL's
+`ImageFile.LOAD_TRUNCATED_IMAGES`): a JPEG as libjpeg decodes a stream
+that ends early, a PNG with its whole rows and zeros after them.
 """
 
 import hashlib
@@ -24,6 +27,7 @@ import numpy as np
 from torch.utils.data import Dataset
 
 from ..utils import cache_dir, dump_obj, glob_all, load_obj
+from . import imageio
 from .loader import SampleError
 from .transforms import BaseTransforms, suppress_mask_idx
 
@@ -49,7 +53,7 @@ class MOViDataset(Dataset):
         self.layout = layout
         self.split = split
         self.data_root = osp.join(data_root, f"MOVi-{self.level}", split)
-        self.transforms = BaseTransforms(resolution)
+        self.transforms = BaseTransforms(resolution, load_truncated=True)
         self.n_sample_frames = n_sample_frames
         self.frame_offset = frame_offset or 1
         self.video_len = video_len
@@ -92,14 +96,15 @@ class MOViDataset(Dataset):
         return osp.join(folder, f"{i:08d}_image.png")
 
     def _read_mask(self, folder, i):
-        """One frame's id mask at the dataset's resolution: grayscale PNGs
-        natively, RGB-coded ids (flattened to ints) through PIL; in the
-        STEVE-MOVi layout the argmax of the 10 binary masks behind an
-        all-ones background."""
+        """One frame's id mask at the dataset's resolution: a grayscale PNG
+        through the JAX native path's nearest resize; RGB-coded ids
+        (flattened to ints), palette masks and masks whose data ends early
+        at PIL's NEAREST; in the STEVE-MOVi layout the argmax of the 10
+        binary masks behind an all-ones background."""
         if self.layout == "steve_movi":
-            from PIL import Image
-            objs = [np.asarray(Image.open(
-                osp.join(folder, f"{i:08d}_mask_{k:02d}.png")).convert("L"))
+            objs = [imageio.read_image(
+                osp.join(folder, f"{i:08d}_mask_{k:02d}.png"),
+                truncated_ok=True).convert("L").array
                 for k in range(self.NUM_STEVE_MASKS)]
             objs.insert(0, np.ones_like(objs[0]))
             return self.transforms.process_mask(
@@ -108,8 +113,7 @@ class MOViDataset(Dataset):
         m = self.transforms.load_mask(path)
         if m is not None:
             return m
-        from PIL import Image
-        m = np.asarray(Image.open(path))
+        m = imageio.read_image(path, truncated_ok=True).array
         if m.ndim == 3:
             H, W = m.shape[:2]
             flat = (m[..., 0].astype(np.int64) * 256 + m[..., 1]) * 256 + \

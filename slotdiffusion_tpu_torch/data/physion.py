@@ -11,8 +11,9 @@ at every start that fits, the val and test splits strided by
 `frame_offset - 1` (the frame-offset interleave). `load_video` switches
 to whole videos (`get_video`: every `frame_offset`-th frame). Each video
 keeps its task's index in `all_tasks` (`video_idx2task_idx`), for the
-VQA per-task breakdown. The JPEGs decode through `data/fastio.py` where
-it builds, else PIL, imported only then.
+VQA per-task breakdown. The JPEGs decode as the JAX reader's do
+(`data/fastio.py`), and one whose data ends early decodes as libjpeg
+decodes it, as the JAX module's `ImageFile.LOAD_TRUNCATED_IMAGES` lets it.
 """
 
 import os.path as osp
@@ -58,7 +59,7 @@ class PhysionDataset(Dataset):
         self.data_root = data_root
         self.split = split
         self.subset = subset
-        self.transforms = BaseTransforms(resolution)
+        self.transforms = BaseTransforms(resolution, load_truncated=True)
         self.n_sample_frames = n_sample_frames
         self.frame_offset = frame_offset or 1
         self.video_len = video_len

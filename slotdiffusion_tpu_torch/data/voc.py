@@ -6,7 +6,12 @@ SegmentationObject (val only). Resize so the image covers the
 resolution, crop (random at train, centred at val; one draw for the
 image and its masks), flip at train, images to [-1, 1]; the palettized
 masks' 255 void ring becomes background, instance ids are made
-consecutive. PIL decodes and resizes (imported where it is used).
+consecutive. The files decode, resize, crop and flip as PIL does them
+for the JAX dataset (`data/imageio.py`; the masks' palette indices kept).
+An image that cannot be read, or whose data ends early, raises
+`SampleError`; a mask file that is missing does too, while a mask whose
+data ends early raises OSError, as the JAX dataset's lazy PIL decode
+does.
 """
 
 import os.path as osp
@@ -14,6 +19,7 @@ import os.path as osp
 import numpy as np
 from torch.utils.data import Dataset
 
+from . import imageio
 from .loader import SampleError
 from .transforms import suppress_mask_idx
 
@@ -22,16 +28,6 @@ VOC_CATEGORY_NAMES = [
     "car", "cat", "chair", "cow", "diningtable", "dog", "horse", "motorbike",
     "person", "pottedplant", "sheep", "sofa", "train", "tvmonitor",
 ]
-
-
-def _resize_min_shape(img, res, nearest=False):
-    """Resize a PIL image so it covers `res` (H, W), keeping its aspect."""
-    from PIL import Image
-    H, W = img.height, img.width
-    h, w = res
-    scale = max(h / H, w / W)
-    new = (int(round(W * scale)), int(round(H * scale)))
-    return img.resize(new, Image.NEAREST if nearest else Image.BILINEAR)
 
 
 class VOCDataset(Dataset):
@@ -69,16 +65,15 @@ class VOCDataset(Dataset):
         return len(self.images)
 
     def __getitem__(self, idx):
-        from PIL import Image
         rng = np.random.RandomState(idx) if self.split != "val" else None
         try:
-            img = Image.open(self.images[idx]).convert("RGB")
+            img = imageio.read_image(self.images[idx]).convert("RGB").array
         except (FileNotFoundError, OSError) as e:
             raise SampleError(str(e))
-        img = _resize_min_shape(img, self.resolution)
+        img = imageio.resize_to_cover(img, self.resolution)
         # pick crop offsets / flip ONCE so image and masks stay aligned
         h, w = self.resolution
-        H, W = img.height, img.width
+        H, W = img.shape[:2]
         if rng is None:
             top, left = (H - h) // 2, (W - w) // 2
             flip = False
@@ -87,9 +82,9 @@ class VOCDataset(Dataset):
             left = rng.randint(0, max(W - w, 0) + 1)
             flip = rng.rand() < 0.5
         box = (left, top, left + w, top + h)
-        img = img.crop(box)
+        img = imageio.crop(img, box)
         if flip:
-            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+            img = imageio.flip_left_right(img)
         arr = (np.asarray(img, np.float32) / 255.0 - 0.5) / 0.5
         out = {"data_idx": np.int32(idx), "img": arr}
         if self.load_anno:
@@ -101,15 +96,16 @@ class VOCDataset(Dataset):
         return out
 
     def _load_mask(self, path, box, flip, suppress):
-        from PIL import Image
         try:
-            m = Image.open(path)
+            with open(path, "rb") as f:
+                data = f.read()
         except (FileNotFoundError, OSError) as e:
             raise SampleError(str(e))
-        m = _resize_min_shape(m, self.resolution, nearest=True)
-        m = m.crop(box)
+        m = imageio.decode_png(data, name=path).array
+        m = imageio.resize_to_cover(m, self.resolution, nearest=True)
+        m = imageio.crop(m, box)
         if flip:
-            m = m.transpose(Image.FLIP_LEFT_RIGHT)
+            m = imageio.flip_left_right(m)
         arr = np.asarray(m, np.int32).copy()
         arr[arr == 255] = 0  # ignore label -> background
         if suppress:

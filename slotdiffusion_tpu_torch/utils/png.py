@@ -1,6 +1,6 @@
 """PNG and animated PNG (APNG) files of the port, written and read with
-`zlib` and `struct` alone: the card's machine has neither PIL nor
-imageio. `save_image` writes a frame as a PNG (the JAX package's
+`zlib` and `struct` alone: the port imports neither PIL nor imageio.
+`save_image` writes a frame as a PNG (the JAX package's
 `save_image`, lossless); `save_video` writes frames as an APNG where the
 JAX package writes an mp4 (or a GIF): lossless, and any PNG reader shows
 its first frame. The reader reads what the writer writes (8-bit

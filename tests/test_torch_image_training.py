@@ -259,14 +259,12 @@ def test_clevrtex_matches_the_jax_dataset(tmp_path, monkeypatch, max_obj):
     assert again.img_index == mine[0].img_index
 
 
-def test_celeba_matches_the_jax_dataset(tmp_path, monkeypatch):
+def test_celeba_matches_the_jax_dataset(tmp_path):
     """A generated CelebA tree: the splits of `list_eval_partition.txt` and
-    no masks. With the native decode off (PIL, the JAX dataset's path)
-    every image equals the JAX dataset's bit for bit; with it (where it
-    builds) within one 8-bit level (2/255), its float resize against
-    PIL's rounded one."""
+    no masks. Every image equals the JAX dataset's bit for bit: the port
+    decodes the JPEGs as libjpeg-turbo does and resizes them with PIL's
+    BILINEAR arithmetic (`data/imageio.py`), the JAX dataset's path."""
     from slotdiffusion_tpu.data.celeba import build_celeba_dataset
-    from slotdiffusion_tpu_torch.data import fastio
     img_dir = tmp_path / "img_align_celeba"
     os.makedirs(img_dir)
     r = np.random.RandomState(0)
@@ -283,19 +281,9 @@ def test_celeba_matches_the_jax_dataset(tmp_path, monkeypatch):
     p = BaseParams()
     p.data_root, p.resolution = str(tmp_path), (32, 32)
     ref = (*build_celeba_dataset(p), build_celeba_dataset(p, val_only=True))
-    native = fastio.fastio_available()
-    with monkeypatch.context() as m:
-        m.setattr(fastio, "_lib", None)
-        m.setattr(fastio, "_tried", True)
-        pil = (*build_dataset(cfg), build_dataset(cfg, val_only=True))
-        assert [len(d) for d in pil] == [3, 2, 2]
-        for a, b in zip(pil, ref):
-            assert a.files == b.files
-            for i in range(len(b)):
-                _same(a[i], b[i])
-    if native:
-        mine = build_dataset(cfg)
-        for a, b in zip(mine, ref):
-            for i in range(len(b)):
-                d = np.abs(a[i]["img"] - b[i]["img"]).max()
-                assert d < 2.0 / 255, d
+    mine = (*build_dataset(cfg), build_dataset(cfg, val_only=True))
+    assert [len(d) for d in mine] == [3, 2, 2]
+    for a, b in zip(mine, ref):
+        assert a.files == b.files
+        for i in range(len(b)):
+            _same(a[i], b[i])
