@@ -129,13 +129,14 @@ Phases (one flushed line each, with elapsed seconds):
      with the launch counts set to 0 before and read after (61 GN and
      32 attention a UNet call through the model dtype's entries, 6 slot
      attention): DPM-Solver++ multistep, singlestep_fixed and adaptive
-     (order 3), noise prediction, taylor and logSNR (20 steps), DDIM (50
-     steps, `FLAGSHIP_DDIM_STEPS`; 200 before phase 17 took their time)
+     (order 3), noise prediction, taylor and logSNR (20 steps), DDIM (30
+     steps, `FLAGSHIP_DDIM_STEPS`; 200 before phase 17 took their time,
+     50 before the margin phase 19's new files asked for)
      and the ancestral chain in f32 (over 1 video since phase 18 took
      its time; since phase 19 took its time, on the flagship with a
      `ANCESTRAL_TIMESTEPS`-step schedule: the same weights and chain
-     code, 250 UNet calls, not the config's 1000); multistep and DDIM in
-     bf16; DPM (dynamic thresholding) and DDIM (clamp, 50 steps) of the
+     code, 150 UNet calls, not the config's 1000); multistep and DDIM in
+     bf16; DPM (dynamic thresholding) and DDIM (clamp, 30 steps) of the
      flagship UNet over 64x64 pixels (its 49,152-value GN groups through the GN
      kernel's two-pass path), and that decoder's `sample` serving surface
      eagerly and from a CUDA graph (bit for bit, the same launches). Each
@@ -209,8 +210,9 @@ Phases (one flushed line each, with elapsed seconds):
      against their plain versions, timed, GN and slot attention
      bit-identical on a repeat, the count of GN calls a UNet call that
      take the two-pass path (groups over 32,768 values); the attention
-     kernel's bf16 entry against `scaled_dot_product_attention` in bf16
-     at 784 tokens; `encode` (masks of 224x224 summing to 1 over the
+     kernel's bf16 entry at 784 tokens against its plain version (at
+     BF16_TOL) and beside `scaled_dot_product_attention` in bf16 and its
+     bound; `encode` (masks of 224x224 summing to 1 over the
      slots), `sample` and `denoise` of 8 images eagerly and from CUDA
      graphs (bit for bit, the same launches), one encode and one
      denoise against the CPU; the kernels and their gradients at a
@@ -329,7 +331,10 @@ Phases (one flushed line each, with elapsed seconds):
      the JAX readers return for it): the machine's compiler, image
      libraries, PIL and CPUs; the port's native decode library built with
      g++; with PIL's import blocked, every reader over the tree against
-     the JAX readers' references, every item bit for bit; the flagship's
+     the JAX readers' references, every item bit for bit (the tree's
+     progressive, arithmetic-coded and arithmetic progressive JPEGs, its
+     interlaced PNGs and its 16-bit and tRNS masks among them); the
+     flagship's
      input rate (MOVi train split, 128x128, 6-frame clips, batches of 8)
      at 0 and min(8, cpu_count) spawned loader workers beside the clips a
      second phase 5's step consumes; 2 training steps of the flagship from
@@ -344,7 +349,8 @@ Phases (one flushed line each, with elapsed seconds):
      forward calls of each baseline, and `baseline_seconds` their wall
      and event times; `coco_*`: each model kernel at phase 13's serving
      shapes; `long_run_*`: GN's two-pass path at (8, 384, 56, 56);
-     `sdpa_bf16_*`: attention's bf16 entry against SDPA at 784 tokens;
+     `sdpa_bf16_*` (on the bf16 attention row): the bf16 entry at 784
+     tokens against SDPA, its plain version and its bound;
      the bf16 entry
      points of GN and attention as entries of their own, `"entry"` and
      `"dtype": "bf16"` marking them, with the f32 entry's times beside),
@@ -472,11 +478,12 @@ STAGE2_CLIPS = 4
 # since phase 17 came (its 200 steps with their twins and controls took
 # ~30 s a dtype)
 DPM = dict(use_dpm=True, steps=20, order=3)
-PIXEL_DDIM_STEPS = FLAGSHIP_DDIM_STEPS = 50
+PIXEL_DDIM_STEPS = FLAGSHIP_DDIM_STEPS = 30
 # the ancestral chain takes every step of its schedule (1000 UNet calls
 # and as many for its twin: 75-102 s by host); it runs on the flagship
-# with this many steps in the schedule (its linear betas over them)
-ANCESTRAL_TIMESTEPS = 250
+# with this many steps in the schedule (its linear betas over them; 250
+# until the script's margin under its limit asked for less)
+ANCESTRAL_TIMESTEPS = 150
 SAMPLER_RUNS = (
     ("dpm++ multistep", "f32", dict(DPM, method="multistep"), None),
     ("dpm++ singlestep_fixed", "f32", dict(DPM, method="singlestep_fixed"),
@@ -627,6 +634,21 @@ VP_ENC_TOL, VP_ROLL_TOL = 1e-2, 1e-3
 
 def log(msg):
     print(f"[{time.time() - T0:8.2f}s] {msg}", flush=True)
+
+
+PHASE_MARKS = []  # (phase, seconds since T0 at its start), in run order
+
+
+def mark(phase):
+    PHASE_MARKS.append((phase, time.time() - T0))
+
+
+def phase_times():
+    """Each phase's seconds by the script's clock, in run order, after the
+    start-up before the first one."""
+    ends = [t for _, t in PHASE_MARKS[1:]] + [time.time() - T0]
+    return [("start", PHASE_MARKS[0][1])] + [
+        (p, end - t) for (p, t), end in zip(PHASE_MARKS, ends)]
 
 
 def timed(fn, iters=20, warmup=3, reps=5):
@@ -3176,9 +3198,12 @@ def gn_long(gen, dev, phase, train_batch):
 
 def sdpa_bf16(shapes, gen, dev, phase, tokens=784):
     """At the serving path's self-attention of `tokens` keys: the
-    attention kernel's bf16 entry and `scaled_dot_product_attention` on
-    the same bf16 q, k, v (the library yardstick), timed, and their
-    largest difference. -> {shape, ms, library_ms, max_abs_err}."""
+    attention kernel's bf16 entry against its plain version (at
+    BF16_TOL of the largest output) and against
+    `scaled_dot_product_attention` on the same bf16 q, k, v (the library
+    yardstick), timed, and the bound. -> {shape, ms, library_ms,
+    plain_ms, bound_ms, max_abs_err (vs the plain version),
+    library_max_abs_diff}. Raises SystemExit past the tolerance."""
     import torch
     import torch.nn.functional as F
     from slotdiffusion_tpu_torch.ops import attention_kernel
@@ -3189,17 +3214,32 @@ def sdpa_bf16(shapes, gen, dev, phase, tokens=784):
                .to(torch.bfloat16) for _ in range(3))
     split = lambda t: t.view(Bq, tokens, heads, -1).transpose(1, 2)
     kern = lambda: attention_kernel.fused_mha(q, k, v, heads)
+    plain = lambda: attention_kernel.mha_reference(q, k, v, heads)
     lib = lambda: F.scaled_dot_product_attention(split(q), split(k),
                                                  split(v))
-    err = (kern().float() - lib().transpose(1, 2).reshape(Bq, tokens, hd)
-           .float()).abs().max().item()
-    k_t, l_t = timed(kern), timed(lib)
-    log(f"{phase}: attention bf16 B={Bq} Nq=Nk={tokens} H={heads}: kernel "
-        f"{k_t[0]:.4f} ms, scaled_dot_product_attention {l_t[0]:.4f} ms "
-        f"(device), kernel/library {k_t[0] / l_t[0]:.3f}, max_abs_diff "
-        f"{err:.3e}")
+    out, ref = kern(), plain()
+    err = max_err(out, ref)
+    tol = BF16_TOL["attention_bf16"] * ref.float().abs().max().item()
+    diff = (out.float() - lib().transpose(1, 2).reshape(Bq, tokens, hd)
+            .float()).abs().max().item()
+    k_t, l_t, p_t = timed(kern), timed(lib), timed(plain)
+    terms = bound_terms(2 * (4 * q.numel()),
+                        bf16_ops=4.0 * Bq * tokens * tokens * hd)
+    bound = max(terms)
+    log(f"{phase}: attention_bf16 B={Bq} Nq=Nk={tokens} H={heads}: "
+        f"max_abs_err vs its plain version {err:.3e} (tol {tol:.1e}) "
+        f"{'ok' if err <= tol else 'FAIL'} | device ms: kernel "
+        f"{k_t[0]:.4f}, scaled_dot_product_attention {l_t[0]:.4f} "
+        f"(kernel/library {k_t[0] / l_t[0]:.3f}), plain {p_t[0]:.4f}, "
+        f"bound {bound:.4f} ({'bytes' if terms[0] >= terms[1] else 'operations'}"
+        f"; kernel/bound {k_t[0] / bound:.1f}); max_abs_diff from SDPA "
+        f"{diff:.3e}")
+    if not err <= tol:
+        raise SystemExit(f"{phase}: attention_bf16 at {tokens} tokens is "
+                         f"{err:.3e} from its plain version (tol {tol:.1e})")
     return dict(shape=[Bq, tokens, tokens, heads], ms=k_t[0],
-                library_ms=l_t[0], max_abs_err=err)
+                library_ms=l_t[0], plain_ms=p_t[0], bound_ms=bound,
+                max_abs_err=err, library_max_abs_diff=diff)
 
 
 def coco_data(cfg, batch, steps, val_batches=0):
@@ -5395,12 +5435,20 @@ def data_layer(smi, dev, gen, step_seconds=None, phase="phase 19"):
     t = time.time()
     lib = fastio.lib()  # NativeLibraryError if it does not build: no fallback
     log(f"{phase}: g++ built {os.path.relpath(lib._name)} in "
-        f"{time.time() - t:.1f}s [{smi}]. Decoders: JPEG the port's baseline "
-        "decoder (libjpeg-turbo's ISLOW IDCT as its SIMD code computes it, "
+        f"{time.time() - t:.1f}s [{smi}]. Decoders: JPEG the port's "
+        "decoder (sequential and progressive, Huffman and arithmetic "
+        "scans; libjpeg-turbo's ISLOW IDCT as its SIMD code computes it, "
         "fancy upsampling, fixed-point YCbCr), PNG stdlib zlib + the "
-        "library's row unfilter, resizes and polygons the library's copy "
-        "of Pillow's arithmetic, the JPEG frames' fused resize the JAX "
-        "native path's")
+        "library's row unfilter (Adam7 too), gray masks as libpng's "
+        "simplified API reads them, resizes and polygons the library's "
+        "copy of Pillow's arithmetic, the JPEG frames' fused resize the "
+        "JAX native path's")
+    recoded = rf.load_cases(root).get("recoded", {})
+    log(f"{phase}: the tree's files beyond baseline JPEG and plain PNG: " +
+        ", ".join(f"{rel} ({how})" for rel, how in sorted(recoded.items())))
+    if len(set(recoded.values())) < 6:
+        raise SystemExit(f"{phase}: the tree lacks a recoded format: "
+                         f"{sorted(set(recoded.values()))}")
     per_path = {}
     with no_pil() as had:
         if had:
@@ -5499,6 +5547,7 @@ def main():
     dev = torch.device("cuda")
 
     # ---- 1. device --------------------------------------------------------
+    mark("1")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     import scipy
@@ -5512,6 +5561,7 @@ def main():
     print(smi, flush=True)
 
     # ---- 2. build ---------------------------------------------------------
+    mark("2")
     t = time.time()
     lib_path = _cuda.build(verbose=True)
     _cuda.lib()
@@ -5533,6 +5583,7 @@ def main():
         f"{len(calls)} {name}" for name, calls in shapes.items()))
 
     # ---- 3. kernels vs plain versions ------------------------------------
+    mark("3")
     sa_mod = model.savi.slot_attention
     results = check_kernels(shapes, sa_mod, gen, dev, "phase 3")
     failed = []
@@ -5693,12 +5744,14 @@ def main():
         f"{per_path['winograd_conv3x3']}")
 
     # ---- 3b. the autograd.Functions' gradients on the card -------------
+    mark("3b")
     cases = model_grad_cases(shapes, sa_mod, gen, dev)
     cases["winograd_conv3x3"] = (winograd_conv.winograd_conv3x3,
                                  winograd_conv.direct_conv, wino_inputs[1])
     check_grads(cases, gen, dev, "phase 3b")
 
     # ---- 4. the serving path through the kernels -------------------------
+    mark("4")
     per_surface, surface_seconds, slots = serve(cfg, model, inputs,
                                                 "phase 4")
     per_path["serving"] = {k: sum(c[k] for c in per_surface.values())
@@ -5733,14 +5786,17 @@ def main():
     del cpu
 
     # ---- 5. the training path --------------------------------------------
+    mark("5")
     per_path["training"], train_results, step_seconds = train(
         cfg, model, dev, gen, "phase 5")
 
     # ---- 6. the evaluation path ------------------------------------------
+    mark("6")
     eval_paths, res64 = evaluate(cfg, model, dev, gen, smi, "phase 6")
     per_path.update(eval_paths)
 
     # ---- 8 (f32). serving from CUDA graphs, artifacts, HTTP -------------
+    mark("8 (f32)")
     graph_failed = []
     serve_graphed(cfg, model, inputs, "phase 8 (f32)", per_path,
                   graph_failed)
@@ -5749,6 +5805,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 7. the flagship in bf16: phases 4-6 again ------------------------
+    mark("7")
     cfg16 = cfg.copy(use_bf16=True)
     model = build_model(cfg16, device=dev)
     init_random_(model, torch.Generator().manual_seed(0))
@@ -5767,6 +5824,7 @@ def main():
         cfg16, model, dev, gen, "phase 7", step_seconds)
     per_path.update(evaluate(cfg16, model, dev, gen, smi, "phase 7")[0])
     # ---- 8 (bf16) --------------------------------------------------------
+    mark("8 (bf16)")
     serve_graphed(cfg16, model, inputs, "phase 8 (bf16)", per_path,
                   graph_failed)
     if graph_failed:
@@ -5786,42 +5844,54 @@ def main():
             f" {train_results[name.removesuffix('_bf16')]['ms']:.4f} ms)")
 
     # ---- 9. stage 1, and the flagship on its checkpoint ----------------
+    mark("9")
     per_path.update(stage1(smi, dev, gen))
 
     # ---- 10. every sampler of the decoder --------------------------------
+    mark("10")
     per_path.update(samplers(smi, dev))
 
     # ---- 11. the image family ---------------------------------------------
+    mark("11")
     img_paths, img_sa = images(smi, dev, gen)
     per_path.update(img_paths)
 
     # ---- 12. the token and reconstruction baselines ----------------------
+    mark("12")
     base_paths, base_sa, base_secs = baselines(smi, dev, gen)
     per_path.update(base_paths)
 
     # ---- 13. COCO and VOC with the frozen DINO ViT ----------------------
+    mark("13")
     coco_paths, coco_k, gn_long_res, sdpa = coco_voc(smi, dev, gen)
     per_path.update(coco_paths)
 
     # ---- 14. the video-prediction and VQA stage -------------------------
+    mark("14")
     per_path.update(vp_vqa(smi, dev, gen))
 
     # ---- 15. the trainer's optimizers and settings, the reference .pth --
+    mark("15")
     per_path.update(settings(smi, dev))
 
     # ---- 16. evaluation: comp gen, FID/FVD, test_recon, the viz ---------
+    mark("16")
     per_path.update(evaluation(smi, dev, gen))
 
     # ---- 17. scale-out across processes, cross-device export ------------
+    mark("17")
     per_path.update(scale_out(smi, dev))
 
     # ---- 18. per-card memory under each plan, every optimizer sharded ---
+    mark("18")
     per_path.update(sizing(smi, dev))
 
     # ---- 19. the data layer from files ----------------------------------
+    mark("19")
     per_path.update(data_layer(smi, dev, gen, step_seconds))
 
     # ---- 20. report -----------------------------------------------------
+    mark("20")
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
     kernels = []
     for name, r in results.items():
@@ -5905,8 +5975,6 @@ def main():
                 "coco_max_abs_err": coco_k[name]["err"]}),
             **({} if name != "gn_silu" else {
                 f"long_run_{k}": v for k, v in gn_long_res.items()}),
-            **({} if name != "attention" else {
-                f"sdpa_bf16_{k}": v for k, v in sdpa.items()}),
             **extra,
         })
     for name, r in bf16_serve.items():
@@ -5930,7 +5998,13 @@ def main():
             "f32_ms": results[base]["ms"],
             "f32_train_ms": train_results[base]["ms"],
             "per_path_launches": {s: c[name] for s, c in per_path.items()},
+            # attention at COCO's 784 tokens (phase 13): the kernel, SDPA,
+            # the plain version, the bound and the kernel's error
+            **({} if name != "attention_bf16" else {
+                f"sdpa_bf16_{k}": v for k, v in sdpa.items()}),
         })
+    log("phase times (s, in run order): " + ", ".join(
+        f"{p} {t:.1f}" for p, t in phase_times()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

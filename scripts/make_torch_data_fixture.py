@@ -18,7 +18,18 @@ and its synthetic scenes:
 - `coco`: COCO val/train with polygons and a compressed-RLE crowd
   annotation, one grayscale and one CMYK JPEG;
 - `voc`: VOC with palette masks and the 255 void ring;
-- `physion`: one short Physion clip.
+- `physion`: one short Physion clip;
+and, recoded in place (`RECODED`), the formats beyond baseline JPEG and
+plain PNG that the readers take: a progressive image each for CelebA,
+COCO and VOC and progressive, arithmetic-coded and arithmetic
+progressive MOVi frames (ITU T.81 SOF2, SOF9, SOF10), an Adam7-interlaced
+ClevrTex image and mask, a 16-bit and a tRNS MOVi mask. PIL writes the
+strict readers' progressive files; the MOVi frames are transcoded from
+their own DCT coefficients (`scripts/arith_jpeg.c transcode`, compiled
+here with gcc against this host's libjpeg; the card needs neither), so
+they decode to the very pixels they had and the flagship's file-backed
+steps and validation on the card (`chip_smoke.py` phase 19) see the same
+clips; the interlaced PNGs come from `scripts/png_adam7.py`.
 
 `cases.json` names each reader's arguments (paths relative to the tree),
 and `references.npz` holds every item each JAX reader returns, or the
@@ -28,7 +39,8 @@ JAX reader's floats bit for bit); identical arrays are stored once. The
 strict readers are read before the MOVi and Physion modules are imported,
 since those set PIL's `ImageFile.LOAD_TRUNCATED_IMAGES` for the process.
 
-Imports the JAX package and PIL, so it runs on a host that has them:
+Imports the JAX package and PIL, and builds the C helper, so it runs on a
+host that has them, gcc and libjpeg's headers:
 
     python scripts/make_torch_data_fixture.py [--out tests/data/torch_files]
 """
@@ -39,8 +51,11 @@ import json
 import os
 import os.path as osp
 import shutil
+import struct
+import subprocess
 import sys
 import tempfile
+import zlib
 
 import numpy as np
 from PIL import Image, ImageFile
@@ -52,6 +67,7 @@ sys.path.insert(0, osp.join(_REPO, "scripts", "data_utils"))
 
 from gen_mini_seg_data import gen_coco, gen_voc  # noqa: E402
 from gen_movi_tree import write_split  # noqa: E402
+from png_adam7 import encode_png_adam7  # noqa: E402
 from slotdiffusion_tpu.data.synthetic import (  # noqa: E402
     SyntheticImageDataset, SyntheticVideoDataset)
 from slotdiffusion_tpu_torch.data.reference_files import decode  # noqa: E402
@@ -100,6 +116,18 @@ CASES = [
                                       n_sample_frames=6, video_len=12,
                                       subset="training")),
 ]
+RECODED = {  # file -> how it is rewritten (before any cut)
+    "celeba/img_align_celeba/000001.jpg": "progressive",
+    "coco/val2017/000000100000.jpg": "progressive",
+    "voc/JPEGImages/2012_000000.jpg": "progressive",
+    "movi/MOVi-E/train/00000/000003.jpg": "progressive_transcoded",
+    "movi/MOVi-E/train/00000/000004.jpg": "arithmetic",
+    "movi/MOVi-E/validation/00001/000002.jpg": "arithmetic_progressive",
+    "clevrtex/clevrtex_full/0/CLEVRTEX_full_000007.png": "adam7",
+    "clevrtex/clevrtex_full/0/CLEVRTEX_full_000007_flat.png": "adam7",
+    "movi/MOVi-E/train/00001/000001_mask.png": "16bit",
+    "movi/MOVi-E/train/00001/000003_mask.png": "trns",
+}
 TRUNCATED = {  # file -> fraction of its bytes kept
     "movi/MOVi-E/train/00000/000002_mask.png": 2 / 3,
     "movi/MOVi-E/train/00001/000005.jpg": 1 / 2,
@@ -187,12 +215,68 @@ def write_tree(root):
         with open(osp.join(pdir, "splits", f"training_{split}.json"),
                   "w") as f:
             json.dump({"Collide": ["collide_vid0_img.mp4"]}, f)
+    recode(root)
     for rel, keep in TRUNCATED.items():
         p = osp.join(root, rel)
         with open(p, "rb") as f:
             data = f.read()
         with open(p, "wb") as f:
             f.write(data[:int(len(data) * keep)])
+
+
+def _arith_helper():
+    """scripts/arith_jpeg.c built against this host's libjpeg."""
+    src = osp.join(_REPO, "scripts", "arith_jpeg.c")
+    exe = osp.join(tempfile.mkdtemp(), "arith_jpeg")
+    subprocess.run(["gcc", "-O2", "-o", exe, src, "-ljpeg"], check=True)
+    return exe
+
+
+def _png_chunk(kind, body):
+    return (struct.pack(">I", len(body)) + kind + body +
+            struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def recode(root):
+    """Rewrite the files of RECODED in place, in another format: a PNG
+    with the same pixels, a MOVi frame with the same DCT coefficients (so
+    the same pixels), a strict reader's image re-encoded progressive by
+    PIL."""
+    helper = None
+    for rel, how in RECODED.items():
+        p = osp.join(root, rel)
+        img = np.asarray(Image.open(p))
+        if how == "progressive":
+            Image.fromarray(img).save(p, quality=90, progressive=True)
+        elif how in ("progressive_transcoded", "arithmetic",
+                     "arithmetic_progressive"):
+            helper = helper or _arith_helper()
+            with open(p, "rb") as f:
+                data = f.read()
+            out = subprocess.run(
+                [helper, "transcode", str(int(how.startswith("arith"))),
+                 str(int("progressive" in how))], input=data,
+                capture_output=True, check=True).stdout
+            with open(p, "wb") as f:
+                f.write(out)
+        elif how == "adam7":
+            if img.ndim == 2:
+                data = encode_png_adam7(img, 8, 0)
+            else:
+                data = encode_png_adam7(img, 8, {3: 2, 4: 6}[img.shape[2]])
+            with open(p, "wb") as f:
+                f.write(data)
+        elif how == "16bit":  # ids spread over the 16 bits
+            Image.fromarray(img.astype(np.uint16) * 4099).save(p)
+        elif how == "trns":  # id 1 transparent: libpng composites it to 0
+            with open(p, "rb") as f:
+                data = f.read()
+            end = data.index(b"IDAT") - 4
+            with open(p, "wb") as f:
+                f.write(data[:end] + _png_chunk(b"tRNS", b"\x00\x01") +
+                        data[end:])
+        else:
+            raise ValueError(how)
 
 
 def jax_reader(kind, kw, root):
@@ -278,7 +362,8 @@ def main():
                 refs[f"{name}/{i}/{key}"] = np.array(f"{digest}:{how}")
                 assert np.array_equal(decode(stored, how), np.asarray(val))
     with open(osp.join(args.out, "cases.json"), "w") as f:
-        json.dump(dict(truncated=TRUNCATED, cases=cases), f, indent=1)
+        json.dump(dict(truncated=TRUNCATED, recoded=RECODED, cases=cases),
+                  f, indent=1)
     np.savez_compressed(osp.join(args.out, "references.npz"), **refs, **blobs)
     size = sum(osp.getsize(osp.join(d, f)) for d, _, fs in os.walk(args.out)
                for f in fs)

@@ -2,14 +2,19 @@
 // image library. Built with g++ at first use (data/fastio.py) and called
 // through ctypes; it needs the C++ standard library alone.
 //
-// - a baseline (sequential Huffman, 8-bit) JPEG decoder that gives what
-//   libjpeg-turbo's default decode gives: Huffman decode with restart
-//   markers, the JDCT_ISLOW integer IDCT (jidctint.c), "fancy" h2v1, h1v2
-//   and h2v2 chroma upsampling (jdsample.c), jdcolor.c's fixed-point
-//   YCbCr -> RGB and YCCK -> CMYK, and a truncated stream decoded as
-//   libjpeg decodes one from a memory source ("Premature end of JPEG
-//   file": the missing bits are zeros, the missing blocks gray);
-//   progressive and arithmetic-coded files are refused;
+// - an 8-bit JPEG decoder that gives what libjpeg-turbo's default decode
+//   gives: sequential and progressive scans (spectral selection and
+//   successive approximation, EOB runs), Huffman-coded (jdhuff.c,
+//   jdphuff.c) or arithmetic-coded with DAC conditioning (jdarith.c,
+//   ITU T.81 Annex D, F and G), restart markers, all into a whole-image
+//   coefficient buffer; then, for a progressive file whose first
+//   coefficients are not all exact (one cut short), libjpeg-turbo 2.1's
+//   inter-block smoothing (jdcoefct.c), the JDCT_ISLOW integer IDCT
+//   (jidctint.c), "fancy" h2v1, h1v2 and h2v2 chroma upsampling
+//   (jdsample.c), jdcolor.c's fixed-point YCbCr -> RGB and YCCK -> CMYK,
+//   and a truncated stream decoded as libjpeg decodes one from a memory
+//   source ("Premature end of JPEG file": the missing bits are zeros, the
+//   missing blocks gray, the missing EOI made up and the file flagged);
 // - the JAX package's native resize (native/fastio.cpp): the float
 //   triangle filter with the [-1, 1] normalisation, and its float nearest;
 // - Pillow's resampling (Resample.c, Geometry.c): BILINEAR in 22-bit fixed
@@ -50,6 +55,30 @@ const int kNatural[80] = {
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
+// ITU T.81 Table D.2 as libjpeg's jaricom.c packs it: Qe << 16 |
+// Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the
+// fixed probability 0.5 bin
+const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
 struct JpegError {
   std::string msg;
 };
@@ -70,6 +99,12 @@ struct Comp {
   int dw = 0, dh = 0;        // downsampled width/height
   std::vector<int16_t> coef;  // bw * bh blocks of 64, natural order
   int last_dc = 0;
+  int dc_context = 0;  // arithmetic DC conditioning (F.1.4.4.1.2)
+  // progressive: the Al to which the first 10 coefficients (zigzag) are
+  // known, -1 before any scan (jdinput's coef_bits), and as they stood
+  // before this component's last scan
+  int coef_bits[10] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1};
+  int prev_bits[10] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1};
 };
 
 // libjpeg's bit reader over a memory source: past the end of the data
@@ -157,10 +192,21 @@ struct Jpeg {
   Huff dc[4], ac[4];
   std::vector<Comp> comp;
   bool frame = false;
+  bool progressive = false, arith = false;
+  int scans = 0;            // scans started
+  long last_good = -1;      // last iMCU row a scan completed with its data
   bool truncated = false;  // a scan asked for a byte past the data
   int mcux = 0, mcuy = 0;
+  // arithmetic coding, 16 tables of each kind: DAC conditioning (L, U of
+  // the DC tables, K of the AC ones) and the statistics bins
+  uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
 
-  Jpeg(const uint8_t* d, long n) : data(d), len(n) {}
+  Jpeg(const uint8_t* d, long n) : data(d), len(n) {
+    std::memset(arith_dc_L, 0, 16);
+    std::memset(arith_dc_U, 1, 16);
+    std::memset(arith_ac_K, 5, 16);
+  }
 
   // the marker reader: `pos` is the offset of the next byte
   long pos = 0;
@@ -181,13 +227,29 @@ struct Jpeg {
     return (past++ & 1) ? 0xD9 : 0xFF;
   }
 
-  int next_marker() {
-    int c = rd();
-    while (c != 0xFF) c = rd();  // skip garbage
-    do {
-      c = rd();
-    } while (c == 0xFF);
-    return c;
+  // jdmarker.c next_marker: garbage and stuffed FF 00 pairs skipped; past
+  // the end of the data, once a scan was read, the memory source's fake
+  // EOI
+  int next_marker(bool after_scan = false) {
+    for (;;) {
+      if (after_scan && pos >= len) return fake_eoi();
+      int c = rd();
+      while (c != 0xFF) {  // skip garbage
+        if (after_scan && pos >= len) return fake_eoi();
+        c = rd();
+      }
+      do {
+        if (after_scan && pos >= len) return fake_eoi();
+        c = rd();
+      } while (c == 0xFF);
+      if (c != 0) return c;
+    }
+  }
+  // the data ended before the EOI marker: libjpeg's memory source makes
+  // one up and warns of a premature end, which PIL takes as truncation
+  int fake_eoi() {
+    truncated = true;
+    return 0xD9;
   }
 
   void read_dqt(int length) {
@@ -261,12 +323,14 @@ struct Jpeg {
 
   void read_sof(int length, int marker) {
     if (frame) fail("two frames in one JPEG");
-    if (marker == 0xC2 || marker == 0xC6 || marker == 0xCA ||
-        marker == 0xCE)
-      fail("progressive JPEG is not supported");
-    if (marker != 0xC0 && marker != 0xC1)
-      fail("only baseline Huffman JPEG is supported (SOF marker 0x" +
+    // SOF0/1 sequential Huffman, SOF2 progressive Huffman, SOF9/10 the
+    // same arithmetic-coded; lossless and hierarchical frames are refused
+    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2 &&
+        marker != 0xC9 && marker != 0xCA)
+      fail("unsupported JPEG process (SOF marker 0x" +
            std::to_string(marker) + ")");
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arith = marker >= 0xC9;
     int precision = rd();
     if (precision != 8) fail("only 8-bit JPEG is supported");
     height = rd16();
@@ -319,7 +383,7 @@ struct Jpeg {
     pos = end;
   }
 
-  // one block's coefficients (jdhuff.c decode_mcu_slow)
+  // ---- Huffman: sequential (jdhuff.c decode_mcu_slow) ----------------
   void decode_block(Bits& br, Comp& c, int16_t* blk) {
     const Huff& dct = dc[c.td];
     const Huff& act = ac[c.ta];
@@ -347,10 +411,279 @@ struct Jpeg {
     }
   }
 
-  // jdhuff.c process_restart with jdmarker.c read_restart_marker and
-  // jpeg_resync_to_restart
-  void process_restart(Bits& br, Comp** sc, int ns, int& next_rst) {
-    br.left = 0;
+  // ---- Huffman: progressive (jdphuff.c) ------------------------------
+  int Ss = 0, Se = 63, Ah = 0, Al = 0;
+  int eobrun = 0;
+
+  void dc_first(Bits& br, Comp& c, int16_t* blk) {
+    int s = br.decode(dc[c.td]);
+    if (s) {
+      int r = br.get(s);
+      s = huff_extend(r, s);
+    }
+    s += c.last_dc;
+    c.last_dc = s;
+    blk[0] = static_cast<int16_t>(static_cast<uint32_t>(s) << Al);
+  }
+
+  void ac_first(Bits& br, Comp& c, int16_t* blk) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    const Huff& act = ac[c.ta];
+    for (int k = Ss; k <= Se; ++k) {
+      int s = br.decode(act);
+      int r = s >> 4;
+      s &= 15;
+      if (s) {
+        k += r;
+        r = br.get(s);
+        s = huff_extend(r, s);
+        blk[kNatural[k]] =
+            static_cast<int16_t>(static_cast<uint32_t>(s) << Al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.get(r);
+        eobrun--;
+        break;
+      }
+    }
+  }
+
+  void ac_refine(Bits& br, Comp& c, int16_t* blk) {
+    const int p1 = 1 << Al, m1 = -1 * (1 << Al);
+    const Huff& act = ac[c.ta];
+    auto refine = [&](int16_t* coef) {
+      if (br.get(1) && (*coef & p1) == 0)
+        *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+    };
+    int k = Ss;
+    if (eobrun == 0) {
+      for (; k <= Se; ++k) {
+        int s = br.decode(act);
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;  // s != 1 is only warned about
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;
+        }
+        do {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            refine(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          k++;
+        } while (k <= Se);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= Se; ++k) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0) refine(coef);
+      }
+      eobrun--;
+    }
+  }
+
+  // ---- arithmetic (jdarith.c) ----------------------------------------
+  int64_t ac_c = 0, ac_a = 0;  // the C and A registers
+  int ac_ct = -16;             // -16: 2 bytes to read; -1: an error
+  uint8_t fixed_bin = 113;  // the fixed probability 0.5 bin
+
+  int arith_decode(Bits& br, uint8_t* st) {
+    while (ac_a < 0x8000) {
+      if (--ac_ct < 0) {
+        int data = 0;
+        if (!br.unread_marker) {
+          data = br.byte();
+          if (data == 0xFF) {
+            do {
+              data = br.byte();
+            } while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {  // a marker: zeros from here on
+              br.unread_marker = data;
+              data = 0;
+            }
+          }
+        }
+        ac_c = (ac_c << 8) | data;
+        if ((ac_ct += 8) < 0)
+          if (++ac_ct == 0) ac_a = 0x8000;  // 2 bytes in: A = 0x10000
+      }
+      ac_a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kAritab[sv & 0x7F];
+    const int nl = qe & 0xFF;
+    qe >>= 8;
+    const int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = ac_a - qe;
+    ac_a = temp;
+    temp <<= ac_ct;
+    if (ac_c >= temp) {
+      ac_c -= temp;
+      if (ac_a < qe) {
+        ac_a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        ac_a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (ac_a < 0x8000) {
+      if (ac_a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // a DC difference (F.1.4.4.1, Figures F.19-F.24) added to c.last_dc;
+  // false on a magnitude overflow
+  bool arith_dc(Bits& br, Comp& c) {
+    uint8_t* stats = dc_stats[c.td];
+    uint8_t* st = stats + c.dc_context;
+    if (arith_decode(br, st) == 0) {
+      c.dc_context = 0;
+      return true;
+    }
+    const int sign = arith_decode(br, st + 1);
+    st += 2 + sign;
+    int m = arith_decode(br, st);
+    if (m != 0) {
+      st = stats + 20;
+      while (arith_decode(br, st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+    if (m < ((1 << arith_dc_L[c.td]) >> 1))
+      c.dc_context = 0;
+    else if (m > ((1 << arith_dc_U[c.td]) >> 1))
+      c.dc_context = 12 + sign * 4;
+    else
+      c.dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(br, st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    c.last_dc = (c.last_dc + v) & 0xFFFF;
+    return true;
+  }
+
+  // AC coefficients k0..k1 (F.1.4.4.2, Figure F.20), scaled by 2^al;
+  // false on a spectral or magnitude overflow
+  bool arith_ac(Bits& br, Comp& c, int16_t* blk, int k0, int k1, int al) {
+    uint8_t* stats = ac_stats[c.ta];
+    for (int k = k0; k <= k1; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (arith_decode(br, st)) break;  // EOB
+      while (arith_decode(br, st + 1) == 0) {
+        st += 3;
+        if (++k > k1) return false;
+      }
+      const int sign = arith_decode(br, &fixed_bin);
+      st += 2;
+      int m = arith_decode(br, st);
+      if (m != 0 && arith_decode(br, st)) {
+        m <<= 1;
+        st = stats + (k <= arith_ac_K[c.ta] ? 189 : 217);
+        while (arith_decode(br, st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (arith_decode(br, st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+    }
+    return true;
+  }
+
+  bool arith_ac_refine(Bits& br, Comp& c, int16_t* blk) {
+    uint8_t* stats = ac_stats[c.ta];
+    const int p1 = 1 << Al, m1 = -1 * (1 << Al);
+    int kex = Se;  // the previous stage's end of block
+    for (; kex > 0; kex--)
+      if (blk[kNatural[kex]]) break;
+    for (int k = Ss; k <= Se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && arith_decode(br, st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {  // previously nonzero
+          if (arith_decode(br, st + 2))
+            *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (arith_decode(br, st + 1)) {  // newly nonzero
+          *coef = static_cast<int16_t>(arith_decode(br, &fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > Se) return false;
+      }
+    }
+    return true;
+  }
+
+  // one block of the scan, by process and pass
+  void decode_any(Bits& br, Comp& c, int16_t* blk) {
+    if (!arith) {
+      if (!progressive) decode_block(br, c, blk);
+      else if (Ss == 0 && Ah == 0) dc_first(br, c, blk);
+      else if (Ss == 0) {
+        if (br.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << Al));
+      } else if (Ah == 0) ac_first(br, c, blk);
+      else ac_refine(br, c, blk);
+      return;
+    }
+    if (ac_ct == -1) return;  // an earlier error: nothing more this scan
+    bool ok = true;
+    if (!progressive) {
+      ok = arith_dc(br, c);
+      if (ok) {
+        blk[0] = static_cast<int16_t>(c.last_dc);
+        ok = arith_ac(br, c, blk, 1, 63, 0);
+      }
+    } else if (Ss == 0 && Ah == 0) {
+      ok = arith_dc(br, c);
+      if (ok)
+        blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c.last_dc) << Al);
+    } else if (Ss == 0) {
+      if (arith_decode(br, &fixed_bin))
+        blk[0] = static_cast<int16_t>(blk[0] | (1 << Al));
+    } else if (Ah == 0) {
+      ok = arith_ac(br, c, blk, Ss, Se, Al);
+    } else {
+      ok = arith_ac_refine(br, c, blk);
+    }
+    if (!ok) ac_ct = -1;
+  }
+
+  // jdmarker.c read_restart_marker with jpeg_resync_to_restart
+  void read_restart_marker(Bits& br, int& next_rst) {
     if (br.unread_marker == 0) {
       // next_marker: skip to an FF, then past fill FFs
       int c;
@@ -401,7 +734,33 @@ struct Jpeg {
       }
     }
     next_rst = (next_rst + 1) & 7;
+  }
+
+  // the statistics a scan (or a restart interval) starts from
+  void reset_arith(Comp** sc, int ns) {
+    for (int i = 0; i < ns; ++i) {
+      if (!progressive || (Ss == 0 && Ah == 0)) {
+        std::memset(dc_stats[sc[i]->td], 0, 64);
+        sc[i]->last_dc = 0;
+        sc[i]->dc_context = 0;
+      }
+      if (!progressive || Ss) std::memset(ac_stats[sc[i]->ta], 0, 256);
+    }
+    ac_c = 0;
+    ac_a = 0;
+    ac_ct = -16;
+  }
+
+  // jdhuff.c / jdphuff.c / jdarith.c process_restart
+  void process_restart(Bits& br, Comp** sc, int ns, int& next_rst) {
+    if (!arith) br.left = 0;
+    read_restart_marker(br, next_rst);
+    if (arith) {
+      reset_arith(sc, ns);
+      return;
+    }
     for (int i = 0; i < ns; ++i) sc[i]->last_dc = 0;
+    eobrun = 0;
     if (br.unread_marker == 0) br.insufficient = false;
   }
 
@@ -419,16 +778,46 @@ struct Jpeg {
       if (!sc[i]) fail("SOS names an unknown component");
       sc[i]->td = t >> 4;
       sc[i]->ta = t & 15;
-      if (sc[i]->td > 3 || sc[i]->ta > 3) fail("bad Huffman table index");
-      if (!dc[sc[i]->td].defined || !ac[sc[i]->ta].defined)
-        fail("a Huffman table the scan uses is not defined");
+      if (sc[i]->td > (arith ? 15 : 3) || sc[i]->ta > (arith ? 15 : 3))
+        fail("bad entropy table index");
       if (!qt_defined[sc[i]->tq]) fail("a quantization table is missing");
     }
-    // Ss, Se, Ah/Al: a sequential decode only warns where they are off
-    rd_scan();
-    rd_scan();
-    rd_scan();
+    Ss = rd_scan();
+    Se = rd_scan();
+    const int ahal = rd_scan();
+    Ah = ahal >> 4;
+    Al = ahal & 15;
+    if (progressive) {  // jdphuff.c / jdarith.c start_pass
+      bool bad = false;
+      if (Ss == 0) {
+        bad = Se != 0;
+      } else {
+        bad = Ss > Se || Se > 63 || ns != 1;
+      }
+      if (Ah != 0 && Al != Ah - 1) bad = true;
+      if (Al > 13) bad = true;
+      if (bad) fail("bad progressive JPEG scan parameters");
+      for (int i = 0; i < ns; ++i) {
+        for (int k = std::min(Ss, 1); k <= std::max(Se, 9); ++k)
+          if (k < 10) sc[i]->prev_bits[k] = scans > 0 ? sc[i]->coef_bits[k] : 0;
+        for (int k = Ss; k <= Se && k < 10; ++k) sc[i]->coef_bits[k] = Al;
+      }
+    }
+    scans++;
+    // the Huffman tables the scan reads (a DC refinement reads none)
+    if (!arith) {
+      for (int i = 0; i < ns; ++i) {
+        const bool need_dc = !progressive || (Ss == 0 && Ah == 0);
+        const bool need_ac = !progressive || Ss != 0;
+        if ((need_dc && !dc[sc[i]->td].defined) ||
+            (need_ac && !ac[sc[i]->ta].defined))
+          fail("a Huffman table the scan uses is not defined");
+      }
+    }
+    // a sequential scan's Ss, Se, Ah/Al are only warned about
     for (int i = 0; i < ns; ++i) sc[i]->last_dc = 0;
+    eobrun = 0;
+    if (arith) reset_arith(sc, ns);
 
     Bits br{data, len};
     br.pos = pos;
@@ -436,6 +825,7 @@ struct Jpeg {
     br.past_end = pos > len;
     int restarts_to_go = restart_interval;
     int next_rst = 0;
+    long scan_good = -1;
     long nmcu;
     int mx, my;
     if (ns == 1) {
@@ -446,6 +836,8 @@ struct Jpeg {
       my = mcuy;
     }
     nmcu = static_cast<long>(mx) * my;
+    // a DC refinement (Huffman) reads zeros, which change nothing, where
+    // the data ran out, so it needs no check of its own
     for (long m = 0; m < nmcu; ++m) {
       if (restart_interval) {
         if (restarts_to_go == 0) {
@@ -453,12 +845,14 @@ struct Jpeg {
           restarts_to_go = restart_interval;
         }
       }
-      if (!br.insufficient) {
+      if (!br.insufficient)  // this MCU's iMCU row is decoded from data
+        scan_good = ns == 1 ? m / mx / sc[0]->v : m / mx;
+      if (arith || !br.insufficient) {
         int mrow = static_cast<int>(m / mx), mcol = static_cast<int>(m % mx);
         if (ns == 1) {
           Comp& c = *sc[0];
-          decode_block(br, c, &c.coef[(static_cast<size_t>(mrow) * c.bw +
-                                       mcol) * 64]);
+          decode_any(br, c, &c.coef[(static_cast<size_t>(mrow) * c.bw +
+                                     mcol) * 64]);
         } else {
           for (int i = 0; i < ns; ++i) {
             Comp& c = *sc[i];
@@ -466,13 +860,16 @@ struct Jpeg {
               for (int xx = 0; xx < c.h; ++xx) {
                 size_t b = static_cast<size_t>(mrow * c.v + yy) * c.bw +
                            mcol * c.h + xx;
-                decode_block(br, c, &c.coef[b * 64]);
+                decode_any(br, c, &c.coef[b * 64]);
               }
           }
         }
       }
       if (restart_interval) restarts_to_go--;
     }
+    if (!br.insufficient)
+      scan_good = ns == 1 ? (static_cast<long>(my) - 1) / sc[0]->v : my - 1L;
+    last_good = scan_good;
     if (br.past_end) truncated = true;
     // resume the marker reader at the first byte the bit reader did not
     // take as data; a marker it stopped at is re-read from the stream
@@ -483,6 +880,40 @@ struct Jpeg {
     }
   }
 
+  // a DHT segment cut short after a scan: libjpeg fills the rest with the
+  // fake EOI's bytes, which break a table's index or counts (an error)
+  // but only garble its values; the segment's last table's values are
+  // the one place a cut leaves every table defined
+  bool dht_cut_in_last_values(int length) const {
+    const long end = pos + length - 2;
+    for (long p = pos; p < end;) {
+      if (p + 17 > len) return false;
+      int count = 0;
+      for (int i = 1; i <= 16; ++i) count += data[p + i];
+      if (count > 256) return false;
+      if (p + 17 + count > len) return p + 17 + count >= end;
+      p += 17 + count;
+    }
+    return false;
+  }
+
+  // jdmarker.c get_dac
+  void read_dac(int length) {
+    long end = pos + length - 2;
+    while (pos + 1 < end) {
+      int index = rd(), val = rd();
+      if (index >= 32) fail("bad DAC table index");
+      if (index >= 16) {
+        arith_ac_K[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        arith_dc_L[index] = static_cast<uint8_t>(val & 15);
+        arith_dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if (arith_dc_L[index] > arith_dc_U[index]) fail("bad DAC value");
+      }
+    }
+    pos = end;
+  }
+
   void parse() {
     if (len < 4 || data[0] != 0xFF || data[1] != 0xD8)
       fail("not a JPEG file");
@@ -490,17 +921,34 @@ struct Jpeg {
     bool scanned = false;
     for (;;) {
       if (pos >= len) {
-        if (scanned) return;  // libjpeg inserts the missing EOI
+        if (scanned) {
+          fake_eoi();
+          return;
+        }
         fail("premature end of the JPEG header");
       }
-      int m = next_marker();
+      int m = next_marker(scanned);
       if (m == 0xD9) return;
       if (m >= 0xD0 && m <= 0xD7) continue;
       if (m == 0x01) continue;
+      // after a scan, a segment cut short: libjpeg reads the source's
+      // fake EOI bytes into it, which breaks a table, a frame or a
+      // restart interval's length (an error) and is skipped in any other
+      // segment
+      const bool table = m == 0xC4 || m == 0xDB || m == 0xCC ||
+                         (m >= 0xC0 && m <= 0xCF);
+      if (scanned && pos + 2 > len && m != 0xDA) {
+        if (table || m == 0xDD) fail("premature end of the JPEG header");
+        fake_eoi();
+        return;
+      }
       int length = rd16();
       if (length < 2) fail("bad JPEG marker length");
       if (pos + length - 2 > len && m != 0xDA) {
-        if (scanned) return;
+        if (scanned && (!table || dht_cut_in_last_values(length))) {
+          fake_eoi();
+          return;
+        }
         fail("premature end of the JPEG header");
       }
       if (m == 0xDB) {
@@ -508,7 +956,7 @@ struct Jpeg {
       } else if (m == 0xC4) {
         read_dht(length);
       } else if (m == 0xCC) {
-        fail("arithmetic-coded JPEG is not supported");
+        read_dac(length);
       } else if (m >= 0xC0 && m <= 0xCF) {
         read_sof(length, m);
       } else if (m == 0xDD) {
@@ -721,6 +1169,171 @@ void upsample(const Jpeg& j, const Comp& c, const std::vector<uint8_t>& pl,
   }
 }
 
+// libjpeg-turbo's inter-block smoothing of a progressive image whose
+// low-frequency coefficients are not all known to full precision (a file
+// cut short): jdcoefct.c smoothing_ok and decompress_smooth_data. Each
+// block's first AC coefficients that are still 0 and not exact are
+// estimated from the DC values of the 5 x 5 blocks around it; where no AC
+// coefficient is known at all, the DC is smoothed too.
+bool smoothing_ok(const Jpeg& j) {
+  if (!j.progressive) return false;
+  bool useful = false;
+  for (const Comp& c : j.comp) {
+    const uint16_t* q = j.qt[c.tq];
+    for (int pos : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+      if (q[pos] == 0) return false;
+    if (c.coef_bits[0] < 0) return false;
+    for (int k = 1; k < 10; ++k)
+      if (c.coef_bits[k] != 0) useful = true;
+  }
+  return useful;
+}
+
+// the coefficients the IDCT of component `c` reads after smoothing
+std::vector<int16_t> smoothed(const Jpeg& j, const Comp& c) {
+  std::vector<int16_t> out = c.coef;
+  const uint16_t* q = j.qt[c.tq];
+  const long Q00 = q[0], Q01 = q[1], Q10 = q[8], Q20 = q[16], Q11 = q[9],
+             Q02 = q[2], Q03 = q[3], Q12 = q[10], Q21 = q[17], Q30 = q[24];
+  const int rows = j.mcuy;  // iMCU rows
+  auto dc = [&](int r, int col) -> int {
+    return c.coef[(static_cast<size_t>(r) * c.bw + col) * 64];
+  };
+  auto predict = [](long num, long qk, int al, bool limit) {
+    int pred;
+    if (num >= 0) {
+      pred = static_cast<int>(((qk << 7) + num) / (qk << 8));
+      if (limit && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    } else {
+      pred = static_cast<int>(((qk << 7) - num) / (qk << 8));
+      if (limit && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      pred = -pred;
+    }
+    return pred;
+  };
+  for (int oy = 0; oy < rows; ++oy) {
+    int prev_latch[10];
+    for (int k = 0; k < 10; ++k)
+      prev_latch[k] = j.scans > 1 ? c.prev_bits[k] : -1;
+    const int* bits = oy > j.last_good ? prev_latch : c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+    int block_rows = c.v;
+    if (oy == rows - 1) {
+      block_rows = c.hib % c.v;
+      if (block_rows == 0) block_rows = c.v;
+    }
+    // the rows above and below, as jdcoefct.c picks them: two rows away
+    // only where the block row or the iMCU row allows it (with 2 block
+    // rows an iMCU row, the second iMCU row's blocks take the row above
+    // for the one two above, and the last but one's the row below)
+    const int last_row = rows - 1;
+    for (int br = 0; br < block_rows; ++br) {
+      const int R = oy * c.v + br;
+      const int pr = (br > 0 || oy > 0) ? R - 1 : R;
+      const int ppr = (br > 1 || oy > 1) ? R - 2 : pr;
+      const int nr = (br < block_rows - 1 || oy < last_row) ? R + 1 : R;
+      const int nnr = (br < block_rows - 2 || oy + 1 < last_row) ? R + 2 : nr;
+      int D[5][5];  // [row -2..2][column -2..2]
+      const int rr[5] = {ppr, pr, R, nr, nnr};
+      for (int a = 0; a < 5; ++a)
+        for (int b = 0; b < 5; ++b) D[a][b] = dc(rr[a], 0);
+      const int last = c.wib - 1;
+      for (int bx = 0; bx < c.wib; ++bx) {
+        if (bx == 0 && bx < last)
+          for (int a = 0; a < 5; ++a) D[a][3] = dc(rr[a], 1);
+        if (bx + 1 < last)
+          for (int a = 0; a < 5; ++a) D[a][4] = dc(rr[a], bx + 2);
+        int16_t* w = &out[(static_cast<size_t>(R) * c.bw + bx) * 64];
+#define DCV(n) D[((n) - 1) / 5][((n) - 1) % 5]
+        int al;
+        if ((al = bits[1]) != 0 && w[1] == 0) {
+          long num = Q00 * (change_dc ?
+              (-DCV(1) - DCV(2) + DCV(4) + DCV(5) - 3 * DCV(6) + 13 * DCV(7) -
+               13 * DCV(9) + 3 * DCV(10) - 3 * DCV(11) + 38 * DCV(12) -
+               38 * DCV(14) + 3 * DCV(15) - 3 * DCV(16) + 13 * DCV(17) -
+               13 * DCV(19) + 3 * DCV(20) - DCV(21) - DCV(22) + DCV(24) +
+               DCV(25)) :
+              (-7 * DCV(11) + 50 * DCV(12) - 50 * DCV(14) + 7 * DCV(15)));
+          w[1] = static_cast<int16_t>(predict(num, Q01, al, true));
+        }
+        if ((al = bits[2]) != 0 && w[8] == 0) {
+          long num = Q00 * (change_dc ?
+              (-DCV(1) - 3 * DCV(2) - 3 * DCV(3) - 3 * DCV(4) - DCV(5) -
+               DCV(6) + 13 * DCV(7) + 38 * DCV(8) + 13 * DCV(9) - DCV(10) +
+               DCV(16) - 13 * DCV(17) - 38 * DCV(18) - 13 * DCV(19) +
+               DCV(20) + DCV(21) + 3 * DCV(22) + 3 * DCV(23) + 3 * DCV(24) +
+               DCV(25)) :
+              (-7 * DCV(3) + 50 * DCV(8) - 50 * DCV(18) + 7 * DCV(23)));
+          w[8] = static_cast<int16_t>(predict(num, Q10, al, true));
+        }
+        if ((al = bits[3]) != 0 && w[16] == 0) {
+          long num = Q00 * (change_dc ?
+              (DCV(3) + 2 * DCV(7) + 7 * DCV(8) + 2 * DCV(9) - 5 * DCV(12) -
+               14 * DCV(13) - 5 * DCV(14) + 2 * DCV(17) + 7 * DCV(18) +
+               2 * DCV(19) + DCV(23)) :
+              (-DCV(3) + 13 * DCV(8) - 24 * DCV(13) + 13 * DCV(18) -
+               DCV(23)));
+          w[16] = static_cast<int16_t>(predict(num, Q20, al, true));
+        }
+        if ((al = bits[4]) != 0 && w[9] == 0) {
+          long num = Q00 * (change_dc ?
+              (-DCV(1) + DCV(5) + 9 * DCV(7) - 9 * DCV(9) - 9 * DCV(17) +
+               9 * DCV(19) + DCV(21) - DCV(25)) :
+              (DCV(10) + DCV(16) - 10 * DCV(17) + 10 * DCV(19) - DCV(2) -
+               DCV(20) + DCV(22) - DCV(24) + DCV(4) - DCV(6) + 10 * DCV(7) -
+               10 * DCV(9)));
+          w[9] = static_cast<int16_t>(predict(num, Q11, al, true));
+        }
+        if ((al = bits[5]) != 0 && w[2] == 0) {
+          long num = Q00 * (change_dc ?
+              (2 * DCV(7) - 5 * DCV(8) + 2 * DCV(9) + DCV(11) + 7 * DCV(12) -
+               14 * DCV(13) + 7 * DCV(14) + DCV(15) + 2 * DCV(17) -
+               5 * DCV(18) + 2 * DCV(19)) :
+              (-DCV(11) + 13 * DCV(12) - 24 * DCV(13) + 13 * DCV(14) -
+               DCV(15)));
+          w[2] = static_cast<int16_t>(predict(num, Q02, al, true));
+        }
+        if (change_dc) {
+          if ((al = bits[6]) != 0 && w[3] == 0) {
+            long num = Q00 * (DCV(7) - DCV(9) + 2 * DCV(12) - 2 * DCV(14) +
+                              DCV(17) - DCV(19));
+            w[3] = static_cast<int16_t>(predict(num, Q03, al, true));
+          }
+          if ((al = bits[7]) != 0 && w[10] == 0) {
+            long num = Q00 * (DCV(7) - 3 * DCV(8) + DCV(9) - DCV(17) +
+                              3 * DCV(18) - DCV(19));
+            w[10] = static_cast<int16_t>(predict(num, Q12, al, true));
+          }
+          if ((al = bits[8]) != 0 && w[17] == 0) {
+            long num = Q00 * (DCV(7) - DCV(9) - 3 * DCV(12) + 3 * DCV(14) +
+                              DCV(17) - DCV(19));
+            w[17] = static_cast<int16_t>(predict(num, Q21, al, true));
+          }
+          if ((al = bits[9]) != 0 && w[24] == 0) {
+            long num = Q00 * (DCV(7) + 2 * DCV(8) + DCV(9) - DCV(17) -
+                              2 * DCV(18) - DCV(19));
+            w[24] = static_cast<int16_t>(predict(num, Q30, al, true));
+          }
+          long num = Q00 *
+              (-2 * DCV(1) - 6 * DCV(2) - 8 * DCV(3) - 6 * DCV(4) -
+               2 * DCV(5) - 6 * DCV(6) + 6 * DCV(7) + 42 * DCV(8) +
+               6 * DCV(9) - 6 * DCV(10) - 8 * DCV(11) + 42 * DCV(12) +
+               152 * DCV(13) + 42 * DCV(14) - 8 * DCV(15) - 6 * DCV(16) +
+               6 * DCV(17) + 42 * DCV(18) + 6 * DCV(19) - 6 * DCV(20) -
+               2 * DCV(21) - 6 * DCV(22) - 8 * DCV(23) - 6 * DCV(24) -
+               2 * DCV(25));
+          w[0] = static_cast<int16_t>(predict(num, Q00, 0, false));
+        }
+#undef DCV
+        for (int a = 0; a < 5; ++a)
+          for (int b = 0; b < 4; ++b) D[a][b] = D[a][b + 1];
+      }
+    }
+  }
+  return out;
+}
+
 // jdcolor.c's tables
 struct ColorTables {
   int cr_r[256], cb_b[256];
@@ -769,15 +1382,17 @@ int decode_pixels(bool rgb, Jpeg* jp, std::vector<uint8_t>* px,
     return 3;
   }
   const int W = j.width, H = j.height;
+  const bool smooth = smoothing_ok(j);
   std::vector<std::vector<uint8_t>> full(j.ncomp);
   for (int ci = 0; ci < j.ncomp; ++ci) {
     const Comp& c = j.comp[ci];
     const int pw = c.bw * 8, ph = c.bh * 8;
     std::vector<uint8_t> plane(static_cast<size_t>(pw) * ph);
     const uint16_t* q = j.qt[c.tq];
+    const std::vector<int16_t> coef = smooth ? smoothed(j, c) : c.coef;
     for (int by = 0; by < c.bh; ++by)
       for (int bx = 0; bx < c.bw; ++bx)
-        idct_islow(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], q,
+        idct_islow(&coef[(static_cast<size_t>(by) * c.bw + bx) * 64], q,
                    plane.data() + static_cast<size_t>(by) * 8 * pw + bx * 8,
                    pw);
     upsample(j, c, plane, pw, &full[ci]);
@@ -905,8 +1520,7 @@ int imageio_jpeg_info(const uint8_t* buf, long len, int* dims, char* err,
       int length = j.rd16();
       if (length < 2 || j.pos + length - 2 > len)
         fail("premature end of the JPEG header");
-      if (m == 0xCC) fail("arithmetic-coded JPEG is not supported");
-      if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8) {
+      if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
         j.read_sof(length, m);
       } else if (m >= 0xE0 && m <= 0xEF) {
         j.read_app(m, length);
@@ -1293,28 +1907,25 @@ int imageio_polygon_fill(uint8_t* img, int h, int w, const int* xy, int n) {
         xx[j] = xx[j - 1];
         j++;
       } else if (cur->dx != 0) {
-        // connect discontiguous corners: where an earlier edge of the same
-        // slope sign starts (or ends) on this row at the same x, rounded,
-        // the vertex's span reaches to the pixel next to the span of the
-        // row beside it (the row below; above, on the last row), where that
-        // widens it
+        // connect discontiguous corners: the first earlier sloped edge
+        // that starts (or ends) on this row at the same x, rounded, makes
+        // a corner with this one; the vertex's span then reaches to the
+        // pixel next to the span of the row beside it (the row below;
+        // above, on the last row), rounded half up, where that widens it
         for (int k = 0; k < i; ++k) {
           const Edge* other = table[k];
-          if ((cur->dx > 0 && other->dx <= 0) ||
-              (cur->dx < 0 && other->dx >= 0))
-            continue;
+          if (other->dx == 0) continue;
           if (!((y == cur->ymin && y == other->ymin) ||
                 (y == cur->ymax && y == other->ymax)))
             continue;
-          if (std::round(xx[j - 1]) != std::round(x_at(other, y)))
-            continue;
+          if (std::round(xx[j - 1]) != std::round(x_at(other, y))) continue;
           const int off = y == ymax ? -1 : 1;
           const float a = x_at(cur, y + off), b = x_at(other, y + off);
           const bool bottom = y == cur->ymax;
           const bool left = bottom ? cur->dx > 0 : cur->dx < 0;
-          const float v = static_cast<float>(
-              left ? round_up(std::max(a, b) + 1.0f)
-                   : round_up(std::min(a, b) - 1.0f));
+          const float v =
+              left ? std::floor(std::max(a, b) + 1.0f + 0.5f)
+                   : std::floor(std::min(a, b) - 1.0f + 0.5f);
           if (left ? v < xx[j - 1] : v > xx[j - 1]) xx[j - 1] = v;
           break;
         }

@@ -9,10 +9,11 @@ port's own decoder:
   float bilinear resize -> [-1, 1], float32 [h, w, 3]; None for a CMYK or
   YCCK JPEG, which that path cannot decode (the JAX reader then takes
   PIL's arithmetic: `transforms.BaseTransforms.load_image` does too);
-- `decode_png_mask(path, res)`: a grayscale id-mask PNG, nearest-resized
-  as the JAX native path resizes, uint8 [h, w]; None for a PNG of
+- `decode_png_mask(path, res)`: a grayscale id-mask PNG (any bit depth,
+  tRNS too) read and nearest-resized as the JAX native path (libpng's
+  simplified API) reads and resizes it, uint8 [h, w]; None for a PNG of
   another colour type or one whose data ends early, which the JAX native
-  path (libpng) refuses.
+  path refuses.
 
 `lib()` returns the loaded library for `data/imageio.py`. A build that
 fails raises `NativeLibraryError` with the compiler's message: the port has
@@ -150,20 +151,62 @@ def decode_jpeg_norm(path, res, data=None):
     return out
 
 
-def decode_png_mask(path, res):
-    """Grayscale id-mask PNG -> uint8 [h, w], nearest-resized as the JAX
-    native path resizes; None for another colour type or a file whose
-    image data ends early (the JAX native path's libpng refuses those, and
-    its reader decodes them another way), and for a 16-bit mask (which
-    libpng would convert; the caller reads it as PIL does)."""
-    from .imageio import decode_png
-    img = decode_png(_read(path), truncated_ok=True, name=path)
-    if img.mode not in ("L", "1") or img.truncated or img.bit_depth > 8:
-        return None
+def _gamma_16_to_8(shift):
+    """libpng's 16-to-8-bit gamma table (png.c png_build_16to8_table) for
+    16-bit data the simplified API reads as linear and writes as 8-bit at
+    gamma 1/2.2: uint8 [2**(16 - shift)], indexed by value >> shift."""
+    size = 1 << (16 - shift)
+    # the 16-bit input at each boundary between 8-bit outputs i and i + 1
+    out = np.arange(255) * 257 + 128
+    bound = np.floor(65535 * (out / 65535.0) ** 2.2 + 0.5).astype(np.int64)
+    bound = (bound * (size - 1) + 32768) // 65535 + 1
+    return np.searchsorted(bound, np.arange(size), side="right").astype(
+        np.uint8)
+
+
+def _png_mask_as_libpng(img, chunks):
+    """A grayscale PNG's decoded samples -> uint8 [H, W] as libpng's
+    simplified API reads the file into PNG_FORMAT_GRAY (the JAX package's
+    native/fastio.cpp:228-260): 1-, 2- and 4-bit values expanded to 8 bits
+    (1 to 255), 16-bit values through the 16-to-8 gamma table (the top
+    11 bits, or the sBIT chunk's significant bits when fewer), and the
+    tRNS chunk's transparent value composited onto black, 0."""
     arr = img.array
-    if img.mode == "1":  # libpng expands 1-bit gray to 0 / 255
+    if img.mode == "1":
         arr = arr.astype(np.uint8) * 255
+    body = dict(chunks)
+    trns = body.get(b"tRNS", b"")
+    transparent = None
+    if len(trns) >= 2:  # against the samples as stored, before expansion
+        key = int.from_bytes(trns[:2], "big") & ((1 << img.bit_depth) - 1)
+        stored = img.array.astype(np.uint16)
+        if img.mode == "L" and img.bit_depth < 8:
+            stored //= 255 // (2 ** img.bit_depth - 1)
+        transparent = stored == key
+    if img.bit_depth == 16:
+        sig = body.get(b"sBIT", b"")[:1]
+        sig = sig[0] if sig else 0
+        shift = 16 - sig if 0 < sig < 16 else 0
+        shift = min(max(shift, 5), 8)
+        arr = _gamma_16_to_8(shift)[arr >> shift]
     arr = np.ascontiguousarray(arr, np.uint8)
+    if transparent is not None:
+        arr = np.where(transparent, np.uint8(0), arr)
+    return arr
+
+
+def decode_png_mask(path, res):
+    """Grayscale id-mask PNG -> uint8 [h, w], read as the JAX native path's
+    libpng reads it (`_png_mask_as_libpng`: 16-bit and tRNS masks too)
+    and nearest-resized as that path resizes; None for another colour
+    type or a file whose image data ends early (the JAX native path's
+    libpng refuses those, and its reader decodes them another way)."""
+    from .imageio import _png_chunks, decode_png
+    data = _read(path)
+    img = decode_png(data, truncated_ok=True, name=path)
+    if img.mode not in ("L", "1", "I;16") or img.truncated:
+        return None
+    arr = _png_mask_as_libpng(img, _png_chunks(data, path))
     h, w = res
     out = np.empty((h, w), np.uint8)
     lib().imageio_nearest_fastio_u8(ptr(arr), arr.shape[0], arr.shape[1],

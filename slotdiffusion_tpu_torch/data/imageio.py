@@ -6,19 +6,20 @@ bound in `data/fastio.py`).
 - `read_image(path, truncated_ok)`: a PNG or JPEG file -> `Image`, the
   mode and pixels `PIL.Image.open` gives (`np.asarray` of it):
   - PNG: 1-, 2-, 4-, 8- and 16-bit gray ("1", "L", "I;16"), RGB, RGBA,
-    gray + alpha ("LA") and palette ("P", indices kept, the PLTE beside
-    them); 16-bit colour keeps the high byte, as PIL does; interlaced
-    files are refused;
-  - JPEG: baseline, decoded as libjpeg-turbo decodes ("L", "RGB", and
-    "CMYK" as PIL's inverted raw mode); progressive files are refused
-    with an error that names the file.
+    gray + alpha ("LA"; at 16 bits "RGBA", as PIL reads it) and palette
+    ("P", indices kept, the PLTE beside them), plain or Adam7-interlaced;
+    16-bit colour keeps the high byte, as PIL does;
+  - JPEG: sequential or progressive, Huffman- or arithmetic-coded,
+    decoded as libjpeg-turbo decodes ("L", "RGB", and "CMYK" as PIL's
+    inverted raw mode).
   A file whose data ends early raises OSError("image file is truncated")
   unless `truncated_ok`, PIL's `ImageFile.LOAD_TRUNCATED_IMAGES`; then a
   PNG keeps its whole rows (zeros after them) as PIL does, and a JPEG
   decodes as libjpeg decodes a stream that ends early.
 - `Image.convert("RGB" | "L")`: PIL's fixed-point conversions
   (L = (19595 R + 38470 G + 7471 B + 2^15) >> 16, CMYK -> RGB as
-  Pillow's cmyk2rgb, a palette's missing entries gray);
+  Pillow's cmyk2rgb, a palette's missing entries gray, "I;16" clipped at
+  255);
 - `resize_bilinear` and `resize_nearest`: `Image.resize` with BILINEAR
   (uint8, any number of channels) and NEAREST (1-, 2- or 4-byte pixels:
   uint8 "L"/"P", int32 "I", uint8 RGB), bit for bit; `resize_to_cover`,
@@ -79,6 +80,9 @@ class Image:
         elif self.mode == "CMYK":
             a = cmyk_to_rgb(a)
             src = "RGB"
+        elif self.mode == "I;16":  # Pillow's I16_L: clipped at 255
+            a = np.minimum(a, 255).astype(np.uint8)
+            src = "L"
         else:
             src = self.mode
         if src == mode:
@@ -124,6 +128,35 @@ def _png_chunks(data, name):
     return chunks
 
 
+# Adam7: (first column, first row, column step, row step) of each pass
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unfilter(raw, off, rows, W, channels, depth, name):
+    """`rows` filtered rows of a W-pixel-wide (sub)image from raw[off:] ->
+    their samples: uint8 [rows, W * channels] (one value a sample, bits
+    unpacked) or, at 16 bits, uint8 [rows, W * channels * 2] (big-endian
+    pairs)."""
+    rowbytes = (W * channels * depth + 7) // 8
+    plain = np.zeros((rows, rowbytes), np.uint8)
+    if rows:
+        filtered = np.frombuffer(raw, np.uint8, rows * (rowbytes + 1), off)
+        bad = fastio.lib().imageio_png_unfilter(
+            ptr(np.ascontiguousarray(filtered)), rows, rowbytes,
+            max(1, channels * depth // 8), ptr(plain))
+        if bad:
+            raise OSError(f"{name}: unknown PNG filter type in row {bad}")
+    if depth < 8:
+        bits = np.unpackbits(plain, axis=1).reshape(
+            rows, rowbytes * 8 // depth, depth)
+        vals = np.zeros(bits.shape[:2], np.uint8)
+        for b in range(depth):
+            vals = (vals << 1) | bits[..., b]
+        plain = vals[:, :W * channels]
+    return plain
+
+
 def decode_png(data, truncated_ok=False, name="<bytes>"):
     """The bytes of a PNG file -> Image (see the module docstring)."""
     chunks = _png_chunks(data, name)
@@ -131,14 +164,12 @@ def decode_png(data, truncated_ok=False, name="<bytes>"):
         raise OSError(f"{name}: a PNG file must start with its IHDR")
     W, H, depth, ctype, _, _, interlace = struct.unpack(
         ">IIBBBBB", chunks[0][1][:13])
-    if interlace:
-        raise OSError(f"{name}: interlaced PNG is not supported")
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
     if channels is None or depth not in (1, 2, 4, 8, 16) or (
             ctype != 0 and depth < 8 and ctype != 3) or (
-            ctype == 3 and depth == 16):
+            ctype == 3 and depth == 16) or interlace > 1:
         raise OSError(f"{name}: PNG colour type {ctype} at {depth} bits "
-                      "is not supported")
+                      f"(interlace {interlace}) is not supported")
     palette = None
     idat = []
     for kind, body in chunks[1:]:
@@ -155,32 +186,44 @@ def decode_png(data, truncated_ok=False, name="<bytes>"):
         raw = zlib.decompressobj().decompress(b"".join(idat))
     except zlib.error as e:
         raise OSError(f"{name}: broken PNG data ({e})") from e
-    rowbytes = (W * channels * depth + 7) // 8
-    bpp = max(1, channels * depth // 8)
-    rows = min(H, len(raw) // (rowbytes + 1))
-    truncated = rows < H
+    width = W * channels * (2 if depth == 16 else 1)  # samples a row
+    if not interlace:
+        rows = min(H, len(raw) // ((W * channels * depth + 7) // 8 + 1))
+        truncated = rows < H
+        plain = np.zeros((H, width), np.uint8)
+        plain[:rows] = _unfilter(raw, 0, rows, W, channels, depth, name)
+    else:
+        # each pass a small image of its own, filtered on its own; a pass
+        # cut short keeps its whole rows, the rest of the image zeros
+        plain = np.zeros((H, W, width // W), np.uint8)
+        off, truncated = 0, False
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = -(-(W - x0) // dx), -(-(H - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            rowbytes = (pw * channels * depth + 7) // 8
+            rows = min(ph, (len(raw) - off) // (rowbytes + 1))
+            sub = _unfilter(raw, off, rows, pw, channels, depth, name)
+            plain[y0:y0 + rows * dy:dy, x0::dx] = sub.reshape(
+                rows, pw, width // W)
+            off += rows * (rowbytes + 1)
+            if rows < ph:
+                truncated = True
+                break
+        plain = plain.reshape(H, width)
     if truncated and not truncated_ok:
         raise OSError(f"{_TRUNCATED} ({name})")
-    plain = np.zeros((H, rowbytes), np.uint8)
-    if rows:
-        filtered = np.frombuffer(raw, np.uint8, rows * (rowbytes + 1))
-        bad = fastio.lib().imageio_png_unfilter(
-            ptr(np.ascontiguousarray(filtered)), rows, rowbytes, bpp,
-            ptr(plain))
-        if bad:
-            raise OSError(f"{name}: unknown PNG filter type in row {bad}")
     if depth == 16:
         plain = plain.reshape(H, W * channels, 2)
         if ctype == 0:
             return Image("I;16", (plain[..., 0].astype(np.uint16) << 8) |
                          plain[..., 1], truncated=truncated, bit_depth=16)
         plain = plain[..., 0]  # PIL keeps the high byte of 16-bit colour
+        if ctype == 4:  # and reads 16-bit gray + alpha as RGBA
+            la = plain.reshape(H, W, 2)
+            return Image("RGBA", np.ascontiguousarray(
+                la[..., [0, 0, 0, 1]]), truncated=truncated, bit_depth=16)
     elif depth < 8:
-        bits = np.unpackbits(plain, axis=1).reshape(H, -1, depth)
-        vals = np.zeros(bits.shape[:2], np.uint8)
-        for b in range(depth):
-            vals = (vals << 1) | bits[..., b]
-        plain = vals[:, :W]
         if ctype == 0 and depth == 1:
             return Image("1", plain.astype(bool), truncated=truncated,
                          bit_depth=1)

@@ -11,11 +11,13 @@ the design and its bound on the H100). The UNet reaches it through
 does.
 
 Two entry points: `sdt_mha_f32` and `sdt_mha_bf16` (bf16 q/k/v/out, f32
-logits and sums). Under bf16 both the kernel and `mha_reference` round at
-the JAX kernel's point: the normalized weights to bf16 before the value
-product (the JAX package's ops/attention_kernel.py:57, 81-83), whose sums
-are f32, then the output. The wrapper takes the entry of q's dtype and
-raises on any other dtype.
+logits and sums; `wgmma` and TMA on Hopper). Under bf16 both the kernel
+and `mha_reference` round at the JAX kernel's point: the normalized
+weights to bf16 before the value product (the JAX package's
+ops/attention_kernel.py:57, 81-83), whose sums are f32, then the output;
+past 256 keys the kernel rounds the unnormalized weights and divides
+once at the end, one bf16 rounding a weight either way. The wrapper
+takes the entry of q's dtype and raises on any other dtype.
 
 The forward is also the PyTorch operator `sdt::mha` (CPU: the plain
 version; CUDA: the same ctypes launch; fake: q's shape and dtype), which
@@ -62,8 +64,9 @@ def mha_reference(q, k, v, num_heads, scale=None):
 def check_inputs(q, k, v, num_heads):
     """Raise ValueError unless the kernel takes these arguments: contiguous
     q [B, Nq, H*32] and k = v [B, Nk, H*32] of one dtype, f32 or bf16, on
-    one device, each 16-byte aligned (the kernel stages K and V with
-    16-byte loads)."""
+    one device, each 16-byte aligned (the f32 entry stages K and V with
+    16-byte loads; the bf16 entry's TMA maps need 16-byte-aligned
+    rows)."""
     if q.dim() != 3 or k.dim() != 3 or k.shape[0] != q.shape[0] or \
             k.shape[2] != q.shape[2] or v.shape != k.shape:
         raise ValueError(f"fused_mha: q {tuple(q.shape)} k {tuple(k.shape)}"

@@ -5,8 +5,12 @@ and the references held against the JAX readers as they read the tree
 now, so the fixture cannot go stale.
 
 Every item bit for bit: images, ids, masks, polygons and boxes (the
-images are JPEG-derived through the port's own baseline decoder, which
-gives libjpeg-turbo's bits). The MOVi mask cut to two thirds of its
+images are JPEG-derived through the port's own decoder, which gives
+libjpeg-turbo's bits). The tree holds, recoded in place, a progressive
+image for CelebA, COCO and VOC, progressive, arithmetic-coded and
+arithmetic progressive MOVi frames, an interlaced ClevrTex image and
+mask, and a 16-bit and a tRNS MOVi mask; each is checked to be in its
+format. The MOVi mask cut to two thirds of its
 bytes, which the port refused before it stopped decoding with PIL, gives
 the JAX reader's clip in a process where PIL's truncation flag is off.
 """
@@ -135,6 +139,33 @@ def test_strict_readers_refuse_a_cut_file_and_the_loader_retries(
     both.files = ds.files + both.files
     item = fetch_with_retry(both, 0, seed=0)
     assert item["img"].shape == (128, 128, 3)
+
+
+def _format(path):
+    """A JPEG's SOF marker ("sof=0xc2") or a PNG's IHDR bit depth and
+    interlace method, and whether it has a tRNS chunk."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == b"\xff\xd8":  # walk the segments up to the frame
+        pos = 2
+        while data[pos + 1] not in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+            pos += 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        return "sof=" + hex(data[pos + 1])
+    return (f"depth={data[24]} interlace={data[28]} "
+            f"trns={b'tRNS' in data}")
+
+
+FORMATS = {"progressive": "sof=0xc2", "progressive_transcoded": "sof=0xc2",
+           "arithmetic": "sof=0xc9",
+           "arithmetic_progressive": "sof=0xca",
+           "adam7": "depth=8 interlace=1 trns=False",
+           "16bit": "depth=16 interlace=0 trns=False",
+           "trns": "depth=8 interlace=0 trns=True"}
+
+
+@pytest.mark.parametrize("rel", sorted(FIXTURE["recoded"]))
+def test_the_fixture_holds_each_recoded_format(rel):
+    assert _format(osp.join(ROOT, rel)) == FORMATS[FIXTURE["recoded"][rel]]
 
 
 def test_the_fixture_is_small_and_its_cut_files_are_cut(monkeypatch):
