@@ -602,6 +602,12 @@ VOC_STEPS = 1
 GN_LONG_SHAPES = ((8, 384, 56, 56), (None, 384, 56, 56), (1, 384, 64, 64),
                   (1, 128, 128, 128))
 GN_LONG_TOL = {"f32": 1e-4, "bf16": 2.0 ** -7}
+# 13: the bf16 entry's other routes (GN_LONG_SHAPES' bf16 runs take the
+# bulk route, through shared memory): (B, C, H, W, groups, route), a run
+# of 2,097,152 values, over what shared memory holds (two passes), and
+# runs of 252 values (not a multiple of 8: the register kernel)
+GN_BF16_ROUTE_CASES = ((1, 32, 256, 256, 1, "two_pass"),
+                       (5, 96, 7, 9, 24, "ragged"))
 # 11: the first training step from `init_reference_`, whose zero UNet
 # output conv predicts eps = 0: its loss is the mean square of the
 # Gaussian noise, 1 in expectation with a standard deviation of
@@ -1064,7 +1070,7 @@ def plain_versions(f32_slot_attention):
         ops.reset_launch_counts()
         yield
         torch.cuda.synchronize()
-        if any(ops.launch_counts().values()):
+        if any(launch_counts().values()):
             raise SystemExit("the plain path launched a kernel")
     finally:
         for (mod, attr), fn in saved.items():
@@ -1086,7 +1092,7 @@ class StepReport:
         import torch
         from slotdiffusion_tpu_torch import ops
         torch.cuda.synchronize()
-        counts = ops.launch_counts()
+        counts = launch_counts()
         ops.reset_launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
         if "step_seconds" not in record:
@@ -1209,7 +1215,7 @@ def serve(cfg, model, inputs, phase, f32_seconds=None):
         out = fn()
         torch.cuda.synchronize()
         seconds[name] = time.time() - t0
-        per_surface[name] = counts = ops.launch_counts()
+        per_surface[name] = counts = launch_counts()
         outs = dict(zip(("slots", "masks"), out)) if name == "encode" \
             else {name: out}
         log(f"{phase}: {name} in {seconds[name]:.2f}s" + (
@@ -1363,7 +1369,7 @@ def validate_against_plain(ecfg, model, data, dev, gen, smi, phase, what,
     res_k = trainer.validate()
     torch.cuda.synchronize()
     val_s = time.time() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     n_batches = len(captured)
     log(f"{phase}: Trainer.validate over {what}, EMA on: {val_s:.3f} s wall "
         f"({val_s / n_batches:.3f} s a batch, host metrics included) on "
@@ -1485,7 +1491,7 @@ def evaluate(cfg, model, dev, gen, smi, phase):
         ops.reset_launch_counts()
         out = chunked_video_apply(apply, img, clip, keys=("slots", "masks"))
         torch.cuda.synchronize()
-        per_path["test_seg"] = ops.launch_counts()
+        per_path["test_seg"] = launch_counts()
         carried = apply(img[:, clip:], out["slots"][:, clip - 1])["slots"]
         fresh = apply(img[:, clip:], None)["slots"]
     seg = seg_metrics_fn({"masks": torch.from_numpy(vid["masks"])[None]},
@@ -1521,7 +1527,7 @@ def evaluate(cfg, model, dev, gen, smi, phase):
             use_dpm=True, same_noise=True)["samples"]
         torch.cuda.synchronize()
         rec_s = time.time() - t0
-        per_path["test_recon"] = ops.launch_counts()
+        per_path["test_recon"] = launch_counts()
     x = (samples * 0.5 + 0.5).clamp(0, 1).flatten(0, 1)
     y = (img * 0.5 + 0.5).clamp(0, 1).flatten(0, 1)
     rec = {"mse": M.mse_metric(x, y), "psnr": M.psnr_metric(x, y),
@@ -1665,6 +1671,17 @@ def outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+def launch_counts():
+    """`ops.launch_counts()` and the bf16 GN entry's launches by route
+    (`fused_norm.route_launches`), as "gn_silu_bf16.<route>", both since
+    the last `ops.reset_launch_counts()`."""
+    from slotdiffusion_tpu_torch import ops
+    from slotdiffusion_tpu_torch.ops import fused_norm
+    return {**ops.launch_counts(), **{
+        "gn_silu_bf16." + e.rsplit(".", 1)[1]: n
+        for e, n in fused_norm.route_launches.items()}}
+
+
 def nonzero(counts):
     return {k: n for k, n in counts.items() if n}
 
@@ -1727,7 +1744,7 @@ def serve_graphed(cfg, model, inputs, phase, per_path, failed):
         ops.reset_launch_counts()
         eager(*args[what])
         torch.cuda.synchronize()
-        e_counts = ops.launch_counts()
+        e_counts = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         graphed(*args[what])  # warm-up and capture
@@ -1737,7 +1754,7 @@ def serve_graphed(cfg, model, inputs, phase, per_path, failed):
         ops.reset_launch_counts()
         g_out = graphed(*args[what])
         torch.cuda.synchronize()
-        counts[what] = g_counts = ops.launch_counts()
+        counts[what] = g_counts = launch_counts()
         same = compare(f"{phase}: graphed {what}", g_out, e_out, failed)
         log(f"{phase}: {what} graphed vs eager {same}; host s (median of "
             f"{GRAPH_REQUESTS}): eager {e_s:.4f}, graphed {g_s:.4f} "
@@ -1749,7 +1766,7 @@ def serve_graphed(cfg, model, inputs, phase, per_path, failed):
                        path_kernels(cfg.use_bf16)[2:] if what == "encode"
                        else path_kernels(cfg.use_bf16)[:2])
     per_path[f"{tag}graphed_serving"] = {
-        k: sum(c[k] for c in counts.values()) for k in ops.launch_counts()}
+        k: sum(c[k] for c in counts.values()) for k in launch_counts()}
     if not cfg.use_bf16:
         # in-place weight updates are read by the graph; a parameter whose
         # storage moves drops it
@@ -1797,7 +1814,7 @@ def serve_graphed(cfg, model, inputs, phase, per_path, failed):
             ops.reset_launch_counts()
             a_out = call(*example)
             torch.cuda.synchronize()
-            a_counts = ops.launch_counts()
+            a_counts = launch_counts()
             # a client's bf16 `sample`/`denoise` request sends f32 slots,
             # which the graphed requests above did not: one new graph
             fn(*example)
@@ -1807,7 +1824,7 @@ def serve_graphed(cfg, model, inputs, phase, per_path, failed):
             ops.reset_launch_counts()
             g_out = fn(*example)
             torch.cuda.synchronize()
-            g_counts = ops.launch_counts()
+            g_counts = launch_counts()
             same = compare(f"{phase}: {what} artifact", a_out, g_out, failed)
             loaded[what] = (path, example, a_out)
             per_path[f"{tag}artifact_{what}"] = a_counts
@@ -1868,7 +1885,7 @@ def serve_graphed(cfg, model, inputs, phase, per_path, failed):
             if not (same and code == 400 and health["status"] == "ok"):
                 failed.append(f"{phase}: HTTP {what}")
         torch.cuda.synchronize()
-        per_path[f"{tag}http"] = ops.launch_counts()
+        per_path[f"{tag}http"] = launch_counts()
     log(f"{phase}: launches over the graphed requests "
         f"{nonzero(per_path[f'{tag}graphed_serving'])}, the HTTP requests "
         f"{nonzero(per_path[f'{tag}http'])}")
@@ -1941,7 +1958,7 @@ def train_stage1(cfg, dev, tmp, smi, phase):
     t0 = time.time()
     trainer.fit(max_steps=STAGE1_STEPS, san_check_val_step=0)
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = launch_counts()
     log(f"{phase}: Trainer.fit(max_steps={STAGE1_STEPS}) at {B} frames a "
         f"step took {time.time() - t0:.1f}s (host clock; validate and "
         f"ckpt_last included); launches {counts}")
@@ -2098,7 +2115,7 @@ def stage1(smi, dev, gen, phase="phase 9"):
                                   f"{phase} (stage 2)")
         per_path["stage2_serving"] = {
             k: sum(c[k] for c in per_surface.values())
-            for k in ops.launch_counts()}
+            for k in launch_counts()}
         tcfg = scfg.copy(print_iter=1)
         data = SyntheticVideoData(tcfg, STAGE2_CLIPS,
                                   num_samples=STAGE2_CLIPS, seed=0)
@@ -2109,7 +2126,7 @@ def stage1(smi, dev, gen, phase="phase 9"):
         ops.reset_launch_counts()
         metrics = trainer.train_step(batch)
         torch.cuda.synchronize()
-        per_path["stage2_training"] = counts = ops.launch_counts()
+        per_path["stage2_training"] = counts = launch_counts()
         log(f"{phase} (stage 2): one training step at {STAGE2_CLIPS} clips: "
             f"denoise_loss {metrics['train/denoise_loss']:.5f}, "
             f"{metrics['step_seconds']:.3f} s; launches {counts}")
@@ -2223,7 +2240,7 @@ def run_sampler(model, kind, name, kw, twin_frames, video, dev, phase):
         end.record()
         torch.cuda.synchronize()
         wall = time.time() - t0
-        counts = ops.launch_counts()
+        counts = launch_counts()
     n_calls = len(calls)
     bf16 = kind == "bf16"
     gn, attn = ("gn_silu_bf16", "attention_bf16") if bf16 else \
@@ -2333,7 +2350,7 @@ def pixel_sample_surface(model, dev, phase, failed):
             out = fn(3, slots)
         torch.cuda.synchronize()
         secs = time.time() - t0
-        counts = ops.launch_counts()
+        counts = launch_counts()
         name = "graphed" if graphed else "eager"
         outs[name] = out
         paths[f"pixel_{name}_sample"] = counts
@@ -2388,7 +2405,7 @@ def samplers(smi, dev, phase="phase 10"):
             f"{type(model.dm_decoder).__name__} over "
             f"{cfg.dec_dict['resolution']} x {model.dm_decoder.channels}, "
             f"T = {model.dm_decoder.num_timesteps}")
-        total = dict.fromkeys(ops.launch_counts(), 0)
+        total = dict.fromkeys(launch_counts(), 0)
         for name, k, kw, twin in SAMPLER_RUNS:
             if k != kind:
                 continue
@@ -2522,7 +2539,7 @@ def fit_checked(model, tcfg, data, phase, steps, bf16=False, need=None,
         (f" [{smi}]" if smi else ""))
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         raise SystemExit(f"{phase}: training losses {losses}")
-    totals = dict.fromkeys(ops.launch_counts(), 0)
+    totals = dict.fromkeys(launch_counts(), 0)
     for st in report.steps:
         check_launches(st["launches"], f"{phase}: a training step", bf16,
                        need)
@@ -2608,11 +2625,13 @@ def image_requests(model, inputs, phase, smi):
             out = fn()
             torch.cuda.synchronize()
             secs = time.time() - t0
-            counts = ops.launch_counts()
+            counts = launch_counts()
             if not graphed:
                 n = calls[0]
                 want = {"slot_attention": 1 if name == "encode" else 0,
                         gn: GN_PER_UNET * n, attn: ATTN_PER_UNET * n}
+                if bf16:  # every GN call of the model takes the bulk route
+                    want[f"{gn}.bulk"] = GN_PER_UNET * n
                 want = dict(dict.fromkeys(counts, 0), **want)
                 if name == "encode":
                     slots = out[0]
@@ -2757,7 +2776,7 @@ def images(smi, dev, gen, phase="phase 11"):
         got = graphed(0, slots16)
         torch.cuda.synchronize()
         secs = time.time() - t0
-        counts = ops.launch_counts()
+        counts = launch_counts()
     fails = []
     verdict = compare("bf16 graphed sample", got, want, fails)
     log(f"{phase}: bf16 graphed sample of {IMG_SERVE} images in {secs:.3f} "
@@ -2848,7 +2867,7 @@ def baseline_validate(model, tcfg, data, phase, want, per_batch, smi):
     res = trainer.validate()
     torch.cuda.synchronize()
     secs = time.time() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     n = len(data.val_loader())
     log(f"{phase}: Trainer.validate over {n} batches of {BASE_EVAL_BATCH} "
         f"synthetic clips in {secs:.3f} s wall [{smi}]: " +
@@ -3064,7 +3083,7 @@ def baselines(smi, dev, gen, phase="phase 12"):
             outs.append(fn(video))
             torch.cuda.synchronize()
             secs[f"steve_encode{'_graphed' * graphed}"] = time.time() - t0
-            counts.append(ops.launch_counts())
+            counts.append(launch_counts())
         fails = []
         verdict = compare(f"{phase}: STEVE graphed encode", outs[1],
                           outs[0], fails)
@@ -3137,62 +3156,81 @@ def baselines(smi, dev, gen, phase="phase 12"):
 
 
 def gn_long(gen, dev, phase, train_batch):
-    """The GN kernel's two-pass path at GN_LONG_SHAPES, f32 and bf16 entry
-    (SiLU on), against its plain version: relative error within
-    GN_LONG_TOL, two calls bit-identical; the first shape in f32 timed
-    beside the plain version, `F.silu(F.group_norm)` and the bounds (the
-    function's: x read and y written once; the design's: x read twice).
-    -> that shape's numbers. Raises SystemExit if any disagrees."""
+    """The GN kernel's runs over 32,768 values at GN_LONG_SHAPES (the f32
+    entry's two-pass path, the bf16 entry's bulk route), and the bf16
+    entry's two-pass and ragged routes at GN_BF16_ROUTE_CASES, SiLU on,
+    against the plain version: relative error within GN_LONG_TOL, two
+    calls bit-identical, each bf16 call on the route `bf16_route` names;
+    the first shape in f32 timed beside the plain version,
+    `F.silu(F.group_norm)` and the bounds (the function's: x read and y
+    written once; the design's: x read twice). -> that shape's numbers.
+    Raises SystemExit if any disagrees."""
     import torch
     import torch.nn.functional as F
     from slotdiffusion_tpu_torch.ops import fused_norm
     failed, res = [], None
-    for B, C, H, W in GN_LONG_SHAPES:
-        B = B or train_batch
-        L = C // 32 * H * W
+    cases = [(B or train_batch, C, H, W, 32, dname)
+             for B, C, H, W in GN_LONG_SHAPES for dname in ("f32", "bf16")]
+    cases += [(B, C, H, W, G, "bf16")
+              for B, C, H, W, G, _ in GN_BF16_ROUTE_CASES]
+    want = {tuple(case[:5]): case[5] for case in GN_BF16_ROUTE_CASES}
+    for B, C, H, W, G, dname in cases:
+        dt = torch.float32 if dname == "f32" else torch.bfloat16
+        entry = fused_norm.ENTRY[dt]
+        L = C // G * H * W
         chunk, count = fused_norm.long_plan(L)
-        for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            x = (torch.randn(B, C, H, W, generator=gen, device=dev) * 2 +
-                 0.5).to(dt)
-            w = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
-            b = 0.1 * torch.randn(C, generator=gen, device=dev)
-            kern = lambda: fused_norm.fused_group_norm(x, w, b, 32, 1e-5,
-                                                       "silu")
-            plain = lambda: fused_norm.group_norm_reference(x, w, b, 32,
-                                                            1e-5, "silu")
-            y, y2, ref = kern(), kern(), plain()
-            same = torch.equal(y, y2)
-            abs_err = (y.float() - ref.float()).abs().max().item()
-            rel = abs_err / ref.float().abs().max().item()
-            ok = same and rel <= GN_LONG_TOL[dname]
-            log(f"{phase}: gn_silu two-pass ({B}, {C}, {H}, {W}) {dname}: "
-                f"{L} values a group in {count} chunks of {chunk}; max rel "
-                f"err {rel:.3e} (tol {GN_LONG_TOL[dname]:.1e}), two calls "
-                f"{'bit-identical' if same else 'DIFFER'} "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                failed.append(f"({B}, {C}, {H}, {W}) {dname}")
-            if res is None and dname == "f32":
-                n = x.numel()
-                k_t, p_t = timed(kern), timed(plain)
-                l_t = timed(lambda: F.silu(F.group_norm(x, 32, w, b, 1e-5)))
-                terms = bound_terms(2 * n * 4 + 2 * C * 4, f32_ops=10 * n)
-                design = 1e3 * (3 * n * 4 + 2 * C * 4) / HBM_BYTES_PER_S
-                res = dict(shape=[B, C, H, W], group=L, chunk=chunk,
-                           chunks=count, ms=k_t[0], event_ms=k_t[1],
-                           plain_ms=p_t[0], library_ms=l_t[0],
-                           bound_ms=max(terms),
-                           bound_by="bytes" if terms[0] >= terms[1]
-                           else "operations",
-                           design_bound_ms=design, max_abs_err=abs_err)
-                log(f"{phase}: gn_silu two-pass ({B}, {C}, {H}, {W}) f32 "
-                    f"device (event) ms: kernel {k_t[0]:.4f} ({k_t[1]:.4f}),"
-                    f" plain {p_t[0]:.4f}, library {l_t[0]:.4f}, bound "
-                    f"{max(terms):.4f} (x and y once), design bound "
-                    f"{design:.4f} (x read twice)")
+        x = (torch.randn(B, C, H, W, generator=gen, device=dev) * 2 +
+             0.5).to(dt)
+        w = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
+        b = 0.1 * torch.randn(C, generator=gen, device=dev)
+        kern = lambda: fused_norm.fused_group_norm(x, w, b, G, 1e-5, "silu")
+        plain = lambda: fused_norm.group_norm_reference(x, w, b, G, 1e-5,
+                                                        "silu")
+        before = dict(fused_norm.route_launches)
+        y, y2, ref = kern(), kern(), plain()
+        taken = [r for r in fused_norm.ROUTES
+                 if fused_norm.route_launches.get(f"{entry}.{r}", 0) >
+                 before.get(f"{entry}.{r}", 0)]
+        route = "two_pass" if dname == "f32" else want.get((B, C, H, W, G),
+                                                          "bulk")
+        same = torch.equal(y, y2)
+        abs_err = (y.float() - ref.float()).abs().max().item()
+        rel = abs_err / ref.float().abs().max().item()
+        ok = same and rel <= GN_LONG_TOL[dname] and (
+            dname == "f32" or taken == [route] == [fused_norm.bf16_route(
+                L, x.data_ptr() % 16 == 0)])
+        how = {"two_pass": f"in {count} chunks of {chunk}",
+               "ragged": "in registers",
+               "bulk": "through shared memory"}[route]
+        log(f"{phase}: gn_silu ({B}, {C}, {H}, {W}) G={G} {dname}: {L} "
+            f"values a group, route {route} {how}"
+            f"{f' (launched: {taken})' if dname == 'bf16' else ''}; max rel "
+            f"err {rel:.3e} (tol {GN_LONG_TOL[dname]:.1e}), two calls "
+            f"{'bit-identical' if same else 'DIFFER'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"({B}, {C}, {H}, {W}) G={G} {dname}")
+        if res is None and dname == "f32":
+            n = x.numel()
+            k_t, p_t = timed(kern), timed(plain)
+            l_t = timed(lambda: F.silu(F.group_norm(x, 32, w, b, 1e-5)))
+            terms = bound_terms(2 * n * 4 + 2 * C * 4, f32_ops=10 * n)
+            design = 1e3 * (3 * n * 4 + 2 * C * 4) / HBM_BYTES_PER_S
+            res = dict(shape=[B, C, H, W], group=L, chunk=chunk,
+                       chunks=count, ms=k_t[0], event_ms=k_t[1],
+                       plain_ms=p_t[0], library_ms=l_t[0],
+                       bound_ms=max(terms),
+                       bound_by="bytes" if terms[0] >= terms[1]
+                       else "operations",
+                       design_bound_ms=design, max_abs_err=abs_err)
+            log(f"{phase}: gn_silu two-pass ({B}, {C}, {H}, {W}) f32 "
+                f"device (event) ms: kernel {k_t[0]:.4f} ({k_t[1]:.4f}),"
+                f" plain {p_t[0]:.4f}, library {l_t[0]:.4f}, bound "
+                f"{max(terms):.4f} (x and y once), design bound "
+                f"{design:.4f} (x read twice)")
     if failed:
-        raise SystemExit(f"{phase}: the GN two-pass path disagrees: "
-                         f"{failed}")
+        raise SystemExit(f"{phase}: the GN long runs or bf16 routes "
+                         f"disagree: {failed}")
     return res
 
 
@@ -3434,7 +3472,7 @@ def vp_encode(cfg, dev, gen, phase):
         out = chunked_video_apply(apply, video, clip, keys=keys)
         torch.cuda.synchronize()
         secs = time.time() - t0
-        counts = ops.launch_counts()
+        counts = launch_counts()
     for hk in handles:
         hk.remove()
     check_launches(counts, f"{phase}: encode", False,
@@ -3565,7 +3603,7 @@ def vp_decode(model, past, gt, roll, dev, gen, phase, smi):
         end.record()
         torch.cuda.synchronize()
         secs = time.time() - t0
-        counts = ops.launch_counts()
+        counts = launch_counts()
     for hk in handles:
         hk.remove()
     unet_launches(counts, len(calls), 0, f"{phase}: decode")
@@ -3683,7 +3721,7 @@ def vp_vqa(smi, dev, gen, phase="phase 14"):
         rolled = interleaved_rollout(slots, model.rollout, VP_OBS, hist, off)
         torch.cuda.synchronize()
         roll_s = time.time() - t0
-        paths["vp_rollout"] = ops.launch_counts()
+        paths["vp_rollout"] = launch_counts()
         want = interleaved_rollout(slots[:1].cpu(), cpu.rollout, VP_OBS,
                                    hist, off)
     rel = ((rolled[:1].cpu() - want).abs().max() /
@@ -3729,7 +3767,7 @@ def vp_vqa(smi, dev, gen, phase="phase 14"):
     ops.reset_launch_counts()
     res = trainer.validate()
     torch.cuda.synchronize()
-    paths["readout_validate"] = ops.launch_counts()
+    paths["readout_validate"] = launch_counts()
     accs = {k: v for k, v in res.items() if "/acc_" in k}
     val = next(iter(data.val_loader()))
     cpu = build_model(rcfg, device="cpu")
@@ -3912,7 +3950,7 @@ def run_fit(trainer, report, phase, label):
     torch.cuda.synchronize()
     fit_s = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
-    totals = dict.fromkeys(ops.launch_counts(), 0)
+    totals = dict.fromkeys(launch_counts(), 0)
     for st in report.steps:
         check_launches(st["launches"], f"{phase} {label}: a step", False)
         for k, n in st["launches"].items():
@@ -3964,7 +4002,7 @@ def settings(smi, dev, phase="phase 15"):
                     warmup_steps_pct=0.0, save_interval=1000.0,
                     save_epoch_end=False)
     data = SyntheticVideoData(base, batch, num_samples=4 * batch, seed=0)
-    paths = {"settings_optimizers": dict.fromkeys(ops.launch_counts(), 0)}
+    paths = {"settings_optimizers": dict.fromkeys(launch_counts(), 0)}
     failed = []  # checks that failed; the phase runs on and raises last
     for name, wd, lr_x in SETTINGS_OPTIMIZERS:
         model.load_state_dict(init)
@@ -4034,7 +4072,7 @@ def settings(smi, dev, phase="phase 15"):
 
     # async against blocking saves: SAVE_STEPS steps, a save after each
     blocked = {}
-    paths["settings_async_ckpt"] = dict.fromkeys(ops.launch_counts(), 0)
+    paths["settings_async_ckpt"] = dict.fromkeys(launch_counts(), 0)
     for flag in (False, True):
         model.load_state_dict(init)
         tcfg = base.copy(async_ckpt=flag, save_interval=1.0 / len(data),
@@ -4121,7 +4159,7 @@ def settings(smi, dev, phase="phase 15"):
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        outs, counts = {}, dict.fromkeys(ops.launch_counts(), 0)
+        outs, counts = {}, dict.fromkeys(launch_counts(), 0)
         for which, m in (("original", model), ("converted", fresh)):
             encode, denoise = (build_serving_fn(m, s) for s in PTH_CHECKS)
             slots, masks = encode(video)
@@ -4131,7 +4169,7 @@ def settings(smi, dev, phase="phase 15"):
             slots, masks = encode(video)  # replays, counted
             d = denoise(x_t, t_model, slots)
             torch.cuda.synchronize()
-            for k, n in ops.launch_counts().items():
+            for k, n in launch_counts().items():
                 counts[k] += n
             outs[which] = (slots, masks, d)
     finally:
@@ -4251,7 +4289,7 @@ def evaluation(smi, dev, gen, phase="phase 16"):
         slots = encode_slots(model, cfg, video)
         torch.cuda.synchronize()
         secs["encode"] = time.time() - t0
-        paths["comp_gen_encode"] = ops.launch_counts()
+        paths["comp_gen_encode"] = launch_counts()
     for hk in handles:
         hk.remove()
     unet_launches(paths["comp_gen_encode"], 0, T, f"{phase}: encode")
@@ -4282,7 +4320,7 @@ def evaluation(smi, dev, gen, phase="phase 16"):
         end.record()
         torch.cuda.synchronize()
         secs["decode"] = time.time() - t0
-        paths["comp_gen_decode"] = ops.launch_counts()
+        paths["comp_gen_decode"] = launch_counts()
     for hk in handles:
         hk.remove()
     unet_launches(paths["comp_gen_decode"], len(calls), 0,
@@ -4426,7 +4464,7 @@ def metrics_and_recon(cfg, model, video, frames, dev, smi, tmp, paths,
                                else "", total=len(batches))
             torch.cuda.synchronize()
             secs[f"test_recon_{run}"] = time.time() - t0
-            counts = ops.launch_counts()
+            counts = launch_counts()
         paths[f"test_recon_{run}"] = counts
         text = out.getvalue()
         print(text, end="", flush=True)
@@ -4490,7 +4528,7 @@ def visualise(cfg, model, dev, smi, tmp, paths, phase):
                                vdir)
         torch.cuda.synchronize()
         secs["viz_video"] = time.time() - t0
-        paths["viz_video"] = ops.launch_counts()
+        paths["viz_video"] = launch_counts()
     n_calls = len(calls)
     del calls
     unet_launches(paths["viz_video"], n_calls, VIZ_FRAMES,
@@ -4526,7 +4564,7 @@ def visualise(cfg, model, dev, smi, tmp, paths, phase):
     viz.build_viz_fn(scfg)(fake, {"img": imgs.cpu()}, out, VIZ_STEP, idir)
     torch.cuda.synchronize()
     secs["viz_image"] = time.time() - t0
-    paths["viz_image"] = ops.launch_counts()
+    paths["viz_image"] = launch_counts()
     unet_launches(paths["viz_image"], 0, 1, f"{phase}: viz (image)")
     h, w = scfg.resolution
     grid = (3 * h + 4, n * w, 3)
@@ -4554,7 +4592,7 @@ def visualise(cfg, model, dev, smi, tmp, paths, phase):
     res = trainer.validate(max_steps=1)
     torch.cuda.synchronize()
     secs["validate_with_viz"] = time.time() - t0
-    paths["viz_validate"] = ops.launch_counts()
+    paths["viz_validate"] = launch_counts()
     vz = os.path.join(ckp, "viz")
     files = sorted(os.listdir(vz)) if os.path.isdir(vz) else []
     ok = files == ["step0_recon.png", "step0_slots.png"] and read_back(
@@ -4909,7 +4947,7 @@ def scale_out(smi, dev, phase="phase 17"):
             ref_losses = [st["train/total_loss"] for st in ref.steps]
             paths["scale_out_reference"] = {
                 k: sum(st["launches"][k] for st in ref.steps)
-                for k in ops.launch_counts()}
+                for k in launch_counts()}
             runs = [dict(name="ddp", backend="nccl", world=count, tp=1,
                          clips=SCALE_CLIPS)]
             if count >= 2:
@@ -5042,7 +5080,7 @@ def scale_out(smi, dev, phase="phase 17"):
             answers[where] = (slots, masks, denoised,
                               calls["sample"](0, slots))
         torch.cuda.synchronize()
-        paths["cross_export"] = ops.launch_counts()
+        paths["cross_export"] = launch_counts()
         check_launches(paths["cross_export"], f"{phase}: the artifacts",
                        False)
         same = [torch.equal(a, b) for a, b in zip(answers["cpu"],
@@ -5152,7 +5190,7 @@ def sizing_steps(trainer, batch, what):
     peak = aot.step_peak(trainer, batch)
     seconds = time.time() - t
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = launch_counts()
     want = {k: n * SIZING_STEPS for k, n in LAUNCHES_PER_STEP.items()}
     if {k: counts[k] for k in want} != want:
         raise SystemExit(f"{what}: launches {counts}, want {want}")
@@ -5739,7 +5777,7 @@ def main():
     for xw, ww in wino_inputs:
         winograd_conv.winograd_conv3x3(xw, ww)
     torch.cuda.synchronize()
-    per_path = {"winograd_conv3x3": ops.launch_counts()}
+    per_path = {"winograd_conv3x3": launch_counts()}
     log(f"phase 3: launches through winograd_conv3x3 "
         f"{per_path['winograd_conv3x3']}")
 
@@ -5755,7 +5793,7 @@ def main():
     per_surface, surface_seconds, slots = serve(cfg, model, inputs,
                                                 "phase 4")
     per_path["serving"] = {k: sum(c[k] for c in per_surface.values())
-                           for k in ops.launch_counts()}
+                           for k in launch_counts()}
     log(f"phase 4: launches on the serving path {per_path['serving']}")
 
     # the same model on the CPU runs the plain versions: one denoise frame
@@ -5818,7 +5856,7 @@ def main():
     per_surface16, _, slots = serve(cfg16, model, inputs, "phase 7",
                                     surface_seconds)
     per_path["bf16_serving"] = {k: sum(c[k] for c in per_surface16.values())
-                                for k in ops.launch_counts()}
+                                for k in launch_counts()}
     bf16_vs_plain(model, inputs, slots)
     per_path["bf16_training"], bf16_train, _ = train(
         cfg16, model, dev, gen, "phase 7", step_seconds)
@@ -5893,6 +5931,16 @@ def main():
     # ---- 20. report -----------------------------------------------------
     mark("20")
     mods = {m.KERNEL_NAME: m for m in ops.KERNEL_MODULES}
+    # the bf16 GN entry's launches by route on each path that launched it,
+    # which add up to its launches there
+    routes = {s: {r: c.get(f"gn_silu_bf16.{r}", 0) for r in fused_norm.ROUTES}
+              for s, c in per_path.items() if c.get("gn_silu_bf16")}
+    if any(sum(n.values()) != per_path[s]["gn_silu_bf16"]
+           for s, n in routes.items()):
+        raise SystemExit(f"the bf16 GN launches by route do not add up to "
+                         f"its launches on each path: {routes}")
+    log("phase 20: bf16 GN launches by route on each path: " + ", ".join(
+        f"{s} {nonzero(n)}" for s, n in routes.items()))
     kernels = []
     for name, r in results.items():
         m = mods[name]
@@ -6002,6 +6050,10 @@ def main():
             # the plain version, the bound and the kernel's error
             **({} if name != "attention_bf16" else {
                 f"sdpa_bf16_{k}": v for k, v in sdpa.items()}),
+            # GN's bf16 launches by route on each path that launched it
+            # (phase 13 gives each route a case of its own)
+            **({} if name != "gn_silu_bf16" else {
+                "launches_by_route": routes}),
         })
     log("phase times (s, in run order): " + ", ".join(
         f"{p} {t:.1f}" for p, t in phase_times()))

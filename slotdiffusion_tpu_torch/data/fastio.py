@@ -169,8 +169,9 @@ def _png_mask_as_libpng(img, chunks):
     simplified API reads the file into PNG_FORMAT_GRAY (the JAX package's
     native/fastio.cpp:228-260): 1-, 2- and 4-bit values expanded to 8 bits
     (1 to 255), 16-bit values through the 16-to-8 gamma table (the top
-    11 bits, or the sBIT chunk's significant bits when fewer), and the
-    tRNS chunk's transparent value composited onto black, 0."""
+    11 bits, or the sBIT chunk's significant bits when fewer), the
+    tRNS chunk's transparent value composited onto black, 0, and an Adam7
+    16-bit file without tRNS in libpng's rows (`_adam7_16bit_rows`)."""
     arr = img.array
     if img.mode == "1":
         arr = arr.astype(np.uint8) * 255
@@ -192,7 +193,30 @@ def _png_mask_as_libpng(img, chunks):
     arr = np.ascontiguousarray(arr, np.uint8)
     if transparent is not None:
         arr = np.where(transparent, np.uint8(0), arr)
+    elif img.bit_depth == 16 and body[b"IHDR"][12]:
+        arr = _adam7_16bit_rows(arr)
     return arr
+
+
+def _adam7_16bit_rows(arr):
+    """The rows libpng 1.6's simplified API returns for an Adam7 16-bit
+    gray PNG without tRNS (with tRNS it takes another path and returns the
+    file's rows): as if each row of passes 1-6 were written into row 0
+    (its own columns, pass after pass) and each row r of pass 7 into rows
+    r and r + 1. So every odd row is the file's, every even row r >= 2 is
+    row r - 1, and column c of row 0 is the last row of the last of
+    passes 1-6 that holds column c. A function of the file alone: the
+    same on every height and width, in every process, whatever the output
+    buffer held (tests/test_torch_imageio.py holds it against the JAX
+    native path)."""
+    from .imageio import ADAM7
+    H = arr.shape[0]
+    out = arr.copy()
+    out[2::2] = arr[1:H - 1:2]
+    for x0, y0, dx, dy in ADAM7[:6]:
+        if y0 < H:
+            out[0, x0::dx] = arr[y0 + (H - 1 - y0) // dy * dy, x0::dx]
+    return out
 
 
 def decode_png_mask(path, res):

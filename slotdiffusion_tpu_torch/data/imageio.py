@@ -128,6 +128,22 @@ def _png_chunks(data, name):
     return chunks
 
 
+def png_opens(data):
+    """Whether PIL's `Image.open` takes these PNG bytes: the signature, and
+    every chunk before the first IDAT whole, with that IDAT's length and
+    type (where `open` stops reading; the image data is read later, at
+    the decode)."""
+    if data[:8] != PNG_SIGNATURE:
+        return False
+    pos = 8
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if kind == b"IDAT":
+            return True
+        pos += 12 + n
+    return False
+
+
 # Adam7: (first column, first row, column step, row step) of each pass
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))

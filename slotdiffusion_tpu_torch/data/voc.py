@@ -9,9 +9,10 @@ masks' 255 void ring becomes background, instance ids are made
 consecutive. The files decode, resize, crop and flip as PIL does them
 for the JAX dataset (`data/imageio.py`; the masks' palette indices kept).
 An image that cannot be read, or whose data ends early, raises
-`SampleError`; a mask file that is missing does too, while a mask whose
-data ends early raises OSError, as the JAX dataset's lazy PIL decode
-does.
+`SampleError`; a mask file that is missing, or that ends before its
+image data, does too (where the JAX dataset's PIL `open` fails), while a
+mask whose image data ends early raises OSError, as the JAX dataset's
+lazy PIL decode does.
 """
 
 import os.path as osp
@@ -101,6 +102,8 @@ class VOCDataset(Dataset):
                 data = f.read()
         except (FileNotFoundError, OSError) as e:
             raise SampleError(str(e))
+        if not imageio.png_opens(data):  # where PIL's open fails
+            raise SampleError(f"{path}: the file ends before its image data")
         m = imageio.decode_png(data, name=path).array
         m = imageio.resize_to_cover(m, self.resolution, nearest=True)
         m = imageio.crop(m, box)

@@ -18,9 +18,15 @@ KERNEL_MODULES = (fused_norm, attention_kernel, slot_attention_kernel,
 REFERENCE_PACKAGE = __name__.split(".")[0].removesuffix("_torch")
 
 
+def _counters(mod):
+    return (mod.launches, *((mod.route_launches,)
+                            if hasattr(mod, "route_launches") else ()))
+
+
 def reset_launch_counts():
     for mod in KERNEL_MODULES:
-        mod.launches.update(dict.fromkeys(mod.launches, 0))
+        for c in _counters(mod):
+            c.update(dict.fromkeys(c, 0))
 
 
 def launch_counts():
@@ -35,9 +41,10 @@ def launch_counts():
 
 
 def launches_by_entry():
-    """{C entry point: launches since the last reset}."""
-    return {entry: n for mod in KERNEL_MODULES
-            for entry, n in mod.launches.items()}
+    """{C entry point: launches since the last reset}, and the routes of
+    an entry that counts them (`fused_norm.route_launches`)."""
+    return {entry: n for mod in KERNEL_MODULES for c in _counters(mod)
+            for entry, n in c.items()}
 
 
 def launches_since(before):
@@ -50,5 +57,6 @@ def launches_since(before):
 def add_launches(delta):
     """Add {C entry point: launches} to the counts."""
     for mod in KERNEL_MODULES:
-        for entry in mod.launches:
-            mod.launches[entry] += delta.get(entry, 0)
+        for c in _counters(mod):
+            for entry in c:
+                c[entry] += delta.get(entry, 0)

@@ -8,8 +8,8 @@ per-group mean and biased variance in f32, the affine folded into
 
 Layout: the port's modules are NCHW, where the channels of one group are
 contiguous, so one (sample, group) is one contiguous run of
-`C/G * H * W` values; the kernel holds a run of up to MAX_GROUP values in
-registers, so x is read once and y written once. A longer run (the
+`C/G * H * W` values; the f32 kernel holds a run of up to MAX_GROUP
+values in registers, so x is read once and y written once. A longer run (the
 UNet's 384-channel norm at 56x56 latents, the pixel decoder at 64x64)
 takes the kernel's two-pass path: `long_plan` splits it into chunks of
 at most LONG_CHUNK values, a first kernel writes each chunk's mean and
@@ -21,6 +21,18 @@ and y, f32 affine and statistics, y rounded once on the store: the JAX
 kernel writes `o_ref.dtype`, bf16 under `use_bf16`). The wrapper takes the
 one of x's dtype and raises on any other dtype; `group_norm_reference`,
 which rounds once to x's dtype, is the plain twin of both.
+
+The bf16 entry has three routes (`bf16_route`): "bulk", runs of a
+multiple of 8 values, at most BULK_MAX_RUN, on 16-byte aligned x and y,
+read once into shared memory by bulk copies and reduced there by teams
+of threads, on a plan the launch computes from the call's shape and the
+card (`bulk_plan` in csrc/gn_bulk_plan.cuh); "two_pass" for longer runs
+(`long_plan`); "ragged" for the rest (the f32 entry's register kernel,
+on bf16). `route_launches` counts its launches by route.
+
+Under programmatic dependent launch a kernel reads nothing before the
+kernel ahead of it on the stream has completed: x, weight and bias may
+all be that kernel's output.
 
 The wrapper's host work a call is the checks, one `torch.empty_like` and
 one ctypes call; the autograd.Function is entered only when a gradient
@@ -45,10 +57,15 @@ REPLACES = "ops/fused_norm.py:53"  # in the JAX package
 MAX_GROUP = 32768  # values of one (sample, group) the kernel holds
 LONG_CHUNK = 8192  # at most this many values a chunk of the long path
 
+BULK_MAX_RUN = 98304  # bf16 values of a run the bulk route holds
+
 ENTRY = {torch.float32: "sdt_group_norm_f32",
          torch.bfloat16: "sdt_group_norm_bf16"}
 # kernel launches since ops.reset_launch_counts(), by entry point
 launches = dict.fromkeys(ENTRY.values(), 0)
+# the bf16 entry's launches by route, counted and reset with `launches`
+ROUTES = ("bulk", "two_pass", "ragged")
+route_launches = {f"sdt_group_norm_bf16.{r}": 0 for r in ROUTES}
 
 
 def group_norm_reference(x, weight, bias, num_groups, eps=1e-5, act=None):
@@ -79,6 +96,15 @@ def long_plan(L):
     return chunk, -(-L // chunk)
 
 
+def bf16_route(L, aligned):
+    """The bf16 entry's route for runs of L values; `aligned`: x and y
+    16-byte aligned. The kernel takes the same one (`bulk_route` in
+    csrc/gn_bulk_plan.cuh, else the f32 entry's choice by MAX_GROUP)."""
+    if aligned and L % 8 == 0 and L <= BULK_MAX_RUN:
+        return "bulk"
+    return "two_pass" if L > MAX_GROUP else "ragged"
+
+
 def check_inputs(x, weight, bias, num_groups, act):
     """Raise ValueError unless the kernel takes these arguments: a
     contiguous f32 or bf16 NCHW tensor, f32 [C] affine on its device, whole
@@ -102,14 +128,17 @@ def check_inputs(x, weight, bias, num_groups, act):
 
 @_cuda.traced("sdt::group_norm")
 def _launch(x, weight, bias, num_groups, eps, act):
-    """The CUDA kernel on a CUDA `x`; a run over MAX_GROUP values gets the
-    long path's plan and workspace."""
+    """The CUDA kernel on a CUDA `x`; a run over MAX_GROUP values off the
+    bulk route gets the long path's plan and workspace."""
     check_inputs(x, weight, bias, num_groups, act)
     B, C, H, W = x.shape
     y = torch.empty_like(x)
     L = C // num_groups * H * W
     work, chunk = None, 0
-    if L > MAX_GROUP:
+    route = "two_pass" if L > MAX_GROUP else None
+    if x.dtype == torch.bfloat16:
+        route = bf16_route(L, (x.data_ptr() | y.data_ptr()) % 16 == 0)
+    if route == "two_pass":
         chunk, count = long_plan(L)
         work = torch.empty(B * num_groups * count * 2, dtype=torch.float32,
                            device=x.device)
@@ -121,6 +150,8 @@ def _launch(x, weight, bias, num_groups, eps, act):
         _cuda.stream_ptr(x.device))
     _cuda.check(err, entry)
     launches[entry] += 1
+    if x.dtype == torch.bfloat16:
+        route_launches[f"{entry}.{route}"] += 1
     return y
 
 

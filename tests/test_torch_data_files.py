@@ -126,6 +126,53 @@ def test_truncated_mask_reads_as_the_jax_reader_with_the_flag_off(
     assert (got["masks"][2] == 0).all(1).any()
 
 
+@pytest.mark.parametrize("where", ["signature", "palette", "idat_header",
+                                   "image_data", "checksum"])
+def test_voc_cut_mask_reads_as_the_jax_reader(tmp_path, caches, monkeypatch,
+                                             where):
+    """A VOC mask cut short, in a process where PIL's truncation flag is
+    off (as the JAX VOC module leaves it). Where the file ends before its
+    image data, the JAX reader's PIL `open` fails and it raises
+    SampleError (the loader takes another index), and so does the port's;
+    where the image data ends early, the JAX reader's lazy decode raises
+    OSError at `np.asarray`, and so does the port's; cut in the zlib
+    checksum, both read the whole mask."""
+    import shutil
+    from slotdiffusion_tpu.data.loader import SampleError as JaxSampleError
+    from slotdiffusion_tpu.data.voc import VOCDataset as JaxVOC
+    from slotdiffusion_tpu_torch.data import imageio
+    from slotdiffusion_tpu_torch.data.voc import VOCDataset
+    root = str(tmp_path / "voc")
+    shutil.copytree(osp.join(ROOT, "voc"), root)
+    kw = dict(data_root=root, resolution=(64, 64), split="val")
+    mask = VOCDataset(**kw).semsegs[0]
+    assert mask == JaxVOC(**kw).semsegs[0]
+    with open(mask, "rb") as f:
+        data = f.read()
+    idat = data.index(b"IDAT") - 4  # the chunk's length field
+    body = idat + 8
+    n = int.from_bytes(data[idat:idat + 4], "big")
+    cut = {"signature": 5, "palette": 100, "idat_header": body - 1,
+           "image_data": body + n // 2, "checksum": body + n - 2}[where]
+    with open(mask, "wb") as f:
+        f.write(data[:cut])
+    assert imageio.png_opens(data[:cut]) == (cut >= body)
+    monkeypatch.setattr(ImageFile, "LOAD_TRUNCATED_IMAGES", False)
+    if cut < body:
+        with pytest.raises(JaxSampleError):
+            JaxVOC(**kw)[0]
+        with pytest.raises(SampleError):
+            VOCDataset(**kw)[0]
+    elif where == "image_data":
+        with pytest.raises(OSError, match="truncated"):
+            JaxVOC(**kw)[0]
+        with pytest.raises(OSError, match="truncated"):
+            VOCDataset(**kw)[0]
+    else:
+        ref, got = JaxVOC(**kw)[0], VOCDataset(**kw)[0]
+        for key in ("masks", "inst_masks", "img"):
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+
 def test_strict_readers_refuse_a_cut_file_and_the_loader_retries(
         caches, no_pil):
     """The CelebA test image is cut to half its bytes: the reader raises

@@ -472,6 +472,46 @@ def test_png_mask_takes_the_jax_native_path(tmp_path):
                                           ref, err_msg=name)
 
 
+
+def _png_chunk(kind, body):
+    return (struct.pack(">I", len(body)) + kind + body +
+            struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+@pytest.mark.parametrize("variant", ["plain", "sbit", "trns", "sbit_trns"])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 7), (7, 1), (2, 2), (2, 5),
+                                   (3, 3), (5, 3), (6, 9), (9, 11), (7, 8),
+                                   (16, 16), (32, 7), (33, 64)])
+def test_interlaced_16bit_mask_reads_as_libpng(tmp_path, shape, variant):
+    """An Adam7 16-bit gray mask through the JAX native path (libpng
+    1.6's simplified API) and the port's `decode_png_mask`, bit for bit:
+    without tRNS libpng does not return the file's rows (every even row
+    is the row above it, row 0 the last rows of passes 1-6), with tRNS it
+    does; sBIT changes the gamma table. At native size and two resizes."""
+    if not jax_fastio.fastio_available():
+        pytest.skip("the JAX package's native decode does not build here")
+    H, W = shape
+    r = np.random.RandomState(H * 100 + W)
+    key = 30000
+    if "trns" in variant:  # few values, the transparent one among them
+        px = r.choice([0, 257, 4000, key, 65535], (H, W))
+    else:
+        px = r.randint(0, 65536, (H, W))
+    data = encode_png_adam7(px, depth=16, trns=struct.pack(">H", key)
+                            if "trns" in variant else None)
+    if "sbit" in variant:  # after IHDR: 8 bytes of signature, 25 of IHDR
+        data = data[:33] + _png_chunk(b"sBIT", b"\x09") + data[33:]
+    path = str(tmp_path / "m.png")
+    with open(path, "wb") as f:
+        f.write(data)
+    for size in [(H, W), (max(1, H // 2), max(1, W // 3)),
+                 (2 * H + 3, 2 * W + 1)]:
+        ref = jax_fastio.decode_png_mask(path, size)
+        assert ref is not None
+        np.testing.assert_array_equal(fastio.decode_png_mask(path, size),
+                                      ref, err_msg=str(size))
+
+
 # ---- conversions and resizes ---------------------------------------------
 
 CONVERSIONS = [(src, dst) for src in ("P", "RGBA", "LA", "L", "1", "RGB")
